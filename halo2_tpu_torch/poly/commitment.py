@@ -1,0 +1,424 @@
+"""IPA polynomial commitment scheme (Halo-style, transparent setup).
+
+Port of halo2_tpu/poly/commitment.py (halo2_proofs/src/poly/
+commitment.rs + msm.rs, prover.rs, verifier.rs). The SRS bases live on
+the device as [48, n] projective batches with Z = mont 1 (identity
+(0 : R : 0)), so rows 0-31 are the coded-affine batch the mixed-add
+bucket kernel takes. On CUDA every commitment runs the device Pippenger
+(ops/msm_pippenger.py); there is no host-MSM threshold.
+
+Setup (SRS generation, the g_lagrange group iNTT, decompression), the
+verifier's final MSM and the IPA L/R rounds run in the port's copy of
+the native host library (curves/native.py), as in the reference at
+these sizes. The device IPA rounds (halo2_tpu/ops/ipa_device.py) are a
+later slice of the port.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..fields.host import FieldSpec, batch_invert
+from ..fields.device import DeviceField, NLIMBS, from_mont
+from ..curves.host import CurveSpec, Point
+from ..curves.sswu import hash_to_curve
+from ..curves import native
+from ..ops.field_kernels import fmul, fadd, fsub
+from ..ops.point_kernels import points_to_proj
+from ..ops import msm_pippenger as mp
+from .utils import eval_poly, powers
+
+# Memory ceiling of one batched commit: the Pippenger gathers a sorted
+# point copy per (column, window) row -- 192 B x G x n in the segmented
+# scan -- so columns are chunked to keep G*n (G = columns x windows)
+# under 2^26, about 13 GB of that gather on an 80 GB card.
+COMMIT_GN_BUDGET = 1 << 26
+
+
+class Params:
+    """Transparent SRS for one curve and size 2^k, with its device copy."""
+
+    def __init__(self, curve: CurveSpec, k: int, g: list[Point],
+                 g_lagrange: list[Point], w: Point, u: Point, device=None):
+        assert k < 32
+        self.device = resolve_device(device)
+        self.curve = curve
+        self.k = k
+        self.n = 1 << k
+        self.g = g
+        self.g_lagrange = g_lagrange
+        self.w = w
+        self.u = u
+        self.scalar_df = DeviceField(curve.scalar)
+        self.base_df = DeviceField(curve.base)
+        self.g_dev = points_to_proj(self.base_df, g, self.device)
+        self.g_lagrange_dev = points_to_proj(self.base_df, g_lagrange,
+                                             self.device)
+
+    # ----------------- construction -----------------
+    @classmethod
+    def new(cls, curve: CurveSpec, k: int, device=None) -> "Params":
+        """SRS via hash_to_curve("Halo2-Parameters") with messages
+        [0, i_le4] / [1] / [2] (commitment.rs:38-114), in the native
+        library."""
+        device = resolve_device(device)
+        n = 1 << k
+        g = native.native_srs_g(curve, "Halo2-Parameters", n)
+        if g is False:
+            raise RuntimeError("the native pasta library (g++) is required "
+                               "for SRS generation")
+        w = hash_to_curve(curve, "Halo2-Parameters", b"\x01")
+        u = hash_to_curve(curve, "Halo2-Parameters", b"\x02")
+        fs = curve.scalar
+        omega = pow(fs.root_of_unity, 1 << (fs.s - k), fs.modulus)
+        omega_inv = pow(omega, fs.modulus - 2, fs.modulus)
+        minv = pow(n, fs.modulus - 2, fs.modulus)
+        g_lagrange = native.native_group_ntt(curve, g, omega_inv, minv)
+        return cls(curve, k, g, g_lagrange, w, u, device)
+
+    # ----------------- serialization (commitment.rs:169-205) ------------
+    def write(self) -> bytes:
+        out = bytearray()
+        out += int(self.k).to_bytes(4, "little")
+        for pt in self.g:
+            out += self.curve.to_bytes(pt)
+        for pt in self.g_lagrange:
+            out += self.curve.to_bytes(pt)
+        out += self.curve.to_bytes(self.w)
+        out += self.curve.to_bytes(self.u)
+        return bytes(out)
+
+    @classmethod
+    def read(cls, curve: CurveSpec, data: bytes, device=None) -> "Params":
+        k = int.from_bytes(data[:4], "little")
+        if k >= 32:
+            raise ValueError(f"SRS k={k} out of range (k < 32)")
+        n = 1 << k
+        if len(data) < 4 + 32 * (2 * n + 2):
+            raise ValueError(f"truncated SRS buffer for k={k}")
+        pts = native.native_decompress_many(
+            curve, data[4:4 + 32 * (2 * n + 2)])
+        if pts is False:
+            raise RuntimeError("the native pasta library (g++) is required")
+        return cls(curve, k, pts[:n], pts[n:2 * n], pts[2 * n],
+                   pts[2 * n + 1], device)
+
+    # ----------------- commitments -----------------
+    def commit(self, coeffs_mont: torch.Tensor, blind: int) -> Point:
+        assert coeffs_mont.shape[0] == self.n
+        return self.commit_many([coeffs_mont], [blind], lagrange=False)[0]
+
+    def commit_lagrange(self, values_mont: torch.Tensor, blind: int) -> Point:
+        assert values_mont.shape[0] == self.n
+        return self.commit_many([values_mont], [blind], lagrange=True)[0]
+
+    def commit_many(self, polys_mont: list, blinds: list[int],
+                    lagrange: bool) -> list[Point]:
+        """m same-basis commitments in one batched device Pippenger: the
+        m scalar vectors share the bases, so they only widen the lanes of
+        every round. [blind]w is added on the host."""
+        m = len(polys_mont)
+        if m == 0:
+            return []
+        c = mp.pick_c(self.n)
+        w_cnt = -(-256 // c)
+        m_chunk = max(1, (COMMIT_GN_BUDGET // self.n) // w_cnt)
+        bases = self.g_lagrange_dev if lagrange else self.g_dev
+        fs = self.curve.scalar
+        out = []
+        for i in range(0, m, m_chunk):
+            vals = torch.stack(polys_mont[i:i + m_chunk], dim=0)
+            digits = from_mont(self.scalar_df, vals)
+            pts = mp.msm_many(self.curve, self.base_df, digits, bases, c=c)
+            for pt, b in zip(pts, blinds[i:i + m_chunk]):
+                b %= fs.modulus
+                if b:
+                    pt = self.curve.add(pt, self.curve.mul(self.w, b))
+                out.append(pt)
+        return out
+
+    def empty_msm(self) -> "MSMAccumulator":
+        return MSMAccumulator(self)
+
+
+DEFAULT_BLIND = 1  # Blind::default() == ONE (commitment.rs:209-216)
+
+
+class MSMAccumulator:
+    """Deferred linear combination of commitments -- the verifier's whole
+    state (poly/commitment/msm.rs:10-170): host-side symbolic algebra with
+    sign-aware merging keyed on x; `eval()` runs one host MSM."""
+
+    def __init__(self, params: Params):
+        self.params = params
+        self.fs = params.curve.scalar
+        self.g_scalars: list[int] | None = None
+        self.w_scalar: int | None = None
+        self.u_scalar: int | None = None
+        self.other: dict[int, tuple[int, int]] = {}  # x -> (scalar, y)
+
+    def clone(self) -> "MSMAccumulator":
+        c = MSMAccumulator(self.params)
+        c.g_scalars = None if self.g_scalars is None else list(self.g_scalars)
+        c.w_scalar = self.w_scalar
+        c.u_scalar = self.u_scalar
+        c.other = dict(self.other)
+        return c
+
+    def append_term(self, scalar: int, point: Point) -> None:
+        if point is None:
+            return
+        x, y = point
+        q = self.fs.modulus
+        if x in self.other:
+            s, oy = self.other[x]
+            if oy == y:
+                self.other[x] = ((s + scalar) % q, oy)
+            else:
+                assert oy == self.params.curve.base.neg(y)
+                self.other[x] = ((s - scalar) % q, oy)
+        else:
+            self.other[x] = (scalar % q, y)
+
+    def add_msm(self, other: "MSMAccumulator") -> None:
+        for x, (s, y) in other.other.items():
+            self.append_term(s, (x, y))
+        if other.g_scalars is not None:
+            self.add_to_g_scalars(other.g_scalars)
+        if other.w_scalar is not None:
+            self.add_to_w_scalar(other.w_scalar)
+        if other.u_scalar is not None:
+            self.add_to_u_scalar(other.u_scalar)
+
+    def add_constant_term(self, constant: int) -> None:
+        if self.g_scalars is None:
+            self.g_scalars = [0] * self.params.n
+        self.g_scalars[0] = (self.g_scalars[0] + constant) % self.fs.modulus
+
+    def add_to_g_scalars(self, scalars: list[int]) -> None:
+        assert len(scalars) == self.params.n
+        q = self.fs.modulus
+        if self.g_scalars is None:
+            self.g_scalars = [s % q for s in scalars]
+        else:
+            self.g_scalars = [(a + b) % q
+                              for a, b in zip(self.g_scalars, scalars)]
+
+    def add_to_w_scalar(self, scalar: int) -> None:
+        self.w_scalar = ((self.w_scalar or 0) + scalar) % self.fs.modulus
+
+    def add_to_u_scalar(self, scalar: int) -> None:
+        self.u_scalar = ((self.u_scalar or 0) + scalar) % self.fs.modulus
+
+    def scale(self, factor: int) -> None:
+        q = self.fs.modulus
+        if self.g_scalars is not None:
+            self.g_scalars = [s * factor % q for s in self.g_scalars]
+        self.other = {x: (s * factor % q, y)
+                      for x, (s, y) in self.other.items()}
+        if self.w_scalar is not None:
+            self.w_scalar = self.w_scalar * factor % q
+        if self.u_scalar is not None:
+            self.u_scalar = self.u_scalar * factor % q
+
+    def eval(self) -> bool:
+        """One host MSM over the flattened terms; True iff it is the
+        identity."""
+        scalars: list[int] = []
+        bases: list[Point] = []
+        for x in sorted(self.other):   # BTreeMap iteration order
+            s, y = self.other[x]
+            scalars.append(s)
+            bases.append((x, y))
+        if self.w_scalar is not None:
+            scalars.append(self.w_scalar)
+            bases.append(self.params.w)
+        if self.u_scalar is not None:
+            scalars.append(self.u_scalar)
+            bases.append(self.params.u)
+        if self.g_scalars is not None:
+            scalars.extend(self.g_scalars)
+            bases.extend(self.params.g)
+        if not scalars:
+            return True
+        return self.params.curve.msm(scalars, bases) is None
+
+
+# ---------------------------------------------------------------------------
+# IPA open (commitment/prover.rs:27-152)
+# ---------------------------------------------------------------------------
+
+def ipa_create_proof(params: Params, rng, transcript,
+                     p_poly_mont: torch.Tensor, p_blind: int, x3: int
+                     ) -> None:
+    """Open `p_poly` (coeff basis) at x3; the transcript already holds P,
+    v, x3. The S commitment and P' run on the device; every L/R round
+    runs in the native session (the reference does the same for rounds
+    with half <= 8192, i.e. all of them at k <= 14)."""
+    df = params.scalar_df
+    fs = params.curve.scalar
+    n, k = params.n, params.k
+    q = fs.modulus
+    dev = p_poly_mont.device
+    assert p_poly_mont.shape[0] == n
+
+    # random poly S with a root at x3 (prover.rs:45-58)
+    s_vals = [fs.rand(rng) for _ in range(n)]
+    s_at_x3 = 0
+    for v in reversed(s_vals):
+        s_at_x3 = (s_at_x3 * x3 + v) % q
+    s_vals[0] = (s_vals[0] - s_at_x3) % q
+    s_poly = df.upload_values(s_vals, dev)
+    s_blind = fs.rand(rng)
+    transcript.write_point(params.commit(s_poly, s_blind))
+
+    xi = transcript.squeeze_challenge()
+    z = transcript.squeeze_challenge()
+
+    # P' = xi S + P, minus v = P'(x3) in the constant term (prover.rs:69-78)
+    p_prime = fadd(df, fmul(df, s_poly, df.scalar(xi, dev)), p_poly_mont)
+    v = eval_poly(df, p_prime, x3)
+    p_prime = torch.cat([fsub(df, p_prime[0:1], df.scalar(v, dev)),
+                         p_prime[1:]], dim=0)
+    f = (s_blind * xi + p_blind) % q
+    b = powers(df, x3, n, dev)
+
+    sess = _start_native_ipa(params, p_prime, b)
+    cur = params.curve
+    for _ in range(k):
+        l_pt, r_pt, value_l, value_r = sess.round()
+        l_rand = fs.rand(rng)
+        r_rand = fs.rand(rng)
+        # L_j += [v_l z] U + [l_rand] W
+        l_pt = cur.add(l_pt, cur.add(cur.mul(params.u, value_l * z % q),
+                                     cur.mul(params.w, l_rand)))
+        r_pt = cur.add(r_pt, cur.add(cur.mul(params.u, value_r * z % q),
+                                     cur.mul(params.w, r_rand)))
+        transcript.write_point(l_pt)
+        transcript.write_point(r_pt)
+        u_j = transcript.squeeze_challenge()
+        u_j_inv = fs.inv(u_j)
+        sess.fold(u_j, u_j_inv)
+        f = (f + l_rand * u_j_inv + r_rand * u_j) % q
+
+    transcript.write_scalar(sess.final_c())
+    transcript.write_scalar(f)
+
+
+def _start_native_ipa(params: Params, p_prime: torch.Tensor,
+                      b: torch.Tensor):
+    """Hand p', b and G' = the SRS g to the native session, in Montgomery
+    form (the device's R = 2^256 matches the library's)."""
+    if native._load() is None:
+        raise RuntimeError("the native pasta library (g++) is required for "
+                           "the IPA rounds")
+    cached = getattr(params, "_g_native", None)
+    if cached is None:
+        g = params.g_dev.cpu().numpy()
+        g_inf = np.array([pt is None for pt in params.g], np.uint8)
+        cached = params._g_native = (np.ascontiguousarray(g[:NLIMBS].T),
+                                     np.ascontiguousarray(g[NLIMBS:32].T),
+                                     g_inf)
+    gx, gy, g_inf = cached
+    pb = torch.stack([p_prime, b]).cpu().numpy()
+    return native.NativeIpaSession(params.curve, pb[0], pb[1], gx, gy, g_inf)
+
+
+# ---------------------------------------------------------------------------
+# IPA verify (commitment/verifier.rs:66-171)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Accumulator:
+    g: Point
+    u_packed: list[int]
+
+
+class Guard:
+    """Deferred final check with two exits (commitment/verifier.rs:13-60)."""
+
+    def __init__(self, msm_acc: MSMAccumulator, neg_c: int, u: list[int]):
+        self.msm = msm_acc
+        self.neg_c = neg_c
+        self.u = u
+
+    def use_challenges(self) -> MSMAccumulator:
+        s = compute_s(self.msm.fs, self.u, self.neg_c)
+        self.msm.add_to_g_scalars(s)
+        return self.msm
+
+    def use_g(self, g: Point) -> tuple[MSMAccumulator, Accumulator]:
+        self.msm.append_term(self.neg_c, g)
+        return self.msm, Accumulator(g=g, u_packed=list(self.u))
+
+    def compute_g(self) -> Point:
+        """G = <s, params.g> (host MSM)."""
+        params = self.msm.params
+        s = compute_s(self.msm.fs, self.u, 1)
+        return params.curve.msm(s, params.g)
+
+
+class OpeningError(Exception):
+    pass
+
+
+def ipa_verify_proof(params: Params, msm_acc: MSMAccumulator, transcript,
+                     x: int, v: int) -> Guard:
+    fs = params.curve.scalar
+    k = params.k
+    msm_acc.add_constant_term((-v) % fs.modulus)
+    s_commitment = transcript.read_point()
+    xi = transcript.squeeze_challenge()
+    msm_acc.append_term(xi, s_commitment)
+    z = transcript.squeeze_challenge()
+
+    rounds = []
+    for _ in range(k):
+        l = transcript.read_point()
+        r = transcript.read_point()
+        u_j = transcript.squeeze_challenge()
+        rounds.append((l, r, u_j))
+    u_invs = batch_invert(fs, [u_j for (_, _, u_j) in rounds])
+
+    u = []
+    for (l, r, u_j), u_j_inv in zip(rounds, u_invs):
+        msm_acc.append_term(u_j_inv, l)
+        msm_acc.append_term(u_j, r)
+        u.append(u_j)
+
+    c = transcript.read_scalar()
+    neg_c = (-c) % fs.modulus
+    f = transcript.read_scalar()
+    b = compute_b(fs, x, u)
+
+    msm_acc.add_to_u_scalar(neg_c * b % fs.modulus * z % fs.modulus)
+    msm_acc.add_to_w_scalar((-f) % fs.modulus)
+    return Guard(msm_acc, neg_c, u)
+
+
+def compute_b(fs: FieldSpec, x: int, u: list[int]) -> int:
+    """prod (1 + u_{k-1-i} x^{2^i}) (commitment/verifier.rs:145-153)."""
+    q = fs.modulus
+    tmp, cur = 1, x
+    for u_j in reversed(u):
+        tmp = tmp * (1 + u_j * cur) % q
+        cur = cur * cur % q
+    return tmp
+
+
+def compute_s(fs: FieldSpec, u: list[int], init: int) -> list[int]:
+    """Coefficients of g(X) = prod (1 + u_{k-1-i} X^{2^i}), scaled by init
+    (commitment/verifier.rs:156-171)."""
+    q = fs.modulus
+    v = [0] * (1 << len(u))
+    v[0] = init % q
+    length = 1
+    for u_j in reversed(u):
+        for i in range(length):
+            v[length + i] = v[i] * u_j % q
+        length *= 2
+    return v

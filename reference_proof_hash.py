@@ -1,0 +1,58 @@
+"""Record the JAX reference's proof hash for chip_smoke.py.
+
+Proves BenchCircuit (halo2_tpu_torch/bench_circuit.py) with the JAX
+package halo2_tpu at 2^k rows, at the fixed witness and RNG seed that
+chip_smoke.py uses, and prints the sha256 of the proof bytes. It lives
+outside halo2_tpu_torch because it imports the reference, which the port
+never does. Run on a CPU, from the repository root:
+
+    JAX_PLATFORMS=cpu python reference_proof_hash.py --k 14
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import random
+import time
+
+from halo2_tpu_torch.bench_circuit import (bench_circuit_class, regions_for_k,
+                                           expected_output, SEED_A,
+                                           PROOF_SEED)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--k", type=int, default=14)
+    args = ap.parse_args()
+    # commit on the reference's exact host MSM: the group elements, hence
+    # the proof bytes, are the same as through its device Pippenger. The
+    # reference reads this when halo2_tpu.ops.msm is first imported.
+    os.environ.setdefault("HALO2_TPU_HOST_MSM_THRESHOLD", str(1 << 30))
+    from halo2_tpu.curves import PALLAS
+    from halo2_tpu.transcript import TranscriptWrite
+    from halo2_tpu.poly import Params
+    from halo2_tpu.poly.polynomial import Rotation
+    from halo2_tpu.circuit import Circuit, Value
+    from halo2_tpu.plonk import keygen_vk, keygen_pk, create_proof
+
+    t0 = time.perf_counter()
+    regions = regions_for_k(args.k)
+    fs = PALLAS.scalar
+    circuit = bench_circuit_class(Circuit, Value, Rotation, fs)(
+        SEED_A, regions)
+    params = Params.new(PALLAS, args.k, use_cache=False)
+    vk = keygen_vk(params, circuit)
+    pk = keygen_pk(params, vk, circuit)
+    tw = TranscriptWrite(PALLAS)
+    create_proof(params, pk, [circuit],
+                 [[[expected_output(fs, SEED_A, regions)]]],
+                 random.Random(PROOF_SEED), tw)
+    proof = tw.finalize()
+    print(f"k={args.k} regions={regions} proof_bytes={len(proof)} "
+          f"seconds={time.perf_counter() - t0:.1f}")
+    print(hashlib.sha256(proof).hexdigest())
+
+
+if __name__ == "__main__":
+    main()

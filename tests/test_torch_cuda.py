@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain PyTorch versions, and a
+small proof on the card against the same proof on the CPU. These tests
+need an NVIDIA GPU and skip elsewhere. The machine with the card has no
+JAX, so this file imports none and runs without tests/conftest.py:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from halo2_tpu_torch.bench_circuit import BenchCircuit, expected_output
+from halo2_tpu_torch.curves.host import PALLAS
+from halo2_tpu_torch.curves.native import native_srs_g
+from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
+from halo2_tpu_torch.ops import field_kernels as fk
+from halo2_tpu_torch.ops import msm_pippenger as mp
+from halo2_tpu_torch.ops import point_kernels as pk
+from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
+from halo2_tpu_torch.plonk.prover import create_proof
+from halo2_tpu_torch.plonk.verifier import verify_proof, SingleVerifier
+from halo2_tpu_torch.poly.commitment import Params
+from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is "
+                    "false")
+    return torch.device("cuda")
+
+
+def _field_operands(df, n, seed):
+    rng = np.random.default_rng(seed)
+    p = df.spec.modulus
+    vals = [int.from_bytes(rng.bytes(32), "little") % p
+            for _ in range(n - 3)] + [0, 1, p - 1]
+    return torch.from_numpy(df.to_mont_np(vals))
+
+
+@pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
+def test_field_kernels_match_plain(cuda, df):
+    a = _field_operands(df, 4099, 1)
+    b = _field_operands(df, 4099, 2)
+    b[-3:] = a[-1]
+    for kern, plain in ((fk.fmul, fk.fmul_plain), (fk.fadd, fk.fadd_plain),
+                        (fk.fsub, fk.fsub_plain)):
+        before = dict(fk.LAUNCHES)
+        got = kern(df, a.to(cuda), b.to(cuda)).cpu()
+        assert fk.LAUNCHES != before
+        assert torch.equal(got, plain(df, a, b))
+        # a broadcast row and a scalar operand
+        rows = a[:4096].view(16, 256, 16)
+        assert torch.equal(kern(df, rows.to(cuda), b[:256].to(cuda)).cpu(),
+                           plain(df, rows, b[:256]))
+        assert torch.equal(kern(df, a.to(cuda), b[5].to(cuda)).cpu(),
+                           plain(df, a, b[5]))
+
+
+def test_point_kernels_match_plain(cuda):
+    df = FP_DEV
+    rng = np.random.default_rng(3)
+    L = 1000
+    pts = native_srs_g(PALLAS, "torch-cuda-test", 3 * L)
+    ones = torch.ones(L, dtype=torch.int32)
+    a = pk.padd_masked_plain(df, pk.points_to_proj(df, pts[:L], "cpu"),
+                             pk.points_to_proj(df, pts[L:2 * L], "cpu"),
+                             ones)
+    a[:, :7] = pk.ident_col(df, "cpu")[:, None]
+    b_pts = pts[2 * L:]
+    b_pts[10:17] = [None] * 7
+    b = pk.points_to_proj(df, b_pts, "cpu")
+    b[:, 20] = a[:, 20]
+    mask = torch.from_numpy((rng.random(L) < 0.8).astype(np.int32))
+    signs = torch.from_numpy((rng.random(L) < 0.5).astype(np.int32))
+    got = pk.padd_masked_flat(df, a.to(cuda), b.to(cuda), mask.to(cuda))
+    assert torch.equal(got.cpu(), pk.padd_masked_plain(df, a, b, mask))
+    aff = b[:32].contiguous()
+    got = pk.pmixed_masked_flat(df, a.to(cuda), aff.to(cuda),
+                                mask.to(cuda), signs.to(cuda))
+    assert torch.equal(got.cpu(),
+                       pk.pmixed_masked_plain(df, a, aff, mask, signs))
+
+
+def test_msm_on_the_card_matches_host(cuda):
+    n = 1024
+    pts = native_srs_g(PALLAS, "torch-cuda-test", n)
+    pts[3] = None
+    q = PALLAS.scalar.modulus
+    rng = np.random.default_rng(4)
+    cols = [[int.from_bytes(rng.bytes(32), "little") % q
+             for _ in range(n)], [0] * n, [q - 1] * n]
+    proj = pk.points_to_proj(FP_DEV, pts, cuda)
+    digits = torch.from_numpy(np.stack([ints_to_digits(c) for c in cols]))
+    got = mp.msm_many(PALLAS, FP_DEV, digits.to(cuda), proj)
+    assert got == [PALLAS.msm(c, pts) for c in cols]
+
+
+def test_proof_on_the_card_equals_the_cpu_proof(cuda):
+    k, regions = 5, 10
+    out = expected_output(PALLAS.scalar, 5, regions)
+    proofs = []
+    for dev in ("cpu", cuda):
+        params = Params.new(PALLAS, k, device=dev)
+        circuit = BenchCircuit(5, regions)
+        vk = keygen_vk(params, circuit)
+        pk_ = keygen_pk(params, vk, circuit)
+        tw = TranscriptWrite(PALLAS)
+        create_proof(params, pk_, [circuit], [[[out]]], random.Random(9), tw)
+        proofs.append(tw.finalize())
+        verify_proof(params, vk, SingleVerifier(params), [[[out]]],
+                     TranscriptRead(PALLAS, proofs[-1]))
+    assert proofs[0] == proofs[1]
