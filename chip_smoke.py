@@ -7,21 +7,34 @@ Phases (any failure exits non-zero):
   3. kernel B1 (Montgomery multiply) and the field add/sub kernel against
      their plain PyTorch versions, bit-exact, 2^20 operands + edges, both
      fields;
-  4. kernels B2 (masked mixed add) and B3 (masked complete add) against
-     their plain versions, bit-exact, at the lane count of a k=14 commit,
-     with random masks and signs and identity-coded bases;
-  5. k=14 commits (random, all-zero, all-equal columns) against the native
-     host MSM, exact affine equality;
-  6. the main path at k=14: Params.new, keygen_vk, keygen_pk, create_proof
+  4. the main path at k=14: Params.new, keygen_vk, keygen_pk, create_proof
      twice (cold, warm), verify_proof, a wrong public input rejected, and
      the proof's sha256 against the JAX reference's recorded hash;
-  7. the warm k=14 prove once more under torch.profiler: device time by
+  5. kernels B2 (masked mixed add) and B3 (masked complete add) against
+     their plain versions, bit-exact, at the lane count of a k=14 commit,
+     with random masks and signs and identity-coded bases; B4 (complete
+     add), B5 (doubling) and B6 (masked doubling) likewise at 2^17 lanes
+     (k=18's first IPA fold) and 8,192 lanes (k=14's), with identity
+     lanes, B4 lanes with a == b and a random B6 mask;
+  6. k=14 commits (random, all-zero, all-equal columns) against the native
+     host MSM, exact affine equality;
+  7. the device window combine (B5, B4) against the host one on the
+     window sums of a k=14 MSM;
+  8. the warm k=14 prove once more under torch.profiler: device time by
      kernel and the device's busy share of the wall time;
-  8. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
-     reference was run at, and its proof's sha256 against that run's;
-  9. a `kernels` JSON line: launches on the main path, mismatches, each
-     kernel's device time per launch (torch.profiler) beside its bound,
-     the wrapper's time per call (CUDA events) and the plain version's;
+  9. the device IPA path at k=14: create_proof with every IPA round on
+     the card (native_ipa_threshold=0), cold and warm, verified, its
+     sha256 against the same JAX hash, its launches, and the warm prove
+     profiled;
+ 10. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
+     reference was run at, at the default IPA schedule (four device
+     rounds, then native; cold, then warm), with every round native and
+     with every round on the card; each proof's sha256 against that
+     run's; the default and the all-device proves profiled;
+ 11. a `kernels` JSON line: launches on the path that runs each kernel
+     (main or ipa), mismatches, each kernel's device time per launch
+     (torch.profiler) beside its bound, the wrapper's time per call
+     (CUDA events) and the plain version's;
 and, last, {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -44,6 +57,10 @@ REF_SHA256 = {
     18: "87c0cff028bdb678cd0b99461464b033d82e345153d261b8573b55c145515abe",
 }
 REF_K = 18
+# kernels of the main path (the default IPA schedule at k=14 runs every
+# IPA round natively); B4 and B5 run on the device IPA path (phase_ipa),
+# B6 on no path
+MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_masked", "padd_masked")
 
 # the card's peaks (H100 SXM at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -85,14 +102,20 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     wrapper's host work between launches."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import profile, ProfilerActivity
+    from torch.profiler import profile, ProfilerActivity, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    # one warm-up step before the recorded one: device tracing that starts
+    # with the window can miss its first launches, and a window of a few
+    # ms can then show none at all
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     total, count = 0.0, 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and kernel in ev.key:
@@ -267,6 +290,107 @@ def phase_points(results, params):
         raise AssertionError(f"point kernel mismatches {mism}")
 
 
+def _rand_points(params, L, rng):
+    """[48, L] projective batch with Z != 1: sums of two random SRS
+    points."""
+    import torch
+    from halo2_tpu_torch.ops import point_kernels as pk
+    g = params.g_dev
+    idx = torch.as_tensor([rng.randrange(params.n) for _ in range(2 * L)],
+                          device=params.device)
+    return pk.padd_plain(params.base_df, g[:, idx[:L]], g[:, idx[L:]])
+
+
+def phase_add_double(results, params, lanes=(1 << 17, 1 << 13)):
+    """B4, B5, B6 against their plain versions at 2^17 lanes (k=18's first
+    IPA fold) and 8,192 lanes (k=14's); device time at both, the wrapper
+    and plain times at the last (the [ipa] path's first fold)."""
+    import torch
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = params.device
+    df = params.base_df
+    rng = random.Random(14)
+    ident = pk.ident_col(df, dev)
+    mism = {"padd": 0, "pdouble": 0, "pdouble_masked": 0}
+    err = dict(mism)
+    for L in lanes:
+        A = _rand_points(params, L, rng)
+        A[:, :64] = ident[:, None]                    # identity lanes
+        B = _rand_points(params, L, rng)
+        B[:, 32:96] = ident[:, None]
+        B[:, 200:264] = A[:, 200:264]                 # a == b: doubling
+        mask = torch.as_tensor([rng.random() < 0.5 for _ in range(L)],
+                               device=dev).to(torch.int32)
+        live = int(mask.sum())
+        cases = (
+            ("padd", lambda: pk.padd_flat(df, A, B),
+             lambda: pk.padd_plain(df, A, B),
+             L * 3 * 192, L * 12 * MONT_MULADDS),
+            ("pdouble", lambda: pk.pdouble_flat(df, A),
+             lambda: pk.pdouble_plain(df, A),
+             L * 2 * 192, L * 8 * MONT_MULADDS),
+            ("pdouble_masked", lambda: pk.pdouble_masked_flat(df, A, mask),
+             lambda: pk.pdouble_masked_plain(df, A, mask),
+             L * (2 * 192 + 4), live * 8 * MONT_MULADDS))
+        for name, fn, plain, nbytes, muladds in cases:
+            got, want = fn(), plain()
+            mism[name] += int((got != want).any(dim=0).sum())
+            err[name] = max(err[name], max_abs(got, want))
+            torch.cuda.synchronize()
+            ms = device_ms(fn, 50, name + "_kernel")
+            bd, by = bound_ms(nbytes, muladds)
+            log(f"[points] {name} L={L}: {ms:.5f} ms on the device "
+                f"(bound {bd:.5f} ms by {by})")
+            r = results[name]
+            r[f"ms_L{L}"] = ms
+            r[f"bound_ms_L{L}"] = bd
+            if L == lanes[-1]:
+                call_ms = timed(fn, 50)
+                pms = timed(plain, 3)
+                r.update(ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
+                         bound_by=by, shape=[48, L])
+                log(f"[points] {name} L={L}: {call_ms:.4f} ms per wrapper "
+                    f"call, plain {pms:.3f} ms")
+    log(f"[points] B4-B6 mismatches {mism}")
+    for name in mism:
+        results[name].update(mismatches=mism[name], max_abs_err=err[name])
+    if any(mism.values()):
+        raise AssertionError(f"point kernel mismatches {mism}")
+
+
+def phase_horner(params):
+    """device_horner_combine (c B5 doublings and one B4 add per window)
+    against host_horner_combine on the window sums of a k=14 MSM."""
+    import torch
+    from halo2_tpu_torch.fields.device import from_mont
+    from halo2_tpu_torch.ops import msm_pippenger as mp
+    from halo2_tpu_torch.ops.point_kernels import points_from_proj
+    q = params.curve.scalar.modulus
+    rng = random.Random(15)
+    df = params.scalar_df
+    cols = [[rng.randrange(q) for _ in range(params.n)] for _ in range(2)]
+    digits = from_mont(df, torch.stack([df.upload_values(c, params.device)
+                                        for c in cols]))
+    wsums, c = mp.msm_window_sums_many(params.curve, params.base_df,
+                                       digits, params.g_dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = mp.device_horner_combine(params.base_df, wsums.permute(1, 0, 2),
+                                   c)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    wnp = wsums.cpu().numpy()
+    want = [mp.host_horner_combine(params.curve,
+                                   points_from_proj(params.base_df, wnp[j]),
+                                   c) for j in range(len(cols))]
+    got = points_from_proj(params.base_df, got)
+    log(f"[horner] k={K} c={c} W={wsums.shape[-1]}, two sums: device "
+        f"combine {dt * 1e3:.1f} ms; equal to the host combine: "
+        f"{got == want}")
+    if got != want:
+        raise AssertionError("device Horner combine != host combine")
+
+
 def phase_commit(params):
     import torch
     q = params.curve.scalar.modulus
@@ -303,9 +427,7 @@ def phase_main_path(results):
     from halo2_tpu_torch.poly.commitment import Params
     from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
 
-    for d in (fk.LAUNCHES, pk.LAUNCHES):   # the main path's count starts
-        for key in d:
-            d[key] = 0
+    reset_counts()                        # the main path's count starts
     regions = regions_for_k(K)
     fs = PALLAS.scalar
     out = expected_output(fs, SEED_A, regions)
@@ -331,9 +453,8 @@ def phase_main_path(results):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         proofs.append(tw.finalize())
-        per_prove = {k: v - before[k] for k, v in launch_counts().items()}
         log(f"[main] create_proof {label}: {times[-1]:.3f}s, "
-            f"{len(proofs[-1])} bytes, launches {per_prove}")
+            f"{len(proofs[-1])} bytes, launches {diff_counts(before)}")
     log("[main] warm phases " + json.dumps(
         {name: round(s, 4) for name, s in pv.LAST_PHASES}))
     t = time.perf_counter()
@@ -348,7 +469,7 @@ def phase_main_path(results):
     else:
         raise AssertionError("a wrong public input was accepted")
     launches = launch_counts()
-    for name in results:
+    for name in MAIN_PATH_KERNELS:
         results[name]["launches"] = launches[name]
     if proofs[0] != proofs[1]:
         raise AssertionError("cold and warm proofs differ")
@@ -358,8 +479,10 @@ def phase_main_path(results):
         raise AssertionError(f"proof hash {digest} != JAX reference "
                              f"{REF_SHA256[K]}")
     log("[main] proof bytes equal the JAX reference's")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels of the main path not launched: "
+                             f"{idle}")
     return params, pk_, circuit, out
 
 
@@ -369,9 +492,23 @@ def launch_counts() -> dict:
     return {**fk.LAUNCHES, **pk.LAUNCHES}
 
 
-def phase_profile(params, pk_, circuit, out):
-    """One more warm prove under torch.profiler: device time by kernel and
-    the busy share of the wall time. Reports "not measured" where the
+def diff_counts(before: dict) -> dict:
+    """Launches of each kernel since `before` (a launch_counts())."""
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0: a path's run starts here."""
+    from halo2_tpu_torch.ops import field_kernels as fk
+    from halo2_tpu_torch.ops import point_kernels as pk
+    for d in (fk.LAUNCHES, pk.LAUNCHES):
+        for key in d:
+            d[key] = 0
+
+
+def profile_prove(tag, params, pk_, circuit, out, **kw):
+    """One warm prove under torch.profiler: device time by kernel and the
+    busy share of the wall time. Reports "not measured" where the
     profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
@@ -385,7 +522,8 @@ def phase_profile(params, pk_, circuit, out):
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         pv.create_proof(params, pk_, [circuit], [[[out]]],
-                        random.Random(PROOF_SEED), TranscriptWrite(PALLAS))
+                        random.Random(PROOF_SEED), TranscriptWrite(PALLAS),
+                        **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = []
@@ -399,18 +537,68 @@ def phase_profile(params, pk_, circuit, out):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
-        log(f"[profile] warm prove {wall:.3f}s; device time not measured "
+        log(f"[{tag}] warm prove {wall:.3f}s; device time not measured "
             f"(the profiler saw no device activity)")
         return
-    log(f"[profile] warm prove {wall:.3f}s wall, device busy {busy:.4f}s "
+    log(f"[{tag}] warm prove {wall:.3f}s wall, device busy {busy:.4f}s "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for dev_us, count, key in rows[:12]:
-        log(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+        log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def phase_profile(params, pk_, circuit, out):
+    profile_prove("profile", params, pk_, circuit, out)
+
+
+def phase_ipa(results, params, pk_, circuit, out):
+    """The device IPA path at k=14: every IPA round on the card
+    (native_ipa_threshold=0). Counts start at 0 just before the proves and
+    are read just after; the proof must hash to the JAX reference's."""
+    import torch
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.plonk.verifier import verify_proof, SingleVerifier
+    from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
+    reset_counts()
+    proofs = []
+    for label in ("cold", "warm"):
+        before = launch_counts()
+        tw = TranscriptWrite(PALLAS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pv.create_proof(params, pk_, [circuit], [[[out]]],
+                        random.Random(PROOF_SEED), tw,
+                        native_ipa_threshold=0)
+        torch.cuda.synchronize()
+        proofs.append(tw.finalize())
+        log(f"[ipa] create_proof {label}, every IPA round on the card: "
+            f"{time.perf_counter() - t:.3f}s, launches "
+            f"{diff_counts(before)}")
+    launches = launch_counts()
+    log(f"[ipa] launches in the two proves {launches}")
+    log("[ipa] warm phases " + json.dumps(
+        {name: round(s, 4) for name, s in pv.LAST_PHASES}))
+    for name in ("padd", "pdouble", "pdouble_masked"):   # B6: no caller
+        results[name]["launches"] = launches[name]
+    verify_proof(params, pk_.vk, SingleVerifier(params), [[[out]]],
+                 TranscriptRead(PALLAS, proofs[1]))
+    digest = hashlib.sha256(proofs[1]).hexdigest()
+    log(f"[ipa] proof sha256 {digest} (verified)")
+    if proofs[0] != proofs[1] or digest != REF_SHA256[K]:
+        raise AssertionError(f"device-IPA proof hash {digest} != JAX "
+                             f"reference {REF_SHA256[K]}")
+    log("[ipa] proof bytes equal the JAX reference's")
+    idle = [k for k in MAIN_PATH_KERNELS + ("padd", "pdouble")
+            if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels of the IPA path not launched: {idle}")
+    profile_prove("ipa", params, pk_, circuit, out, native_ipa_threshold=0)
 
 
 def phase_reference_k():
-    """BenchCircuit at 2^REF_K rows: keygen and one proof, whose bytes
-    must hash to the JAX reference's."""
+    """BenchCircuit at 2^REF_K rows: keygen and a proof under each IPA
+    schedule, whose bytes must hash to the JAX reference's."""
     import torch
     from halo2_tpu_torch.bench_circuit import (BenchCircuit, regions_for_k,
                                                expected_output, SEED_A,
@@ -430,21 +618,39 @@ def phase_reference_k():
     pk_ = keygen_pk(params, vk, circuit)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    tw = TranscriptWrite(PALLAS)
-    pv.create_proof(params, pk_, [circuit], [[[out]]],
-                    random.Random(PROOF_SEED), tw)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    digest = hashlib.sha256(tw.finalize()).hexdigest()
     log(f"[ref-k] k={REF_K} regions={regions}: Params.new {t1 - t0:.2f}s, "
-        f"keygen {t2 - t1:.2f}s, create_proof {t3 - t2:.3f}s")
-    log("[ref-k] phases " + json.dumps(
-        {name: round(s, 4) for name, s in pv.LAST_PHASES}))
-    log(f"[ref-k] proof sha256 {digest}")
-    if digest != REF_SHA256[REF_K]:
-        raise AssertionError(f"k={REF_K} proof hash {digest} != JAX "
-                             f"reference {REF_SHA256[REF_K]}")
-    log(f"[ref-k] proof bytes equal the JAX reference's at k={REF_K}")
+        f"keygen {t2 - t1:.2f}s")
+    # the IPA schedules: the default (device rounds while half > 8192,
+    # then native), every round native, every round on the card; the
+    # first prove is cold, so the default runs again warm; then the
+    # default and the all-device proves once more under the profiler
+    schedules = (("default IPA schedule, cold", {}),
+                 ("every IPA round native",
+                  {"native_ipa_threshold": 1 << REF_K}),
+                 ("every IPA round on the card",
+                  {"native_ipa_threshold": 0}),
+                 ("default IPA schedule, warm", {}))
+    for label, kw in schedules:
+        before = launch_counts()
+        tw = TranscriptWrite(PALLAS)
+        t = time.perf_counter()
+        pv.create_proof(params, pk_, [circuit], [[[out]]],
+                        random.Random(PROOF_SEED), tw, **kw)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(tw.finalize()).hexdigest()
+        log(f"[ref-k] create_proof, {label}: "
+            f"{time.perf_counter() - t:.3f}s, launches "
+            f"{diff_counts(before)}")
+        log("[ref-k] phases " + json.dumps(
+            {name: round(s, 4) for name, s in pv.LAST_PHASES}))
+        log(f"[ref-k] proof sha256 {digest}")
+        if digest != REF_SHA256[REF_K]:
+            raise AssertionError(f"k={REF_K} proof hash {digest} != JAX "
+                                 f"reference {REF_SHA256[REF_K]}")
+        log(f"[ref-k] proof bytes equal the JAX reference's at k={REF_K}")
+    for label, kw in schedules[2:]:
+        log(f"[ref-k] profiled: {label.split(',')[0]}")
+        profile_prove("ref-k", params, pk_, circuit, out, **kw)
 
 
 def run_phase(phase, *args):
@@ -480,23 +686,39 @@ def main() -> int:
                           "replaces": "halo2_tpu/ops/pallas_point.py:297"},
         "padd_masked": {"route": "cuda", "source": src + "point_kernels.cu",
                         "replaces": "halo2_tpu/ops/pallas_point.py:281"},
+        "padd": {"route": "cuda", "source": src + "point_kernels.cu",
+                 "replaces": "halo2_tpu/ops/pallas_point.py:266"},
+        "pdouble": {"route": "cuda", "source": src + "point_kernels.cu",
+                    "replaces": "halo2_tpu/ops/pallas_point.py:274"},
+        "pdouble_masked": {"route": "cuda",
+                           "source": src + "point_kernels.cu",
+                           "replaces": "halo2_tpu/ops/pallas_point.py:330"},
     }
+    paths = {name: "main" for name in MAIN_PATH_KERNELS}
+    paths.update(padd="ipa", pdouble="ipa", pdouble_masked=None)
     t_all = time.perf_counter()
     phase_card()
     run_phase(phase_build)
     run_phase(phase_field, results)
     state = run_phase(phase_main_path, results)
     run_phase(phase_points, results, state[0])
+    run_phase(phase_add_double, results, state[0])
     run_phase(phase_commit, state[0])
+    run_phase(phase_horner, state[0])
     run_phase(phase_profile, *state)
+    run_phase(phase_ipa, results, *state)
     run_phase(phase_reference_k)
     kernels = [{"name": name, "route": r["route"], "source": r["source"],
-                "replaces": r["replaces"], "launches": r["launches"],
+                "replaces": r["replaces"], "path": paths[name],
+                "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"],
                 "mismatches": r["mismatches"], "ms": r["ms"],
-                "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None,
-                "shape": r["shape"]}
+                "shape": r["shape"],
+                **{k: v for k, v in r.items() if k.startswith(
+                    ("ms_L", "bound_ms_L"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
-// Kernels B2 and B3: masked complete additions of Pasta points in
+// Kernels B2-B6: complete additions and doublings of Pasta points in
 // homogeneous projective coordinates (Renes-Costello-Batina 2015, a = 0,
-// b3 = 15), the bucket and reduction rounds of every Pippenger commit.
+// b3 = 15): the bucket and reduction rounds of every Pippenger commit, and
+// the GLV ladder that folds G' in the device IPA rounds.
 //
 // B2 (pmixed_masked) replaces halo2_tpu/ops/pallas_point.py::
 // _pmixed_masked_kernel (:297, built at :463/:477, wrapped by
@@ -10,6 +11,13 @@
 // B3 (padd_masked) replaces _padd_masked_kernel (:281, _build_padd(seg=True)
 // at :426/:442, wrapped by padd_masked_flat at :591): out = mask ? A + B : A
 // with the RCB Alg 7 complete add (12 wide multiplies).
+// B4 (padd) replaces _padd_kernel (:266, _build_padd(seg=False) at
+// :426/:451, wrapped by padd_flat at :574): the unmasked complete add.
+// B5 (pdouble) replaces _pdouble_kernel (:274, _build_pdouble(masked=False)
+// at :489/:512, wrapped by pdouble_flat at :663): RCB Alg 9 doubling
+// (8 wide multiplies). B6 (pdouble_masked) replaces _pdouble_masked_kernel
+// (:330, _build_pdouble(masked=True) at :489/:503, wrapped by
+// pdouble_masked_flat at :677): out = mask ? 2A : A.
 //
 // Layout: a point batch is [48, L] int32 (rows 0-15 X, 16-31 Y, 32-47 Z
 // as 16-bit Montgomery digits, lanes last); an affine batch is [32, L].
@@ -20,11 +28,13 @@
 // Bound on an H100: B3 moves 2 x 192 + 4 bytes in and 192 out per lane
 // (580 B, 173 ps at 3.35 TB/s) and does 12 Montgomery products of 224
 // 32-bit multiply-adds (80 ps at 33.5e12 multiply-adds/s); B2 moves
-// 192 + 128 + 8 in and 192 out (520 B) for 11 products. Both are therefore
-// near the balance point; in practice the integer multiplier (half the
-// float rate) and register pressure decide. The design does the masked-off
-// lanes' work as a plain copy (no products), keeps every intermediate in
-// registers, and never re-reads an input.
+// 192 + 128 + 8 in and 192 out (520 B) for 11 products; B4 576 B for 12
+// products; B5 384 B for 8 products (53 ps); B6 388 B for 8 products on its
+// live lanes. All are therefore near the balance point; in practice the
+// integer multiplier (half the float rate) and register pressure decide.
+// The design does the masked-off lanes' work as a plain copy (no
+// products), keeps every intermediate in registers, and never re-reads an
+// input.
 #include "field.cuh"
 
 using namespace h2t;
@@ -109,6 +119,33 @@ __device__ __forceinline__ void rcb_mixed_add(Pt& o, const Pt& a,
   add<F>(o.z, u, v);
 }
 
+// RCB15 Alg 9 doubling: the polynomials of pallas_point._rcb_double (and
+// msm_pallas._host_proj_double). Any other doubling formula gives another
+// projective representative of 2A, and the IPA's G' fold state is held
+// bit for bit against the reference's.
+template <int F>
+__device__ __forceinline__ void rcb_double(Pt& o, const Pt& a) {
+  uint32_t t0[8], t1[8], t2[8], xy[8], z3[8], y3[8], u[8], v[8];
+  mont_mul<F>(t0, a.y, a.y);
+  mont_mul<F>(t1, a.y, a.z);
+  mont_mul<F>(u, a.z, a.z);
+  mont_mul<F>(xy, a.x, a.y);
+  add<F>(z3, t0, t0);
+  add<F>(z3, z3, z3);
+  add<F>(z3, z3, z3);  // 8 Y^2
+  mul15<F>(t2, u);     // b3 Z^2
+  add<F>(y3, t0, t2);
+  add<F>(u, t2, t2);
+  add<F>(u, u, t2);
+  sub<F>(t0, t0, u);   // Y^2 - 3 b3 Z^2
+  mont_mul<F>(u, t2, z3);
+  mont_mul<F>(o.z, t1, z3);
+  mont_mul<F>(v, t0, y3);
+  add<F>(o.y, v, u);
+  mont_mul<F>(v, t0, xy);
+  add<F>(o.x, v, v);
+}
+
 __device__ __forceinline__ void load_pt(Pt& p, const int32_t* src,
                                         size_t stride) {
   load_rows(p.x, src, stride);
@@ -180,39 +217,97 @@ __global__ void pmixed_masked_kernel(int32_t* __restrict__ out,
   store_pt(out + l, L, r);
 }
 
+template <int F>
+__global__ void padd_kernel(int32_t* __restrict__ out,
+                            const int32_t* __restrict__ a,
+                            const int32_t* __restrict__ b, uint32_t L) {
+  uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  Pt p, q, r;
+  load_pt(p, a + l, L);
+  load_pt(q, b + l, L);
+  rcb_add<F>(r, p, q);
+  store_pt(out + l, L, r);
+}
+
+template <int F>
+__global__ void pdouble_kernel(int32_t* __restrict__ out,
+                               const int32_t* __restrict__ a, uint32_t L) {
+  uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  Pt p, r;
+  load_pt(p, a + l, L);
+  rcb_double<F>(r, p);
+  store_pt(out + l, L, r);
+}
+
+template <int F>
+__global__ void pdouble_masked_kernel(int32_t* __restrict__ out,
+                                      const int32_t* __restrict__ a,
+                                      const int32_t* __restrict__ mask,
+                                      uint32_t L) {
+  uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  if (mask[l] == 0) {
+    copy_rows(out + l, a + l, L, 48);
+    return;
+  }
+  Pt p, r;
+  load_pt(p, a + l, L);
+  rcb_double<F>(r, p);
+  store_pt(out + l, L, r);
+}
+
 static const int kThreads = 128;
+
+// Launch the field's instance (k0 for Fp, k1 for Fq) over L lanes, one
+// thread per lane, on `stream`; returns cudaGetLastError().
+template <typename... P, typename... A>
+static int launch_lanes(int field, void (*k0)(P...), void (*k1)(P...),
+                        long long L, void* stream, A... args) {
+  if (L <= 0) return 0;
+  dim3 grid((unsigned)((L + kThreads - 1) / kThreads));
+  void (*k)(P...) = field == 0 ? k0 : k1;
+  k<<<grid, kThreads, 0, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int h2t_padd_masked(int field, void* out, const void* a,
                                const void* b, const void* mask, long long L,
                                void* stream) {
-  if (L <= 0) return 0;
-  dim3 grid((unsigned)((L + kThreads - 1) / kThreads));
-  cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    padd_masked_kernel<0><<<grid, kThreads, 0, s>>>(
-        (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
-        (const int32_t*)mask, (uint32_t)L);
-  else
-    padd_masked_kernel<1><<<grid, kThreads, 0, s>>>(
-        (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
-        (const int32_t*)mask, (uint32_t)L);
-  return (int)cudaGetLastError();
+  return launch_lanes(field, padd_masked_kernel<0>, padd_masked_kernel<1>,
+                      L, stream, (int32_t*)out, (const int32_t*)a,
+                      (const int32_t*)b, (const int32_t*)mask, (uint32_t)L);
 }
 
 extern "C" int h2t_pmixed_masked(int field, void* out, const void* a,
                                  const void* b, const void* mask,
                                  const void* sign, long long L,
                                  void* stream) {
-  if (L <= 0) return 0;
-  dim3 grid((unsigned)((L + kThreads - 1) / kThreads));
-  cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    pmixed_masked_kernel<0><<<grid, kThreads, 0, s>>>(
-        (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
-        (const int32_t*)mask, (const int32_t*)sign, (uint32_t)L);
-  else
-    pmixed_masked_kernel<1><<<grid, kThreads, 0, s>>>(
-        (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
-        (const int32_t*)mask, (const int32_t*)sign, (uint32_t)L);
-  return (int)cudaGetLastError();
+  return launch_lanes(field, pmixed_masked_kernel<0>,
+                      pmixed_masked_kernel<1>, L, stream, (int32_t*)out,
+                      (const int32_t*)a, (const int32_t*)b,
+                      (const int32_t*)mask, (const int32_t*)sign,
+                      (uint32_t)L);
+}
+
+extern "C" int h2t_padd(int field, void* out, const void* a, const void* b,
+                        long long L, void* stream) {
+  return launch_lanes(field, padd_kernel<0>, padd_kernel<1>, L, stream,
+                      (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
+                      (uint32_t)L);
+}
+
+extern "C" int h2t_pdouble(int field, void* out, const void* a, long long L,
+                           void* stream) {
+  return launch_lanes(field, pdouble_kernel<0>, pdouble_kernel<1>, L, stream,
+                      (int32_t*)out, (const int32_t*)a, (uint32_t)L);
+}
+
+extern "C" int h2t_pdouble_masked(int field, void* out, const void* a,
+                                  const void* mask, long long L,
+                                  void* stream) {
+  return launch_lanes(field, pdouble_masked_kernel<0>,
+                      pdouble_masked_kernel<1>, L, stream, (int32_t*)out,
+                      (const int32_t*)a, (const int32_t*)mask, (uint32_t)L);
 }

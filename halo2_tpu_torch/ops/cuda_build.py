@@ -42,6 +42,9 @@ _ARGTYPES = {
     "point_kernels": {
         "h2t_padd_masked": [_I, _P, _P, _P, _P, _LL, _P],
         "h2t_pmixed_masked": [_I, _P, _P, _P, _P, _P, _LL, _P],
+        "h2t_padd": [_I, _P, _P, _P, _LL, _P],
+        "h2t_pdouble": [_I, _P, _P, _LL, _P],
+        "h2t_pdouble_masked": [_I, _P, _P, _P, _LL, _P],
     },
 }
 

@@ -1,4 +1,4 @@
-"""Pippenger MSM on the point kernels B2/B3.
+"""Pippenger MSM on the point kernels B2-B5.
 
 Port of halo2_tpu/ops/msm_pallas.py (the reference's TPU Pippenger):
 
@@ -7,12 +7,15 @@ Port of halo2_tpu/ops/msm_pallas.py (the reference's TPU Pippenger):
   2. a sort per window row and the bucket run starts (torch.sort /
      torch.searchsorted);
   3. bucket accumulation: round r adds the r-th member of every (row,
-     bucket) run at once -- one gather and one masked mixed add (B2) over
-     [48, G*BL] lanes; skewed inputs (few distinct digits) take a
-     log-depth segmented scan (B3) instead;
+     bucket) run at once -- one gather and one masked add over [48, G*BL]
+     lanes: the mixed add (B2) for affine bases such as the SRS, the
+     complete add (B3) for projective ones such as the IPA's folded G';
+     skewed inputs (few distinct digits) take a log-depth segmented scan
+     (B3) instead;
   4. summation by parts: suffix sums over the bucket axis and a halving
      tree sum (B3), one point per window;
-  5. the window Horner combine on the host (tiny serial group work).
+  5. the window Horner combine: on the host (tiny serial group work), or
+     on the device with the doubling (B5) and the complete add (B4).
 
 The group law is exact, so any schedule gives the same affine result as
 the reference; only projective representatives differ along the way.
@@ -25,8 +28,8 @@ import numpy as np
 import torch
 
 from .field_kernels import NLIMBS
-from .point_kernels import (padd_masked_flat, pmixed_masked_flat, ident_col,
-                            points_from_proj)
+from .point_kernels import (padd_flat, padd_masked_flat, pdouble_flat,
+                            pmixed_masked_flat, ident_col, points_from_proj)
 
 # Window-size model: a round of the bucket loop costs its lane count plus
 # a fixed launch-and-gather overhead, counted in lanes. The TPU value
@@ -116,13 +119,15 @@ def _roll_rows(acc: torch.Tensor, G: int, width: int, shift: int
 
 def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
                          pts: torch.Tensor, c: int | None = None,
-                         signed: bool = True):
+                         signed: bool = True, affine: bool = True):
     """m MSMs over shared bases: returns ([m, 48, W] window sums, c).
 
-    digits16: [m, n, 16] canonical scalars; pts: [48, n] affine bases in
-    projective coding (Z in {0, mont 1}, as the SRS bases are), so
-    pts[:32] is the affine batch with identity coded (0, mont 1) that the
-    bucket loop's mixed adds (B2) read. signed: signed window digits
+    digits16: [m, n, 16] canonical scalars; pts: [48, n] projective bases.
+    affine: the bases are affine in projective coding (Z in {0, mont 1},
+    as the SRS bases are), so pts[:32] is the affine batch with identity
+    coded (0, mont 1) that the bucket loop's mixed adds (B2) read; with
+    affine=False (any Z, the reference's aff=None) the loop gathers whole
+    [48, lanes] bases and adds with B3. signed: signed window digits
     (half the buckets) or unsigned ones.
     (Port of msm_pallas_window_sums_many, msm_pallas.py:196-543.)"""
     dev = pts.device
@@ -203,8 +208,17 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
             sig = (sg_flat[(gidx.view(-1, G, BL) + g_off[None]).reshape(-1)]
                    .view(-1, lanes).to(torch.int32) if signed else None)
             for j in range(rr.shape[0]):
-                acc = pmixed_masked_flat(df, acc, aff[:, gidx[j]], valid[j],
-                                         signs=sig[j] if signed else None)
+                sig_j = sig[j] if signed else None
+                if affine:
+                    acc = pmixed_masked_flat(df, acc, aff[:, gidx[j]],
+                                             valid[j], signs=sig_j)
+                else:
+                    # msm_pallas.py:335-347: each lane's sign applies to
+                    # its own gathered copy
+                    P = pts[:, gidx[j]]
+                    if signed:
+                        P = _negate_y(df, P, sig_j)
+                    acc = padd_masked_flat(df, acc, P, valid[j])
         if S > 1:
             acc = _unslot(df, acc, is_top, G, BL, S, L_pow, ident)
 
@@ -338,11 +352,29 @@ def host_horner_combine(spec, window_pts: list, c: int):
     return (X * zi % p, Y * zi % p)
 
 
+def device_horner_combine(df, wsums: torch.Tensor, c: int) -> torch.Tensor:
+    """Window combine on the device (msm_pallas.py:602-618): over the
+    windows MSB first, c doublings (B5) and one complete add (B4).
+    wsums: [48, ..., W] window sums, LSB window first -> [48, ...]
+    projective sums; the middle axes are lanes of every launch."""
+    W = wsums.shape[-1]
+    ws = wsums.reshape(3 * NLIMBS, -1, W)
+    acc = ident_col(df, wsums.device)[:, None].expand(
+        3 * NLIMBS, ws.shape[1]).contiguous()
+    for w in reversed(range(W)):
+        for _ in range(c):
+            acc = pdouble_flat(df, acc)
+        acc = padd_flat(df, acc, ws[:, :, w])
+    return acc.reshape(wsums.shape[:-1])
+
+
 def msm_many(cv_spec, df, digits16: torch.Tensor, pts: torch.Tensor,
-             c: int | None = None, signed: bool = True) -> list:
+             c: int | None = None, signed: bool = True,
+             affine: bool = True) -> list:
     """m MSMs -> m affine host points (device window sums + host
     combine); arguments as msm_window_sums_many."""
-    wsums, c = msm_window_sums_many(cv_spec, df, digits16, pts, c, signed)
+    wsums, c = msm_window_sums_many(cv_spec, df, digits16, pts, c, signed,
+                                    affine)
     wnp = wsums.cpu().numpy()
     return [host_horner_combine(cv_spec, points_from_proj(df, wnp[j]), c)
             for j in range(wnp.shape[0])]

@@ -1,12 +1,13 @@
-"""Kernels B2 (masked mixed add) and B3 (masked complete add) on Pasta
-point batches, with their plain PyTorch versions.
+"""Kernels B2-B6 on Pasta point batches -- the masked mixed add (B2), the
+masked and unmasked complete adds (B3, B4), the doubling and the masked
+doubling (B5, B6) -- with their plain PyTorch versions.
 
 Replaces halo2_tpu/ops/pallas_point.py. A point batch is one int32
 [48, L] tensor, lanes last: rows 0-15 X, 16-31 Y, 32-47 Z (16-bit
 Montgomery digits), homogeneous projective (x = X/Z, y = Y/Z), identity
 (0 : R : 0). An affine batch is [32, L] with the identity coded as
 (0, mont 1), which is not on either curve. The group law is RCB15's
-complete formulas for a = 0, b3 = 15 (eprint 2015/1060, Alg 7 and 8).
+complete formulas for a = 0, b3 = 15 (eprint 2015/1060, Alg 7, 8 and 9).
 
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches csrc/point_kernels.cu or raises. `LAUNCHES` counts
@@ -22,7 +23,8 @@ import torch
 from .field_kernels import (NLIMBS, fmul_plain, fadd_plain, fsub_plain,
                             _dispatch)
 
-LAUNCHES = {"padd_masked": 0, "pmixed_masked": 0}
+LAUNCHES = {"padd_masked": 0, "pmixed_masked": 0, "padd": 0, "pdouble": 0,
+            "pdouble_masked": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -70,9 +72,46 @@ def rcb_add_plain(df, A, B):
     return X3, Y3, Z3
 
 
+def rcb_double_plain(df, A):
+    """RCB Alg 9 on a ([L, 16],) * 3 coordinate triple (the reference's
+    _rcb_double_arrays, pallas_point.py:400)."""
+    X, Y, Z = A
+    mul = lambda a, b: fmul_plain(df, a, b)
+    add = lambda a, b: fadd_plain(df, a, b)
+    sub = lambda a, b: fsub_plain(df, a, b)
+    t0 = mul(Y, Y)
+    z3 = add(t0, t0)
+    z3 = add(z3, z3)
+    z3 = add(z3, z3)
+    t1 = mul(Y, Z)
+    t2 = _mul15_plain(df, mul(Z, Z))
+    X3 = mul(t2, z3)
+    Y3 = add(t0, t2)
+    Z3 = mul(t1, z3)
+    t1 = add(t2, t2)
+    t2 = add(t1, t2)
+    t0 = sub(t0, t2)
+    Y3 = add(mul(t0, Y3), X3)
+    t1 = mul(X, Y)
+    X3 = mul(t0, t1)
+    X3 = add(X3, X3)
+    return X3, Y3, Z3
+
+
+def padd_plain(df, a, b):
+    return _join2d(*rcb_add_plain(df, _split2d(a), _split2d(b)))
+
+
 def padd_masked_plain(df, a, b, mask):
-    added = _join2d(*rcb_add_plain(df, _split2d(a), _split2d(b)))
-    return torch.where(mask.bool()[None, :], added, a)
+    return torch.where(mask.bool()[None, :], padd_plain(df, a, b), a)
+
+
+def pdouble_plain(df, a):
+    return _join2d(*rcb_double_plain(df, _split2d(a)))
+
+
+def pdouble_masked_plain(df, a, mask):
+    return torch.where(mask.bool()[None, :], pdouble_plain(df, a), a)
 
 
 def pmixed_masked_plain(df, a, b_aff, mask, signs):
@@ -108,6 +147,24 @@ def _flags(x: torch.Tensor, L: int, what: str) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
+def _launch(name: str, df, a: torch.Tensor, *operands) -> torch.Tensor:
+    """Launch the point kernel h2t_<name> over the L lanes of the [48, L]
+    batch `a`; operands are contiguous tensors on a's device."""
+    from . import cuda_build
+    out = torch.empty_like(a)
+    L = a.shape[1]
+    if L == 0:
+        return out
+    lib = cuda_build.library("point_kernels")
+    rc = getattr(lib, "h2t_" + name)(
+        df.field_id, out.data_ptr(), a.data_ptr(),
+        *(x.data_ptr() for x in operands), L,
+        cuda_build.stream_ptr(a.device))
+    cuda_build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def padd_masked_flat(df, a: torch.Tensor, b: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """out = mask ? a + b : a on [48, L] batches (kernel B3 on CUDA)."""
@@ -116,19 +173,8 @@ def padd_masked_flat(df, a: torch.Tensor, b: torch.Tensor,
     _check_batch(b, 3 * NLIMBS, L, "b")
     if not _dispatch(a):
         return padd_masked_plain(df, a, b, mask)
-    from . import cuda_build
-    a, b = a.contiguous(), b.contiguous()
-    mk = _flags(mask, L, "mask")
-    out = torch.empty_like(a)
-    if L == 0:
-        return out
-    lib = cuda_build.library("point_kernels")
-    rc = lib.h2t_padd_masked(df.field_id, out.data_ptr(), a.data_ptr(),
-                             b.data_ptr(), mk.data_ptr(), L,
-                             cuda_build.stream_ptr(a.device))
-    cuda_build.check(rc, "padd_masked")
-    LAUNCHES["padd_masked"] += 1
-    return out
+    return _launch("padd_masked", df, a.contiguous(), b.contiguous(),
+                   _flags(mask, L, "mask"))
 
 
 def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,
@@ -143,21 +189,37 @@ def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,
         signs = torch.zeros((L,), dtype=torch.int32, device=a.device)
     if not _dispatch(a):
         return pmixed_masked_plain(df, a, b_aff, mask, signs)
-    from . import cuda_build
-    a, b_aff = a.contiguous(), b_aff.contiguous()
-    mk = _flags(mask, L, "mask")
-    sg = _flags(signs, L, "signs")
-    out = torch.empty_like(a)
-    if L == 0:
-        return out
-    lib = cuda_build.library("point_kernels")
-    rc = lib.h2t_pmixed_masked(df.field_id, out.data_ptr(), a.data_ptr(),
-                               b_aff.data_ptr(), mk.data_ptr(),
-                               sg.data_ptr(), L,
-                               cuda_build.stream_ptr(a.device))
-    cuda_build.check(rc, "pmixed_masked")
-    LAUNCHES["pmixed_masked"] += 1
-    return out
+    return _launch("pmixed_masked", df, a.contiguous(), b_aff.contiguous(),
+                   _flags(mask, L, "mask"), _flags(signs, L, "signs"))
+
+
+def padd_flat(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Complete add a + b on [48, L] batches (kernel B4 on CUDA)."""
+    L = a.shape[1]
+    _check_batch(a, 3 * NLIMBS, L, "a")
+    _check_batch(b, 3 * NLIMBS, L, "b")
+    if not _dispatch(a):
+        return padd_plain(df, a, b)
+    return _launch("padd", df, a.contiguous(), b.contiguous())
+
+
+def pdouble_flat(df, a: torch.Tensor) -> torch.Tensor:
+    """2a on a [48, L] batch, RCB Alg 9 (kernel B5 on CUDA)."""
+    _check_batch(a, 3 * NLIMBS, a.shape[1], "a")
+    if not _dispatch(a):
+        return pdouble_plain(df, a)
+    return _launch("pdouble", df, a.contiguous())
+
+
+def pdouble_masked_flat(df, a: torch.Tensor, mask: torch.Tensor
+                        ) -> torch.Tensor:
+    """out = mask ? 2a : a on a [48, L] batch (kernel B6 on CUDA)."""
+    L = a.shape[1]
+    _check_batch(a, 3 * NLIMBS, L, "a")
+    if not _dispatch(a):
+        return pdouble_masked_plain(df, a, mask)
+    return _launch("pdouble_masked", df, a.contiguous(),
+                   _flags(mask, L, "mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ import time
 import torch
 
 from ..ops.field_kernels import fadd, fmul
-from ..poly.commitment import Params, DEFAULT_BLIND
+from ..poly.commitment import Params, DEFAULT_BLIND, NATIVE_IPA_THRESHOLD
 from ..poly.multiopen import ProverQuery, multiopen_create_proof
 from ..poly.utils import MemoEval
 from ..circuit.value import Value
@@ -162,9 +162,12 @@ def _gates_h_fold(pk, cs, df, rot_scale: int, y_m, h_acc, advice_c,
 
 
 def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
-                 instances: list[list[list[int]]], rng, transcript) -> None:
+                 instances: list[list[list[int]]], rng, transcript,
+                 native_ipa_threshold: int = NATIVE_IPA_THRESHOLD) -> None:
     """prover.rs:35-725. `instances[i][j]` is the j-th instance column of
-    the i-th circuit instance."""
+    the i-th circuit instance. IPA rounds with half > native_ipa_threshold
+    run on the device, the rest in the native host library
+    (poly/commitment.py::ipa_create_proof); the proof is the same."""
     if len(circuits) != len(instances):
         raise ValueError("circuits/instances length mismatch")
     cs = pk.vk.cs
@@ -357,6 +360,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     queries.append(ProverQuery(point=x, poly=vanishing.random_poly,
                                blind=vanishing.random_blind))
 
-    multiopen_create_proof(params, rng, transcript, queries)
+    multiopen_create_proof(params, rng, transcript, queries,
+                           native_ipa_threshold)
     prof.lap("multiopen+ipa")
     LAST_PHASES[:] = prof.laps

@@ -7,15 +7,19 @@ the device as [48, n] projective batches with Z = mont 1 (identity
 bucket kernel takes. On CUDA every commitment runs the device Pippenger
 (ops/msm_pippenger.py); there is no host-MSM threshold.
 
-Setup (SRS generation, the g_lagrange group iNTT, decompression), the
-verifier's final MSM and the IPA L/R rounds run in the port's copy of
-the native host library (curves/native.py), as in the reference at
-these sizes. The device IPA rounds (halo2_tpu/ops/ipa_device.py) are a
-later slice of the port.
+The IPA open runs the reference's hybrid schedule: rounds with
+half > `native_ipa_threshold` (NATIVE_IPA_THRESHOLD = 8192, the
+reference's accelerator default) run on the device (ops/ipa_device.py),
+then the folded state is handed once to the native host library
+(curves/native.py), which runs the small rounds. At the default, k <= 14
+opens are all native; 0 runs every round on the device.
+
+Setup (SRS generation, the g_lagrange group iNTT, decompression) and the
+verifier's final MSM run in the native library, as in the reference at
+these sizes.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,9 +31,11 @@ from ..fields.device import DeviceField, NLIMBS, from_mont
 from ..curves.host import CurveSpec, Point
 from ..curves.sswu import hash_to_curve
 from ..curves import native
+from ..curves.device import normalize
 from ..ops.field_kernels import fmul, fadd, fsub
 from ..ops.point_kernels import points_to_proj
 from ..ops import msm_pippenger as mp
+from ..ops.ipa_device import ipa_device_lr, ipa_device_fold_lr
 from .utils import eval_poly, powers
 
 # Memory ceiling of one batched commit: the Pippenger gathers a sorted
@@ -37,6 +43,10 @@ from .utils import eval_poly, powers
 # scan -- so columns are chunked to keep G*n (G = columns x windows)
 # under 2^26, about 13 GB of that gather on an 80 GB card.
 COMMIT_GN_BUDGET = 1 << 26
+
+# IPA rounds with half > this run on the device, the rest in the native
+# host library (halo2_tpu/poly/commitment.py:654-656, accelerator default)
+NATIVE_IPA_THRESHOLD = 8192
 
 
 class Params:
@@ -253,12 +263,15 @@ class MSMAccumulator:
 # ---------------------------------------------------------------------------
 
 def ipa_create_proof(params: Params, rng, transcript,
-                     p_poly_mont: torch.Tensor, p_blind: int, x3: int
+                     p_poly_mont: torch.Tensor, p_blind: int, x3: int,
+                     native_ipa_threshold: int = NATIVE_IPA_THRESHOLD
                      ) -> None:
     """Open `p_poly` (coeff basis) at x3; the transcript already holds P,
-    v, x3. The S commitment and P' run on the device; every L/R round
-    runs in the native session (the reference does the same for rounds
-    with half <= 8192, i.e. all of them at k <= 14)."""
+    v, x3. The S commitment and P' run on the device; L/R rounds with
+    half > native_ipa_threshold run on the device too, each fold fused
+    with the next round's L/R, and the rest in one native session that
+    takes over the folded state (the reference's hybrid loop,
+    halo2_tpu/poly/commitment.py:657-739)."""
     df = params.scalar_df
     fs = params.curve.scalar
     n, k = params.n, params.k
@@ -287,10 +300,22 @@ def ipa_create_proof(params: Params, rng, transcript,
     f = (s_blind * xi + p_blind) % q
     b = powers(df, x3, n, dev)
 
-    sess = _start_native_ipa(params, p_prime, b)
+    sess = None     # the native session, once the rounds are handed over
+    g_prime = None  # [48, 2 half] device G' while rounds run on the card
+    dev_lr = None   # this round's L/R, computed by the previous device fold
     cur = params.curve
-    for _ in range(k):
-        l_pt, r_pt, value_l, value_r = sess.round()
+    for j in range(k):
+        half = 1 << (k - j - 1)
+        if sess is None and half <= native_ipa_threshold:
+            sess = _start_native_ipa(params, p_prime, b, g_prime)
+        if sess is not None:
+            l_pt, r_pt, value_l, value_r = sess.round()
+        elif j == 0:
+            g_prime = params.g_dev
+            l_pt, r_pt, value_l, value_r = ipa_device_lr(
+                params, p_prime, b, g_prime)
+        else:
+            l_pt, r_pt, value_l, value_r = dev_lr
         l_rand = fs.rand(rng)
         r_rand = fs.rand(rng)
         # L_j += [v_l z] U + [l_rand] W
@@ -302,28 +327,44 @@ def ipa_create_proof(params: Params, rng, transcript,
         transcript.write_point(r_pt)
         u_j = transcript.squeeze_challenge()
         u_j_inv = fs.inv(u_j)
-        sess.fold(u_j, u_j_inv)
+        if sess is not None:
+            sess.fold(u_j, u_j_inv)
+        else:
+            # no fused next-round L/R when that round runs natively
+            next_native = half // 2 <= native_ipa_threshold
+            p_prime, b, g_prime, *dev_lr = ipa_device_fold_lr(
+                params, p_prime, b, g_prime, half, u_j, u_j_inv,
+                with_lr=not next_native)
         f = (f + l_rand * u_j_inv + r_rand * u_j) % q
 
-    transcript.write_scalar(sess.final_c())
+    c = (sess.final_c() if sess is not None
+         else int(df.from_mont_np(p_prime[0])))
+    transcript.write_scalar(c)
     transcript.write_scalar(f)
 
 
 def _start_native_ipa(params: Params, p_prime: torch.Tensor,
-                      b: torch.Tensor):
-    """Hand p', b and G' = the SRS g to the native session, in Montgomery
-    form (the device's R = 2^256 matches the library's)."""
+                      b: torch.Tensor, g_prime: torch.Tensor | None):
+    """Hand p', b and G' to the native session, in Montgomery form (the
+    device's R = 2^256 matches the library's). G' is the SRS g when the
+    session starts at round 0 (g_prime None; its arrays are cached on
+    Params), else the device rounds' projective G', batch-normalized."""
     if native._load() is None:
         raise RuntimeError("the native pasta library (g++) is required for "
                            "the IPA rounds")
-    cached = getattr(params, "_g_native", None)
-    if cached is None:
-        g = params.g_dev.cpu().numpy()
-        g_inf = np.array([pt is None for pt in params.g], np.uint8)
-        cached = params._g_native = (np.ascontiguousarray(g[:NLIMBS].T),
-                                     np.ascontiguousarray(g[NLIMBS:32].T),
-                                     g_inf)
-    gx, gy, g_inf = cached
+    if g_prime is None:
+        cached = getattr(params, "_g_native", None)
+        if cached is None:
+            g = params.g_dev.cpu().numpy()
+            g_inf = np.array([pt is None for pt in params.g], np.uint8)
+            cached = params._g_native = (
+                np.ascontiguousarray(g[:NLIMBS].T),
+                np.ascontiguousarray(g[NLIMBS:2 * NLIMBS].T), g_inf)
+        gx, gy, g_inf = cached
+    else:
+        x, y, inf = normalize(params.base_df, g_prime)
+        gx, gy = x.cpu().numpy(), y.cpu().numpy()
+        g_inf = inf.cpu().numpy().astype(np.uint8)
     pb = torch.stack([p_prime, b]).cpu().numpy()
     return native.NativeIpaSession(params.curve, pb[0], pb[1], gx, gy, g_inf)
 

@@ -23,8 +23,8 @@ import torch
 from ..fields.host import FieldSpec
 from ..fields.device import NLIMBS
 from ..ops.field_kernels import fadd, fmul
-from .commitment import (Params, MSMAccumulator, ipa_create_proof,
-                         ipa_verify_proof, Guard)
+from .commitment import (Params, MSMAccumulator, NATIVE_IPA_THRESHOLD,
+                         ipa_create_proof, ipa_verify_proof, Guard)
 from .utils import kate_division, batch_eval_polys
 
 
@@ -143,8 +143,11 @@ def lagrange_interpolate(fs: FieldSpec, points: list[int],
 
 
 def multiopen_create_proof(params: Params, rng, transcript,
-                           queries: list[ProverQuery]) -> None:
-    """multiopen/prover.rs:21-122."""
+                           queries: list[ProverQuery],
+                           native_ipa_threshold: int = NATIVE_IPA_THRESHOLD
+                           ) -> None:
+    """multiopen/prover.rs:21-122; native_ipa_threshold as
+    ipa_create_proof's."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -202,7 +205,8 @@ def multiopen_create_proof(params: Params, rng, transcript,
         p_poly = fadd(df, fmul(df, p_poly, x4_m), qp)
         p_blind = (p_blind * x4 + blind) % fs.modulus
 
-    ipa_create_proof(params, rng, transcript, p_poly, p_blind, x3)
+    ipa_create_proof(params, rng, transcript, p_poly, p_blind, x3,
+                     native_ipa_threshold)
 
 
 def multiopen_verify_proof(params: Params, transcript,

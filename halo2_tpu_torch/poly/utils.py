@@ -1,5 +1,5 @@
-"""Polynomial utilities over field tensors: powers, evaluation, Kate
-division, Horner folds.
+"""Polynomial utilities over field tensors: powers, evaluation, inner
+products, Kate division, Horner folds.
 
 Port of halo2_tpu/poly/utils.py. Evaluations are one Montgomery multiply
 against a powers table and a digit-column sum: summing the 16-bit digits
@@ -57,6 +57,12 @@ def eval_poly(df: DeviceField, coeffs: torch.Tensor, x: int) -> int:
     pw = powers(df, x, coeffs.shape[0], coeffs.device)
     prod = fmul(df, coeffs, pw)
     return digit_sums_to_ints(df, prod.to(torch.int64).sum(dim=0))[0]
+
+
+def inner_product(df: DeviceField, a: torch.Tensor, b: torch.Tensor) -> int:
+    """sum a_i b_i (arithmetic.rs:308-318) as a canonical host int."""
+    return digit_sums_to_ints(
+        df, fmul(df, a, b).to(torch.int64).sum(dim=0))[0]
 
 
 def batch_eval_polys(df: DeviceField, pairs) -> list[int]:

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from halo2_tpu_torch.bench_circuit import BenchCircuit, expected_output
-from halo2_tpu_torch.curves.host import PALLAS
+from halo2_tpu_torch.curves.host import PALLAS, VESTA
 from halo2_tpu_torch.curves.native import native_srs_g
 from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
 from halo2_tpu_torch.ops import field_kernels as fk
@@ -87,6 +87,30 @@ def test_point_kernels_match_plain(cuda):
                        pk.pmixed_masked_plain(df, a, aff, mask, signs))
 
 
+def test_add_and_double_kernels_match_plain(cuda):
+    """B4, B5 and B6 on both fields: projective operands with identity
+    lanes, B4 lanes with a == b, a random B6 mask."""
+    rng = np.random.default_rng(5)
+    L = 1000
+    for curve, df in ((PALLAS, FP_DEV), (VESTA, FQ_DEV)):
+        pts = native_srs_g(curve, "torch-cuda-test", 2 * L)
+        a = pk.padd_plain(df, pk.points_to_proj(df, pts[:L], "cpu"),
+                          pk.points_to_proj(df, pts[L:], "cpu"))
+        a[:, :7] = pk.ident_col(df, "cpu")[:, None]
+        b = a.flip(1).contiguous()
+        b[:, 30:40] = a[:, 30:40]
+        mask = torch.from_numpy((rng.random(L) < 0.5).astype(np.int32))
+        before = dict(pk.LAUNCHES)
+        got = pk.padd_flat(df, a.to(cuda), b.to(cuda)).cpu()
+        assert torch.equal(got, pk.padd_plain(df, a, b))
+        got = pk.pdouble_flat(df, a.to(cuda)).cpu()
+        assert torch.equal(got, pk.pdouble_plain(df, a))
+        got = pk.pdouble_masked_flat(df, a.to(cuda), mask.to(cuda)).cpu()
+        assert torch.equal(got, pk.pdouble_masked_plain(df, a, mask))
+        assert all(pk.LAUNCHES[k] == before[k] + 1
+                   for k in ("padd", "pdouble", "pdouble_masked"))
+
+
 def test_msm_on_the_card_matches_host(cuda):
     n = 1024
     pts = native_srs_g(PALLAS, "torch-cuda-test", n)
@@ -101,7 +125,12 @@ def test_msm_on_the_card_matches_host(cuda):
     assert got == [PALLAS.msm(c, pts) for c in cols]
 
 
-def test_proof_on_the_card_equals_the_cpu_proof(cuda):
+@pytest.mark.parametrize("threshold", [None, 0],
+                         ids=["default", "all-device-ipa"])
+def test_proof_on_the_card_equals_the_cpu_proof(cuda, threshold):
+    """The default IPA schedule (all rounds native at k = 5) and every IPA
+    round on the device give the CPU's proof."""
+    kw = {} if threshold is None else {"native_ipa_threshold": threshold}
     k, regions = 5, 10
     out = expected_output(PALLAS.scalar, 5, regions)
     proofs = []
@@ -111,7 +140,8 @@ def test_proof_on_the_card_equals_the_cpu_proof(cuda):
         vk = keygen_vk(params, circuit)
         pk_ = keygen_pk(params, vk, circuit)
         tw = TranscriptWrite(PALLAS)
-        create_proof(params, pk_, [circuit], [[[out]]], random.Random(9), tw)
+        create_proof(params, pk_, [circuit], [[[out]]], random.Random(9), tw,
+                     **kw)
         proofs.append(tw.finalize())
         verify_proof(params, vk, SingleVerifier(params), [[[out]]],
                      TranscriptRead(PALLAS, proofs[-1]))

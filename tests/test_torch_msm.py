@@ -1,8 +1,10 @@
 """The port's Pippenger (halo2_tpu_torch.ops.msm_pippenger) on the CPU:
 window digits against the JAX reference's, and MSMs against the exact host
 MSM -- random, all-zero, q-1 and all-equal scalar columns, identity bases,
-signed and unsigned digits, the serial and the segmented-scan branch, and
-Params' chunked commits. Inputs are numpy-seeded; points must be equal."""
+affine and projective (Z != 1) bases, signed and unsigned digits, the
+serial and the segmented-scan branch, and Params' chunked commits -- and
+the device window combine against the host one. Inputs are numpy-seeded;
+points must be equal."""
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,9 @@ from halo2_tpu_torch.curves.host import PALLAS, VESTA
 from halo2_tpu_torch.curves.native import native_srs_g
 from halo2_tpu_torch.fields.device import DeviceField, ints_to_digits
 from halo2_tpu_torch.ops import msm_pippenger as mp
-from halo2_tpu_torch.ops.point_kernels import points_to_proj
+from halo2_tpu_torch.ops.point_kernels import (ident_col, padd_masked_plain,
+                                               points_from_proj,
+                                               points_to_proj)
 from halo2_tpu_torch.poly import commitment
 
 N = 128
@@ -95,6 +99,39 @@ def test_msm_matches_host(bases, signed, c):
     got = mp.msm_many(PALLAS, df, digits, proj, c=c, signed=signed)
     assert got == [PALLAS.msm(col, pts) for col in cols]
     assert got[1] is None
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["signed", "unsigned"])
+def test_msm_on_projective_bases_matches_host(bases, signed):
+    """The bucket loop over projective bases (affine=False, the reference's
+    aff=None): bases with Z != 1 (sums of two points) and identity lanes
+    (Z = 0), B3 adds with y negated per lane for signed digits."""
+    df = DeviceField(PALLAS.base)
+    half = points_to_proj(df, bases[:32], "cpu")
+    proj = padd_masked_plain(df, half, points_to_proj(df, bases[32:64],
+                                                      "cpu"),
+                             torch.ones(32, dtype=torch.int32))
+    proj[:, [3, 20]] = ident_col(df, "cpu")[:, None]
+    pts = points_from_proj(df, proj)
+    assert not torch.equal(proj[32:], half[32:])     # Z != 1
+    cols = _columns(np.random.default_rng(12), pts)
+    digits = torch.from_numpy(np.stack([ints_to_digits(c) for c in cols]))
+    got = mp.msm_many(PALLAS, df, digits, proj, c=4, signed=signed,
+                      affine=False)
+    assert got == [PALLAS.msm(col, pts) for col in cols]
+
+
+def test_device_horner_combine_matches_host(bases):
+    """c doublings (B5) and one complete add (B4) per window, MSB first,
+    on a batch of two window-sum rows."""
+    df = DeviceField(PALLAS.base)
+    c, W = 3, 5
+    rows = [bases[:W], bases[W:2 * W]]
+    wsums = torch.stack([points_to_proj(df, r, "cpu") for r in rows], dim=1)
+    got = mp.device_horner_combine(df, wsums, c)
+    assert got.shape == (48, 2)
+    assert points_from_proj(df, got) == [
+        mp.host_horner_combine(PALLAS, r, c) for r in rows]
 
 
 def test_skewed_column_takes_the_scan_branch(bases, monkeypatch):

@@ -1,8 +1,9 @@
-"""The plain versions of kernels B2 (masked mixed add) and B3 (masked
-complete add) against the JAX reference's pmixed_masked_flat /
-padd_masked_flat (interpret=True, its CPU path) and against the exact host
-group law, on both Pasta curves. Inputs are numpy-seeded; results must be
-bit-equal."""
+"""The plain versions of kernels B2-B6 (masked mixed add, masked and
+unmasked complete add, doubling, masked doubling) against the JAX
+reference's pmixed_masked_flat / padd_masked_flat / padd_flat /
+pdouble_flat / pdouble_masked_flat (interpret=True, its CPU path) and
+against the exact host group law, on both Pasta curves. Inputs are
+numpy-seeded; results must be bit-equal."""
 import numpy as np
 import pytest
 import torch
@@ -104,6 +105,44 @@ def test_pmixed_masked_matches_reference_and_host(name):
         for x, y, m in zip(a_host, b_host, mask.tolist())]
 
 
+def _ref(x):
+    return jnp.asarray(x.numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_padd_matches_reference_and_host(name):
+    """B4 on projective operands with identity lanes and a == b lanes."""
+    curve, rdf = CURVES[name]
+    df, a, a_host, b, b_host, _, _ = _batches(curve, 3)
+    b[:, 9], b_host[9] = a[:, 9], a_host[9]     # the same representative
+    got = pk.padd_flat(df, a, b)
+    want = rpp.padd_flat(rdf, _ref(a), _ref(b), interpret=True)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int32))
+    assert _host(curve, df, got) == [curve.add(x, y)
+                                     for x, y in zip(a_host, b_host)]
+    assert torch.equal(pk.padd_plain(df, a, b), got)
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_pdouble_matches_reference_and_host(name):
+    """B5 and B6 (RCB Alg 9) on projective points with identity lanes;
+    B6 with a random mask."""
+    curve, rdf = CURVES[name]
+    df, a, a_host, _, _, mask, _ = _batches(curve, 4)
+    got = pk.pdouble_flat(df, a)
+    want = rpp.pdouble_flat(rdf, _ref(a), interpret=True)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int32))
+    assert _host(curve, df, got) == [curve.add(x, x) for x in a_host]
+    got_m = pk.pdouble_masked_flat(df, a, mask)
+    want_m = rpp.pdouble_masked_flat(rdf, _ref(a), _ref(mask),
+                                     interpret=True)
+    np.testing.assert_array_equal(got_m.numpy(),
+                                  np.asarray(want_m).astype(np.int32))
+    assert torch.equal(got_m, torch.where(mask.bool()[None], got, a))
+
+
 def test_identity_coding_round_trip():
     df = DeviceField(PALLAS.base)
     pts = native_srs_g(PALLAS, "torch-point-test", 6)
@@ -126,6 +165,14 @@ def test_wrappers_reject_bad_input():
         pk.padd_masked_flat(df, a.long(), a.long(), mask)
     with pytest.raises(TypeError):
         pk.pmixed_masked_flat(df, a, a, mask)
+    with pytest.raises(TypeError):
+        pk.padd_flat(df, a, a[:32])
+    with pytest.raises(TypeError):
+        pk.pdouble_flat(df, a[:, None])
+    with pytest.raises(TypeError):
+        pk.pdouble_masked_flat(df, a.long(), mask)
     meta = torch.zeros(48, 4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         pk.padd_masked_flat(df, meta, meta, mask.to("meta"))
+    with pytest.raises(ValueError):
+        pk.pdouble_flat(df, meta)
