@@ -1,37 +1,50 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (halo2_tpu_torch) on one NVIDIA GPU.
 
-Phases (any failure exits non-zero):
+Phases, in this order (any failure exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
   3. kernel B1 (Montgomery multiply) and the field add/sub kernel against
      their plain PyTorch versions, bit-exact, 2^20 operands + edges, both
      fields;
-  4. the main path at k=14: Params.new, keygen_vk, keygen_pk, create_proof
+  4. [ntt] kernel B7 (the NTT) against its plain version, bit-exact, at
+     n = 2^10, 2^16 and 2^20 with 1 and 4 columns, forward and inverse,
+     both fields; device time per transform, wrapper time, bound;
+  5. [layout] kernel B8 (limbs-first [16, N] multiply) beside B1
+     (element-major [N, 16]) at N = 2^12 .. 2^20, both against the plain
+     version, device time against the same byte bound;
+  6. the main path at k=14: Params.new, keygen_vk, keygen_pk, create_proof
      twice (cold, warm), verify_proof, a wrong public input rejected, and
      the proof's sha256 against the JAX reference's recorded hash;
-  5. kernels B2 (masked mixed add) and B3 (masked complete add) against
+  7. kernels B2 (masked mixed add) and B3 (masked complete add) against
      their plain versions, bit-exact, at the lane count of a k=14 commit,
      with random masks and signs and identity-coded bases; B4 (complete
      add), B5 (doubling) and B6 (masked doubling) likewise at 2^17 lanes
      (k=18's first IPA fold) and 8,192 lanes (k=14's), with identity
      lanes, B4 lanes with a == b and a random B6 mask;
-  6. k=14 commits (random, all-zero, all-equal columns) against the native
+  8. k=14 commits (random, all-zero, all-equal columns) against the native
      host MSM, exact affine equality;
-  7. the device window combine (B5, B4) against the host one on the
+  9. the device window combine (B5, B4) against the host one on the
      window sums of a k=14 MSM;
-  8. the warm k=14 prove once more under torch.profiler: device time by
+ 10. the warm k=14 prove once more under torch.profiler: device time by
      kernel and the device's busy share of the wall time;
-  9. the device IPA path at k=14: create_proof with every IPA round on
+ 11. the device IPA path at k=14: create_proof with every IPA round on
      the card (native_ipa_threshold=0), cold and warm, verified, its
      sha256 against the same JAX hash, its launches, and the warm prove
      profiled;
- 10. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
+ 12. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
      reference was run at, at the default IPA schedule (four device
      rounds, then native; cold, then warm), with every round native and
      with every round on the card; each proof's sha256 against that
      run's; the default and the all-device proves profiled;
- 11. a `kernels` JSON line: launches on the path that runs each kernel
+ 13. [lookup] the lookup path: halo2's dev_lookup circuit at k = 14 and
+     k = REF_K (PALLAS Params of phases 6 and 12) and the plonk_api
+     circuit at K = 5 (VESTA, two instances): keygen, a cold and a warm
+     prove, verify, a corrupted proof or a wrong instance rejected, the
+     proof's sha256 against the JAX reference's (the golden file for
+     plonk_api; zcash/halo2's own plonk_api proof verifies), launches per
+     kernel, and one profiled warm prove at k = REF_K;
+ 14. a `kernels` JSON line: launches on the path that runs each kernel
      (main or ipa), mismatches, each kernel's device time per launch
      (torch.profiler) beside its bound, the wrapper's time per call
      (CUDA events) and the plain version's;
@@ -49,18 +62,27 @@ import sys
 import time
 
 K = 14
-# sha256 of the JAX reference's BenchCircuit proof at 2^k rows, witness
-# SEED_A and rng seed PROOF_SEED (python reference_proof_hash.py --k k,
-# on a CPU); REF_K is the largest k that run was made at
+# sha256 of the JAX reference's proof at 2^k rows over PALLAS Params, rng
+# seed PROOF_SEED, keyed by (circuit, k): BenchCircuit at witness SEED_A
+# and halo2's dev_lookup circuit (python reference_proof_hash.py
+# --circuit C --k k, on a CPU); REF_K is the largest k those runs were
+# made at
 REF_SHA256 = {
-    14: "d74239f9d0320f99b2fc80c89ab5df1ad8a8d2588dc7541eb6017078e986a12f",
-    18: "87c0cff028bdb678cd0b99461464b033d82e345153d261b8573b55c145515abe",
+    ("bench", 14):
+        "d74239f9d0320f99b2fc80c89ab5df1ad8a8d2588dc7541eb6017078e986a12f",
+    ("bench", 18):
+        "87c0cff028bdb678cd0b99461464b033d82e345153d261b8573b55c145515abe",
+    ("dev-lookup", 14):
+        "6b3b2e64470bc5b3673cd81897e6431e8f062e5071385553a8b62ff4b1bce9e0",
+    ("dev-lookup", 18):
+        "bc9eede3360704f004a40ac2d2c5be8f190a2dc4d2fbd5c4d87a73b6faff9d28",
 }
 REF_K = 18
 # kernels of the main path (the default IPA schedule at k=14 runs every
-# IPA round natively); B4 and B5 run on the device IPA path (phase_ipa),
-# B6 on no path
-MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_masked", "padd_masked")
+# IPA round natively) and of the lookup path; B4 and B5 run on the device
+# IPA path (phase_ipa), B6 and B8 on no path
+MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_masked", "padd_masked",
+                     "ntt")
 
 # the card's peaks (H100 SXM at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -96,10 +118,11 @@ def _device_us(ev) -> float:
     return ev.self_cuda_time_total if dev_us is None else dev_us
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time per launch of the CUDA kernel `kernel` over `reps`
-    calls of fn, from torch.profiler: the kernel alone, without the
-    wrapper's host work between launches."""
+def device_ms(fn, reps: int, kernel: str, per_call: bool = False) -> float:
+    """Mean device time per launch of the CUDA kernels whose names hold
+    `kernel` over `reps` calls of fn (per call of fn with per_call), from
+    torch.profiler: the kernels alone, without the wrapper's host work
+    between launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity, schedule
@@ -123,7 +146,7 @@ def device_ms(fn, reps: int, kernel: str) -> float:
             count += ev.count
     if count == 0:
         raise RuntimeError(f"the profiler saw no launch of {kernel}")
-    return total / count / 1e3
+    return total / (reps if per_call else count) / 1e3
 
 
 def max_abs(got, want) -> int:
@@ -162,13 +185,20 @@ def phase_build():
                 log(f"[ptxas {name}] {line.strip()}")
 
 
-def rand_field(df, n, rng, device):
+def rand_field(df, n, seed, device):
+    """n field elements in Montgomery form made on the device: random
+    values below 2^254 < p (any value below p is a Montgomery form), the
+    last three the forms of 0, 1 and p - 1."""
     import torch
     from halo2_tpu_torch.fields.device import ints_to_digits
     p = df.spec.modulus
-    vals = [rng.randrange(p) for _ in range(n - 3)] + [0, 1, p - 1]
-    vals = [v * (1 << 256) % p for v in vals]
-    return torch.from_numpy(ints_to_digits(vals)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=device,
+                      dtype=torch.int32)
+    x[:, 15] >>= 2
+    x[-3:] = torch.from_numpy(ints_to_digits(
+        [v * (1 << 256) % p for v in (0, 1, p - 1)]))
+    return x
 
 
 def phase_field(results):
@@ -176,13 +206,12 @@ def phase_field(results):
     from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV
     from halo2_tpu_torch.ops import field_kernels as fk
     dev = torch.device("cuda")
-    rng = random.Random(11)
     n = 1 << 20
     mism = {"fmul": 0, "faddsub": 0}
     err = {"fmul": 0, "faddsub": 0}
     for df in (FP_DEV, FQ_DEV):
-        a = rand_field(df, n, rng, dev)
-        b = rand_field(df, n, rng, dev)
+        a = rand_field(df, n, 2 * df.field_id, dev)
+        b = rand_field(df, n, 2 * df.field_id + 1, dev)
         b[-3:] = a[-1]                    # (0, 1, p-1) x (p-1)
         pairs = [("fmul", fk.fmul, fk.fmul_plain),
                  ("faddsub", fk.fadd, fk.fadd_plain),
@@ -204,8 +233,8 @@ def phase_field(results):
     # pair of the gate fold (2^15 elements at k=14)
     df = FP_DEV
     N = 1 << 15
-    a = rand_field(df, N, rng, dev)
-    b = rand_field(df, N, rng, dev)
+    a = rand_field(df, N, 4, dev)
+    b = rand_field(df, N, 5, dev)
     for name, kern, plain, muladds in (
             ("fmul", fk.fmul, fk.fmul_plain, MONT_MULADDS),
             ("faddsub", fk.fadd, fk.fadd_plain, 0)):
@@ -475,9 +504,9 @@ def phase_main_path(results):
         raise AssertionError("cold and warm proofs differ")
     digest = hashlib.sha256(proofs[1]).hexdigest()
     log(f"[main] proof sha256 {digest}")
-    if digest != REF_SHA256[K]:
+    if digest != REF_SHA256["bench", K]:
         raise AssertionError(f"proof hash {digest} != JAX reference "
-                             f"{REF_SHA256[K]}")
+                             f"{REF_SHA256['bench', K]}")
     log("[main] proof bytes equal the JAX reference's")
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
     if idle:
@@ -486,10 +515,15 @@ def phase_main_path(results):
     return params, pk_, circuit, out
 
 
-def launch_counts() -> dict:
+def _counters() -> tuple:
     from halo2_tpu_torch.ops import field_kernels as fk
+    from halo2_tpu_torch.ops import ntt
     from halo2_tpu_torch.ops import point_kernels as pk
-    return {**fk.LAUNCHES, **pk.LAUNCHES}
+    return fk.LAUNCHES, pk.LAUNCHES, ntt.LAUNCHES
+
+
+def launch_counts() -> dict:
+    return {k: v for d in _counters() for k, v in d.items()}
 
 
 def diff_counts(before: dict) -> dict:
@@ -499,31 +533,23 @@ def diff_counts(before: dict) -> dict:
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0: a path's run starts here."""
-    from halo2_tpu_torch.ops import field_kernels as fk
-    from halo2_tpu_torch.ops import point_kernels as pk
-    for d in (fk.LAUNCHES, pk.LAUNCHES):
+    for d in _counters():
         for key in d:
             d[key] = 0
 
 
-def profile_prove(tag, params, pk_, circuit, out, **kw):
-    """One warm prove under torch.profiler: device time by kernel and the
-    busy share of the wall time. Reports "not measured" where the
+def profile_call(tag, fn):
+    """fn() (one warm prove) under torch.profiler: device time by kernel
+    and the busy share of the wall time. Reports "not measured" where the
     profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
-    from halo2_tpu_torch.bench_circuit import PROOF_SEED
-    from halo2_tpu_torch.curves.host import PALLAS
-    from halo2_tpu_torch.plonk import prover as pv
-    from halo2_tpu_torch.transcript import TranscriptWrite
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pv.create_proof(params, pk_, [circuit], [[[out]]],
-                        random.Random(PROOF_SEED), TranscriptWrite(PALLAS),
-                        **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = []
@@ -544,6 +570,17 @@ def profile_prove(tag, params, pk_, circuit, out, **kw):
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for dev_us, count, key in rows[:12]:
         log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def profile_prove(tag, params, pk_, circuit, out, **kw):
+    """One warm BenchCircuit prove under the profiler (profile_call)."""
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.transcript import TranscriptWrite
+    profile_call(tag, lambda: pv.create_proof(
+        params, pk_, [circuit], [[[out]]], random.Random(PROOF_SEED),
+        TranscriptWrite(PALLAS), **kw))
 
 
 def phase_profile(params, pk_, circuit, out):
@@ -585,9 +622,9 @@ def phase_ipa(results, params, pk_, circuit, out):
                  TranscriptRead(PALLAS, proofs[1]))
     digest = hashlib.sha256(proofs[1]).hexdigest()
     log(f"[ipa] proof sha256 {digest} (verified)")
-    if proofs[0] != proofs[1] or digest != REF_SHA256[K]:
+    if proofs[0] != proofs[1] or digest != REF_SHA256["bench", K]:
         raise AssertionError(f"device-IPA proof hash {digest} != JAX "
-                             f"reference {REF_SHA256[K]}")
+                             f"reference {REF_SHA256['bench', K]}")
     log("[ipa] proof bytes equal the JAX reference's")
     idle = [k for k in MAIN_PATH_KERNELS + ("padd", "pdouble")
             if launches[k] == 0]
@@ -644,13 +681,247 @@ def phase_reference_k():
         log("[ref-k] phases " + json.dumps(
             {name: round(s, 4) for name, s in pv.LAST_PHASES}))
         log(f"[ref-k] proof sha256 {digest}")
-        if digest != REF_SHA256[REF_K]:
+        if digest != REF_SHA256["bench", REF_K]:
             raise AssertionError(f"k={REF_K} proof hash {digest} != JAX "
-                                 f"reference {REF_SHA256[REF_K]}")
+                                 f"reference {REF_SHA256['bench', REF_K]}")
         log(f"[ref-k] proof bytes equal the JAX reference's at k={REF_K}")
     for label, kw in schedules[2:]:
         log(f"[ref-k] profiled: {label.split(',')[0]}")
         profile_prove("ref-k", params, pk_, circuit, out, **kw)
+    return params
+
+
+def phase_ntt(results):
+    """B7 against its plain version at n = 2^10 (the tile kernel alone),
+    2^16 (k = 14's extended domain) and 2^20 (k = 18's), 1 and 4 columns,
+    forward and inverse, both fields; device time per transform
+    (torch.profiler, both of B7's kernels), wrapper time, bound."""
+    import torch
+    from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV
+    from halo2_tpu_torch.ops import ntt
+    dev = torch.device("cuda")
+    mism, err, launches = 0, 0, {}
+    r = results["ntt"]
+    for log_n in (10, 16, 20):
+        n = 1 << log_n
+        for df in (FP_DEV, FQ_DEV):
+            spec = df.spec
+            omega = pow(spec.root_of_unity, 1 << (spec.s - log_n),
+                        spec.modulus)
+            x = rand_field(df, 4 * n, log_n, dev).view(4, n, 16)
+            plans = {"fwd": ntt.make_plan(df, n, omega),
+                     "inv": ntt.make_plan(df, n, pow(omega, spec.modulus - 2,
+                                                     spec.modulus))}
+            for direction, plan in plans.items():
+                for m in (1, 4):
+                    before = ntt.LAUNCHES["ntt"]
+                    got = ntt.ntt_many(df, x[:m], plan)
+                    launches[log_n] = ntt.LAUNCHES["ntt"] - before
+                    want = ntt.ntt_many_plain(df, x[:m], plan)
+                    bad = int((got != want).any(dim=-1).sum())
+                    mism += bad
+                    err = max(err, max_abs(got, want))
+                    del got, want
+                    if bad:
+                        log(f"[ntt] n=2^{log_n} m={m} {direction} "
+                            f"field {df.field_id}: {bad} mismatches")
+            if df is FQ_DEV:
+                # times on the scalar field of PALLAS Params, forward
+                plan = plans["fwd"]
+                for m in (1, 4):
+                    xm = x[:m].contiguous()
+                    fn = lambda: ntt.ntt_many(df, xm, plan)
+                    ms = device_ms(fn, 20, "ntt_", per_call=True)
+                    call_ms = timed(fn, 20)
+                    nbytes = m * n * 128 + n * 8 + (n - 1) * 64
+                    bd, by = bound_ms(nbytes, m * (n // 2) * log_n
+                                      * MONT_MULADDS)
+                    log(f"[ntt] n=2^{log_n} m={m}: {ms:.5f} ms on the "
+                        f"device per transform in {launches[log_n]} "
+                        f"launches, {call_ms:.4f} ms per wrapper call "
+                        f"(bound {bd:.5f} ms by {by})")
+                    key = f"n{log_n}_m{m}"
+                    r[f"ms_{key}"], r[f"call_ms_{key}"] = ms, call_ms
+                    r[f"bound_ms_{key}"] = bd
+                    if (log_n, m) == (16, 1):
+                        pms = timed(lambda: ntt.ntt_many_plain(df, xm, plan),
+                                    2)
+                        r.update(ms=ms, call_ms=call_ms, plain_ms=pms,
+                                 bound_ms=bd, bound_by=by, shape=[1, n, 16])
+                        log(f"[ntt] n=2^{log_n} m=1: plain {pms:.3f} ms")
+            del x
+    torch.cuda.synchronize()
+    r.update(mismatches=mism, max_abs_err=err)
+    log(f"[ntt] mismatches {mism}, max abs error {err}; launches per "
+        f"transform {launches}")
+    if mism:
+        raise AssertionError(f"NTT kernel mismatches: {mism}")
+
+
+def phase_layout(results):
+    """B8 (limbs-first [16, N]) beside B1 (element-major [N, 16]) on the
+    same elements at N = 2^12 .. 2^20: both against the plain version,
+    device time per launch against the same byte bound (two operands read
+    and one result written, 192 B per element)."""
+    import torch
+    from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import field_kernels as fk
+    dev = torch.device("cuda")
+    df = FQ_DEV
+    r = results["fmul_limbs_first"]
+    mism, err = 0, 0
+    for log_n in (12, 14, 16, 18, 20):
+        N = 1 << log_n
+        a = rand_field(df, N, 2 * log_n, dev)
+        b = rand_field(df, N, 2 * log_n + 1, dev)
+        a_t, b_t = a.T.contiguous(), b.T.contiguous()
+        want = fk.fmul_plain(df, a, b)
+        got_t = fk.fmul_limbs_first(df, a_t, b_t)
+        got = fk.fmul(df, a, b)
+        bad = (int((got_t.T != want).any(dim=-1).sum())
+               + int((got != want).any(dim=-1).sum()))
+        mism += bad
+        err = max(err, max_abs(got_t.T, want), max_abs(got, want))
+        ms_lf = device_ms(lambda: fk.fmul_limbs_first(df, a_t, b_t), 100,
+                          "fmul_limbs_first_kernel")
+        ms_em = device_ms(lambda: fk.fmul(df, a, b), 100, "fmul_kernel<")
+        bd, by = bound_ms(N * 192, N * MONT_MULADDS)
+        log(f"[layout] N=2^{log_n}: limbs-first (B8) {ms_lf:.5f} ms, "
+            f"element-major (B1) {ms_em:.5f} ms on the device, "
+            f"ratio {ms_lf / ms_em:.3f} (bound {bd:.5f} ms by {by}); "
+            f"mismatches {bad}")
+        r[f"ms_N{log_n}"], r[f"b1_ms_N{log_n}"] = ms_lf, ms_em
+        r[f"bound_ms_N{log_n}"] = bd
+        if log_n == 20:
+            call_ms = timed(lambda: fk.fmul_limbs_first(df, a_t, b_t), 50)
+            pms = timed(lambda: fk.fmul_limbs_first_plain(df, a_t, b_t), 2)
+            r.update(ms=ms_lf, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
+                     bound_by=by, shape=[16, N])
+    r.update(mismatches=mism, max_abs_err=err, launches=0)
+    if mism:
+        raise AssertionError(f"B8/B1 layout mismatches: {mism}")
+
+
+def _lookup_run(tag, params, circuit, instances, seed, curve,
+                ref_hash=None, golden=None, profile=False):
+    """keygen, a cold and a warm prove (equal bytes), verify, a corrupted
+    proof rejected, the proof's sha256 against `ref_hash` or the golden
+    file's; returns (vk, proof)."""
+    import torch
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
+    from halo2_tpu_torch.plonk.verifier import (verify_proof, SingleVerifier,
+                                                VerificationError)
+    from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
+    t = time.perf_counter()
+    vk = keygen_vk(params, circuit)
+    pk_ = keygen_pk(params, vk, circuit)
+    torch.cuda.synchronize()
+    log(f"[lookup] {tag}: keygen {time.perf_counter() - t:.2f}s, "
+        f"extended k {vk.domain.extended_k}")
+
+    def prove():
+        tw = TranscriptWrite(curve)
+        pv.create_proof(params, pk_, [circuit] * len(instances), instances,
+                        random.Random(seed), tw)
+        return tw.finalize()
+
+    proofs = []
+    for label in ("cold", "warm"):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        proofs.append(prove())
+        torch.cuda.synchronize()
+        log(f"[lookup] {tag}: create_proof {label} "
+            f"{time.perf_counter() - t:.3f}s, {len(proofs[-1])} bytes, "
+            f"launches {diff_counts(before)}")
+    log(f"[lookup] {tag}: warm phases " + json.dumps(
+        {name: round(sec, 4) for name, sec in pv.LAST_PHASES}))
+    t = time.perf_counter()
+    verify_proof(params, vk, SingleVerifier(params), instances,
+                 TranscriptRead(curve, proofs[1]))
+    log(f"[lookup] {tag}: verify_proof {time.perf_counter() - t:.3f}s "
+        f"(accepted)")
+    bad = bytearray(proofs[1])
+    bad[-64] ^= 1                      # the IPA's scalar c, off by one
+    try:
+        verify_proof(params, vk, SingleVerifier(params), instances,
+                     TranscriptRead(curve, bytes(bad)))
+    except VerificationError:
+        log(f"[lookup] {tag}: corrupted proof rejected")
+    else:
+        raise AssertionError(f"{tag}: a corrupted proof was accepted")
+    digest = hashlib.sha256(proofs[1]).hexdigest()
+    want = ref_hash or hashlib.sha256(golden).hexdigest()
+    log(f"[lookup] {tag}: proof sha256 {digest}")
+    if proofs[0] != proofs[1] or digest != want:
+        raise AssertionError(f"{tag}: proof hash {digest} != reference "
+                             f"{want}")
+    log(f"[lookup] {tag}: proof bytes equal the JAX reference's")
+    if profile:
+        profile_call("lookup", prove)
+    return vk, proofs[1]
+
+
+def phase_lookup(results, params_k, params_ref_k):
+    """The lookup path: dev_lookup at k = K and REF_K, then plonk_api at
+    K = 5 with two instances. Counts start at 0 just before and are read
+    just after; every kernel of the path must have launched."""
+    import os
+    import torch
+    from halo2_tpu_torch.bench_circuit import (DevLookupCircuit, PROOF_SEED,
+                                               plonk_api_circuit_class,
+                                               plonk_api_inputs, PLONK_API_K,
+                                               PLONK_API_SEED)
+    from halo2_tpu_torch.circuit import Circuit, Value
+    from halo2_tpu_torch.curves.host import PALLAS, VESTA
+    from halo2_tpu_torch.plonk.verifier import (verify_proof, SingleVerifier,
+                                                VerificationError)
+    from halo2_tpu_torch.poly.commitment import Params
+    from halo2_tpu_torch.poly.polynomial import Rotation
+    from halo2_tpu_torch.transcript import TranscriptRead
+    reset_counts()
+    for k, params in ((K, params_k), (REF_K, params_ref_k)):
+        _lookup_run(f"dev_lookup k={k}", params, DevLookupCircuit(), [[]],
+                    PROOF_SEED, PALLAS,
+                    ref_hash=REF_SHA256["dev-lookup", k],
+                    profile=k == REF_K)
+    launches = launch_counts()
+    log(f"[lookup] launches over the dev_lookup proves {launches}")
+    idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels of the lookup path not launched: "
+                             f"{idle}")
+    results["ntt"]["lookup_launches"] = launches["ntt"]
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    with open(os.path.join(golden, "plonk_api_tpu_proof.bin"), "rb") as fh:
+        tpu_golden = fh.read()
+    with open(os.path.join(golden, "plonk_api_proof.bin"), "rb") as fh:
+        zcash_proof = fh.read()
+    fs = VESTA.scalar
+    cls = plonk_api_circuit_class(Circuit, Value, Rotation, fs)
+    a, instance, table = plonk_api_inputs(fs)
+    params = Params.new(VESTA, PLONK_API_K)
+    vk, _ = _lookup_run("plonk_api K=5", params, cls(a, table),
+                        [[[instance]], [[instance]]], PLONK_API_SEED, VESTA,
+                        golden=tpu_golden)
+    verify_proof(params, vk, SingleVerifier(params),
+                 [[[instance]], [[instance]]],
+                 TranscriptRead(VESTA, zcash_proof))
+    try:
+        verify_proof(params, vk, SingleVerifier(params),
+                     [[[instance]], [[instance + 1]]],
+                     TranscriptRead(VESTA, zcash_proof))
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("plonk_api: a wrong instance was accepted")
+    torch.cuda.synchronize()
+    log("[lookup] plonk_api: zcash/halo2's proof verifies, a wrong "
+        "instance is rejected")
 
 
 def run_phase(phase, *args):
@@ -693,13 +964,21 @@ def main() -> int:
         "pdouble_masked": {"route": "cuda",
                            "source": src + "point_kernels.cu",
                            "replaces": "halo2_tpu/ops/pallas_point.py:330"},
+        "ntt": {"route": "cuda", "source": src + "ntt_kernels.cu",
+                "replaces": "halo2_tpu/ops/pallas_field.py:169"},
+        "fmul_limbs_first": {"route": "cuda",
+                             "source": src + "field_kernels.cu",
+                             "replaces": "scripts/bench_fmul3d.py:29"},
     }
     paths = {name: "main" for name in MAIN_PATH_KERNELS}
-    paths.update(padd="ipa", pdouble="ipa", pdouble_masked=None)
+    paths.update(padd="ipa", pdouble="ipa", pdouble_masked=None,
+                 fmul_limbs_first=None)
     t_all = time.perf_counter()
     phase_card()
     run_phase(phase_build)
     run_phase(phase_field, results)
+    run_phase(phase_ntt, results)
+    run_phase(phase_layout, results)
     state = run_phase(phase_main_path, results)
     run_phase(phase_points, results, state[0])
     run_phase(phase_add_double, results, state[0])
@@ -707,7 +986,8 @@ def main() -> int:
     run_phase(phase_horner, state[0])
     run_phase(phase_profile, *state)
     run_phase(phase_ipa, results, *state)
-    run_phase(phase_reference_k)
+    params_ref_k = run_phase(phase_reference_k)
+    run_phase(phase_lookup, results, state[0], params_ref_k)
     kernels = [{"name": name, "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "path": paths[name],
                 "launches": r["launches"],
@@ -718,7 +998,8 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": None,
                 "shape": r["shape"],
                 **{k: v for k, v in r.items() if k.startswith(
-                    ("ms_L", "bound_ms_L"))}}
+                    ("ms_", "bound_ms_", "call_ms_", "b1_ms_",
+                     "lookup_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

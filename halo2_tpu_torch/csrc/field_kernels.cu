@@ -1,5 +1,6 @@
 // Kernel B1: the elementwise 255-bit Montgomery multiply, and the modular
-// add/subtract that runs beside it.
+// add/subtract that runs beside it; kernel B8, the same multiply on the
+// limbs-first layout (below).
 //
 // B1 replaces the TPU kernel halo2_tpu/ops/pallas_field.py::_mont_mul_kernel
 // (built at :76/:94, wrapped by fmul_pallas at :105), which the JAX package
@@ -57,7 +58,42 @@ __global__ void faddsub_kernel(int32_t* __restrict__ out,
   store_digits(out + (size_t)i * 16, r);
 }
 
+// Kernel B8: B1's product on the limbs-first layout [16, N] (row i holds
+// digit i of every element), the Hopper counterpart of the TPU layout
+// benchmark scripts/bench_fmul3d.py::kernel3d (:29, pallas_call :71). Same
+// CIOS, one thread per element; a warp reads 128 contiguous bytes per digit
+// row instead of B1's 64 contiguous bytes per thread. No proving path
+// calls it: chip_smoke.py times it beside B1 to decide the port's layout.
+template <int F>
+__global__ void fmul_limbs_first_kernel(int32_t* __restrict__ out,
+                                        const int32_t* __restrict__ a,
+                                        const int32_t* __restrict__ b,
+                                        uint32_t n) {
+  uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[8], y[8], r[8];
+  load_rows(x, a + i, n);
+  load_rows(y, b + i, n);
+  mont_mul<F>(r, x, y);
+  store_rows(out + i, n, r);
+}
+
 static const int kThreads = 256;
+
+extern "C" int h2t_fmul_limbs_first(int field, void* out, const void* a,
+                                    const void* b, long long n,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (field == 0)
+    fmul_limbs_first_kernel<0><<<grid, kThreads, 0, s>>>(
+        (int32_t*)out, (const int32_t*)a, (const int32_t*)b, (uint32_t)n);
+  else
+    fmul_limbs_first_kernel<1><<<grid, kThreads, 0, s>>>(
+        (int32_t*)out, (const int32_t*)a, (const int32_t*)b, (uint32_t)n);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int h2t_fmul(int field, void* out, const void* a, const void* b,
                         long long n, long long a_period, long long b_period,

@@ -27,6 +27,7 @@ BUILD = os.path.join(_PKG, "_build")
 SOURCES = {
     "field_kernels": "field_kernels.cu",
     "point_kernels": "point_kernels.cu",
+    "ntt_kernels": "ntt_kernels.cu",
 }
 _HEADERS = ("field.cuh",)
 
@@ -38,6 +39,10 @@ _ARGTYPES = {
     "field_kernels": {
         "h2t_fmul": [_I, _P, _P, _P, _LL, _LL, _LL, _P],
         "h2t_faddsub": [_I, _I, _P, _P, _P, _LL, _LL, _LL, _P],
+        "h2t_fmul_limbs_first": [_I, _P, _P, _P, _LL, _P],
+    },
+    "ntt_kernels": {
+        "h2t_ntt": [_I, _P, _P, _P, _P, _LL, _I, _I, _P],
     },
     "point_kernels": {
         "h2t_padd_masked": [_I, _P, _P, _P, _P, _LL, _P],

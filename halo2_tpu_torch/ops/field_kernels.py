@@ -1,5 +1,6 @@
-"""Kernel B1 (Montgomery multiply) and the field add/subtract kernel, with
-their plain PyTorch versions.
+"""Kernel B1 (Montgomery multiply), the field add/subtract kernel and
+kernel B8 (B1 on the limbs-first layout), with their plain PyTorch
+versions.
 
 Replaces halo2_tpu/ops/pallas_field.py (the Pallas `_mont_mul_kernel`,
 whose limbs-first [16, N] layout only served the TPU's sublanes). Here a
@@ -28,7 +29,7 @@ NLIMBS = 16
 LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
 
-LAUNCHES = {"fmul": 0, "faddsub": 0}
+LAUNCHES = {"fmul": 0, "faddsub": 0, "fmul_limbs_first": 0}
 
 # column i + j of each entry of a flattened 16x16 digit product
 _DIAG = (np.arange(NLIMBS)[:, None] + np.arange(NLIMBS)[None, :]).reshape(-1)
@@ -211,3 +212,42 @@ def fsub(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not _dispatch(a):
         return fsub_plain(df, a, b)
     return _launch("h2t_faddsub", "faddsub", df, a, b, 1)
+
+
+# ---------------------------------------------------------------------------
+# kernel B8: the limbs-first layout (a layout benchmark; no proving path)
+# ---------------------------------------------------------------------------
+
+def fmul_limbs_first_plain(df, a_t: torch.Tensor, b_t: torch.Tensor
+                           ) -> torch.Tensor:
+    """B1's product on limbs-first [16, N] digit arrays: a transpose
+    around fmul_plain."""
+    return fmul_plain(df, a_t.T, b_t.T).T.contiguous()
+
+
+def fmul_limbs_first(df, a_t: torch.Tensor, b_t: torch.Tensor
+                     ) -> torch.Tensor:
+    """Montgomery product of limbs-first [16, N] int32 digit arrays (row i
+    holds digit i of every element; the reference's fmul_pallas layout),
+    kernel B8 on CUDA."""
+    for x in (a_t, b_t):
+        if (x.dtype != torch.int32 or x.dim() != 2
+                or x.shape[0] != NLIMBS):
+            raise TypeError(f"limbs-first operands are int32 [16, N], got "
+                            f"{x.dtype} {tuple(x.shape)}")
+    if a_t.shape != b_t.shape or a_t.device != b_t.device:
+        raise ValueError(f"operands {tuple(a_t.shape)} on {a_t.device} and "
+                         f"{tuple(b_t.shape)} on {b_t.device}")
+    if not _dispatch(a_t):
+        return fmul_limbs_first_plain(df, a_t, b_t)
+    from . import cuda_build
+    a_t, b_t = a_t.contiguous(), b_t.contiguous()
+    out = torch.empty_like(a_t)
+    lib = cuda_build.library("field_kernels")
+    rc = lib.h2t_fmul_limbs_first(df.field_id, out.data_ptr(),
+                                  a_t.data_ptr(), b_t.data_ptr(),
+                                  a_t.shape[1],
+                                  cuda_build.stream_ptr(a_t.device))
+    cuda_build.check(rc, "h2t_fmul_limbs_first")
+    LAUNCHES["fmul_limbs_first"] += 1
+    return out

@@ -1,11 +1,14 @@
-"""Radix-2 NTT over field tensors.
+"""Radix-2 NTT over field tensors: kernel B7 and its plain version.
 
-Port of halo2_tpu/ops/ntt.py (`make_plan`, `ntt`, `ntt_many`, `intt`):
-log2(n) vectorized butterfly stages over a [..., n, 16] tensor after one
-bit-reversal gather. The twiddle products launch kernel B1 (the twiddle
-row is indexed modulo its length, never materialised per butterfly) and
-the butterfly sums the field add/subtract kernel. The reference's group
-NTT serves SRS setup, which the port leaves to the native host library.
+Port of halo2_tpu/ops/ntt.py (`make_plan`, `ntt`, `ntt_many`, `intt`) and
+of the TPU routine halo2_tpu/ops/pallas_field.py::ntt_pallas. On CUDA
+`ntt_many` launches kernel B7 (csrc/ntt_kernels.cu): the bit-reversal
+gather and the first min(log n, TILE_LOG) stages in one launch, then one
+launch per later stage. On the CPU it runs `ntt_many_plain`, log2(n)
+vectorized butterfly stages after one gather, with the plain field ops.
+`LAUNCHES` counts B7's kernel launches, nowhere else. The reference's
+group NTT serves SRS setup, which the port leaves to the native host
+library.
 """
 from __future__ import annotations
 
@@ -15,7 +18,13 @@ import numpy as np
 import torch
 
 from ..fields.device import DeviceField, NLIMBS, int_to_limbs
-from .field_kernels import fmul, fadd, fsub
+from .field_kernels import (fmul, fmul_plain, fadd_plain, fsub_plain,
+                            _dispatch)
+
+LAUNCHES = {"ntt": 0}
+# stages per block in shared memory: a 2^10-element tile of 8 x 32-bit
+# limbs is 32 KB, under the 48 KB a block gets without opting in
+TILE_LOG = 10
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -31,7 +40,10 @@ def bit_reverse_perm(n: int) -> np.ndarray:
 class NttPlan:
     """Tables for a size-n NTT with root `omega` (host ints): `twiddles[s]`
     holds the 2^s twiddles of stage s+1 as Montgomery digits, `perm` the
-    bit-reversal gather. Device copies are made once per device."""
+    bit-reversal gather. The device copy is made once per device: the
+    stage tables concatenated into one [n - 1, 16] tensor (stage s at rows
+    2^(s-1) - 1 .. 2^s - 2), which the kernel indexes, and views of it per
+    stage."""
     n: int
     omega: int
     perm: np.ndarray
@@ -39,12 +51,18 @@ class NttPlan:
     _dev: dict = field(default_factory=dict, repr=False)
 
     def on(self, device) -> tuple:
+        """(perm, the concatenated twiddle table, the per-stage views) on
+        `device`."""
         device = torch.device(device)
         ent = self._dev.get(device)
         if ent is None:
+            table = torch.from_numpy(np.concatenate(
+                self.twiddles or (np.zeros((0, NLIMBS), np.int32),))
+            ).to(device)
+            stages = tuple(table[(1 << s) - 1:(1 << (s + 1)) - 1]
+                           for s in range(len(self.twiddles)))
             ent = self._dev[device] = (
-                torch.as_tensor(self.perm, device=device),
-                tuple(torch.from_numpy(t).to(device) for t in self.twiddles))
+                torch.as_tensor(self.perm, device=device), table, stages)
         return ent
 
 
@@ -66,23 +84,57 @@ def make_plan(df: DeviceField, n: int, omega: int) -> NttPlan:
                    twiddles=tuple(twiddles))
 
 
-def ntt_many(df: DeviceField, x: torch.Tensor, plan: NttPlan
-             ) -> torch.Tensor:
-    """Forward NTT of [m, n, 16] along axis 1 (m independent transforms
-    share every stage's launches)."""
+def ntt_many_plain(df: DeviceField, x: torch.Tensor, plan: NttPlan
+                   ) -> torch.Tensor:
+    """Forward NTT of [m, n, 16] along axis 1 in plain PyTorch: one
+    bit-reversal gather, then per stage the twiddle products and the
+    butterfly sums over all m columns (the twiddle row broadcasts over
+    the butterfly groups)."""
     m, n = x.shape[0], x.shape[1]
-    assert n == plan.n
-    perm, tws = plan.on(x.device)
+    perm, _, tws = plan.on(x.device)
     x = x.index_select(1, perm)
     for s, tw in enumerate(tws, start=1):
         mm = 1 << s
         half = mm // 2
         xr = x.view(m, n // mm, mm, NLIMBS)
         lo, hi = xr[:, :, :half], xr[:, :, half:]
-        t = fmul(df, hi, tw)
-        x = torch.cat([fadd(df, lo, t), fsub(df, lo, t)],
+        t = fmul_plain(df, hi, tw)
+        x = torch.cat([fadd_plain(df, lo, t), fsub_plain(df, lo, t)],
                       dim=2).view(m, n, NLIMBS)
     return x
+
+
+def ntt_many(df: DeviceField, x: torch.Tensor, plan: NttPlan
+             ) -> torch.Tensor:
+    """Forward NTT of [m, n, 16] int32 Montgomery digits along axis 1 (m
+    independent transforms share every launch): kernel B7 on CUDA, the
+    plain version on the CPU."""
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[2] != NLIMBS:
+        raise TypeError(f"ntt_many takes int32 [m, n, 16], got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    m, n = x.shape[0], x.shape[1]
+    if n != plan.n:
+        raise ValueError(f"plan of size {plan.n} for columns of {n}")
+    if not _dispatch(x):
+        return ntt_many_plain(df, x, plan)
+    if n == 1 or m == 0:
+        return x.clone()
+    if m * n >= 1 << 31:
+        raise ValueError(f"{m} columns of {n} exceed the kernel's 2^31 "
+                         f"elements")
+    from . import cuda_build
+    x = x.contiguous()
+    perm, table, _ = plan.on(x.device)
+    out = torch.empty_like(x)
+    log_n = n.bit_length() - 1
+    log_tile = min(log_n, TILE_LOG)
+    rc = cuda_build.library("ntt_kernels").h2t_ntt(
+        df.field_id, out.data_ptr(), x.data_ptr(), perm.data_ptr(),
+        table.data_ptr(), m, log_n, log_tile,
+        cuda_build.stream_ptr(x.device))
+    cuda_build.check(rc, "h2t_ntt")
+    LAUNCHES["ntt"] += 1 + log_n - log_tile
+    return out
 
 
 def ntt(df: DeviceField, a: torch.Tensor, plan: NttPlan) -> torch.Tensor:

@@ -21,16 +21,9 @@ from .keys import VerifyingKey, ProvingKey
 from .error import NotEnoughRowsAvailable  # noqa: F401 (re-export)
 
 
-def _require_no_lookups(cs: ConstraintSystem) -> None:
-    if cs.lookups:
-        raise NotImplementedError(
-            "lookup arguments are not ported yet (halo2_tpu/plonk/lookup.py)")
-
-
 def create_domain(params: Params, circuit_cls):
     cs = ConstraintSystem()
     config = circuit_cls.configure(cs)
-    _require_no_lookups(cs)
     domain = EvaluationDomain(params.scalar_df, cs.degree(), params.k,
                               params.device)
     return cs, domain, config
@@ -191,7 +184,6 @@ def keygen_pk(params: Params, vk: VerifyingKey,
     dev = params.device
     cs = ConstraintSystem()
     config = type(circuit).configure(cs)
-    _require_no_lookups(cs)
     domain = vk.domain
     if params.n < cs.minimum_rows():
         raise NotEnoughRowsAvailable(params.k)

@@ -1,13 +1,15 @@
 """The PLONK prover: the Fiat-Shamir proof construction.
 
 Port of halo2_tpu/plonk/prover.py (halo2_proofs/src/plonk/prover.rs:
-35-725) without lookups, the jitted gate chunks or the mesh mode. The
-phase order -- and therefore the proof byte layout and the order of every
-draw from the caller's `rng` -- is the reference's exactly:
+35-725) without the jitted gate chunks or the mesh mode. The phase order
+-- and therefore the proof byte layout and the order of every draw from
+the caller's `rng` -- is the reference's exactly:
   vk.hash_into -> instance commitments -> witness synthesis -> advice
-  commitments -> theta -> beta, gamma -> permutation z commitments ->
-  vanishing random commitment -> y -> h(X) commitments -> x -> instance /
-  advice / fixed evals -> vanishing eval -> permutation evals -> multiopen.
+  commitments -> theta -> lookup permuted commitments -> beta, gamma ->
+  permutation z commitments -> lookup product commitments -> vanishing
+  random commitment -> y -> h(X) commitments -> x -> instance / advice /
+  fixed evals -> vanishing eval -> permutation evals -> lookup evals ->
+  multiopen.
 
 All O(n) work (commitments, NTTs, gate evaluation, scans) runs on the
 Params device; the host sequences phases and hashes the transcript.
@@ -27,11 +29,13 @@ from ..circuit.layouter import Circuit
 from .circuit import ConstraintSystem, Column
 from .assigned import Assigned, batch_evaluate_assigned
 from .keys import ProvingKey
-from .keygen import NotEnoughRowsAvailable, _require_no_lookups
+from .keygen import NotEnoughRowsAvailable
 from .evaluation import (evaluate_expression, coset_points,
                          expression_share_counts, fresh_memo)
 from .permutation import (permutation_commit, permutation_h_terms,
                           permutation_evaluate, permutation_pk_evaluate)
+from .lookup import (lookup_commit_permuted, lookup_commit_product,
+                     lookup_h_terms, lookup_evaluate)
 from .vanishing import (vanishing_commit, vanishing_construct,
                         vanishing_evaluate)
 
@@ -171,7 +175,6 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     if len(circuits) != len(instances):
         raise ValueError("circuits/instances length mismatch")
     cs = pk.vk.cs
-    _require_no_lookups(cs)
     fs = params.curve.scalar
     df = params.scalar_df
     dev = params.device
@@ -232,7 +235,16 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
         advice_singles.append({"values": advice_cols, "polys": polys,
                                "cosets": cosets, "blinds": advice_blinds})
     prof.lap("advice: ntt+extend")
-    transcript.squeeze_challenge()  # theta (only lookups use it)
+    theta = transcript.squeeze_challenge()
+
+    # ---- lookups: permuted commitments ----
+    lookups_permuted = [
+        [lookup_commit_permuted(argument, cs, params, domain, theta,
+                                adv_s["values"], pk.fixed_values,
+                                inst_s["values"], rng, transcript)
+         for argument in cs.lookups]
+        for inst_s, adv_s in zip(instance_singles, advice_singles)]
+    prof.lap("lookup permuted")
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
 
@@ -244,6 +256,14 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             adv_s["values"], pk.fixed_values, inst_s["values"],
             beta, gamma, rng, transcript))
     prof.lap("permutation z")
+
+    # ---- lookups: product commitments ----
+    lookups_committed = [
+        [lookup_commit_product(permuted, cs, params, domain, beta, gamma,
+                               rng, transcript)
+         for permuted in per_instance]
+        for per_instance in lookups_permuted]
+    prof.lap("lookup products")
 
     # ---- vanishing: random poly ----
     vanishing = vanishing_commit(params, domain, rng, transcript)
@@ -257,15 +277,22 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     ext_n = domain.extended_n
     y_m = df.scalar(y, dev)
     h_acc = None
-    for inst_s, adv_s, perm_sets in zip(
-            instance_singles, advice_singles, permutations_committed):
+    for inst_s, adv_s, perm_sets, lk_committed in zip(
+            instance_singles, advice_singles, permutations_committed,
+            lookups_committed):
         h_acc = _gates_h_fold(pk, cs, df, rot_scale, y_m, h_acc,
                               adv_s["cosets"], pk.fixed_cosets,
                               inst_s["cosets"])
-        for term in permutation_h_terms(
-                cs, domain, pk.permutation, perm_sets,
-                adv_s["cosets"], pk.fixed_cosets, inst_s["cosets"],
-                pk.l0, pk.l_blind, pk.l_last, coset_pts, beta, gamma):
+        terms = permutation_h_terms(
+            cs, domain, pk.permutation, perm_sets,
+            adv_s["cosets"], pk.fixed_cosets, inst_s["cosets"],
+            pk.l0, pk.l_blind, pk.l_last, coset_pts, beta, gamma)
+        for committed in lk_committed:
+            terms += lookup_h_terms(
+                committed, domain, theta, beta, gamma, adv_s["cosets"],
+                pk.fixed_cosets, inst_s["cosets"], pk.l0, pk.l_blind,
+                pk.l_last)
+        for term in terms:
             h_acc = term if h_acc is None else fadd(
                 df, fmul(df, h_acc, y_m), term)
     h_terms = ([] if h_acc is None
@@ -292,6 +319,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
         memo.collect(pk.fixed_polys[column.index],
                      domain.rotate_omega(x, at.value))
     x_next = domain.rotate_omega(x, 1)
+    x_inv = domain.rotate_omega(x, -1)
     x_last = domain.rotate_omega(x, -(cs.blinding_factors() + 1))
     for poly in pk.permutation.polys:
         memo.collect(poly, x)
@@ -301,6 +329,13 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             memo.collect(s.z_poly, x_next)
             if i < len(perm_sets) - 1:
                 memo.collect(s.z_poly, x_last)
+    for lk_committed in lookups_committed:
+        for committed in lk_committed:
+            memo.collect(committed.product_poly, x)
+            memo.collect(committed.product_poly, x_next)
+            memo.collect(committed.permuted.permuted_input_poly, x)
+            memo.collect(committed.permuted.permuted_input_poly, x_inv)
+            memo.collect(committed.permuted.permuted_table_poly, x)
     memo.collect(vanishing.random_poly, x)
     memo.compute()
     ev = memo.ev
@@ -325,12 +360,16 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     for perm_sets in permutations_committed:
         permutation_evaluate(perm_sets, domain, cs, x, df, transcript,
                              eval_fn=ev)
+    for lk_committed in lookups_committed:
+        for committed in lk_committed:
+            lookup_evaluate(committed, domain, x, transcript, ev)
     prof.lap("evals")
 
     # ---- multiopen queries (prover.rs:676-724) ----
     queries: list[ProverQuery] = []
-    for inst_s, adv_s, perm_sets in zip(
-            instance_singles, advice_singles, permutations_committed):
+    for inst_s, adv_s, perm_sets, lk_committed in zip(
+            instance_singles, advice_singles, permutations_committed,
+            lookups_committed):
         for column, at in cs.instance_queries:
             queries.append(ProverQuery(
                 point=domain.rotate_omega(x, at.value),
@@ -349,6 +388,19 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
         for s in list(reversed(perm_sets))[1:]:
             queries.append(ProverQuery(point=x_last, poly=s.z_poly,
                                        blind=s.blind))
+        # lookup opens (lookup/prover.rs:513-552)
+        for committed in lk_committed:
+            perm = committed.permuted
+            for point, poly, blind in (
+                    (x, committed.product_poly, committed.product_blind),
+                    (x, perm.permuted_input_poly, perm.permuted_input_blind),
+                    (x, perm.permuted_table_poly, perm.permuted_table_blind),
+                    (x_inv, perm.permuted_input_poly,
+                     perm.permuted_input_blind),
+                    (x_next, committed.product_poly,
+                     committed.product_blind)):
+                queries.append(ProverQuery(point=point, poly=poly,
+                                           blind=blind))
     for column, at in cs.fixed_queries:
         queries.append(ProverQuery(
             point=domain.rotate_omega(x, at.value),

@@ -1,8 +1,8 @@
 """The PLONK verifier + verification strategies.
 
 Port of halo2_tpu/plonk/verifier.py (halo2_proofs/src/plonk/verifier.rs:
-22-347 with vanishing/ and permutation/verifier.rs) without lookups. The
-verifier commits the instance columns on the Params device, replays the
+22-347 with vanishing/, permutation/ and lookup/verifier.rs). The verifier
+commits the instance columns on the Params device, replays the
 transcript, evaluates every constraint on host scalars, reconstructs the
 expected h(x) = (y-fold of expressions)/(x^n - 1), and defers everything
 into one host MSM."""
@@ -13,6 +13,7 @@ from ..poly.multiopen import VerifierQuery, multiopen_verify_proof
 from .keys import VerifyingKey
 from .evaluation import evaluate_expression_host
 from .permutation import permutation_verifier_expressions
+from .lookup import lookup_verifier_expressions
 
 
 class VerificationError(Exception):
@@ -32,8 +33,6 @@ def verify_proof(params: Params, vk: VerifyingKey, strategy,
     for inst in instances:
         if len(inst) != cs.num_instance_columns:
             raise VerificationError("invalid instances")
-    if cs.lookups:
-        raise NotImplementedError("lookup arguments are not ported yet")
     # instance commitments (common)
     instance_commitments = []
     for inst in instances:
@@ -54,7 +53,11 @@ def verify_proof(params: Params, vk: VerifyingKey, strategy,
 
     advice_commitments = [transcript.read_n_points(cs.num_advice_columns)
                           for _ in range(num_proofs)]
-    transcript.squeeze_challenge()  # theta (only lookups use it)
+    theta = transcript.squeeze_challenge()
+    lookups_permuted = [
+        [(transcript.read_point(), transcript.read_point())
+         for _ in cs.lookups]
+        for _ in range(num_proofs)]
 
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
@@ -65,6 +68,9 @@ def verify_proof(params: Params, vk: VerifyingKey, strategy,
                      // chunk_len)
     permutations_committed = [transcript.read_n_points(num_perm_sets)
                               for _ in range(num_proofs)]
+    lookups_committed = [
+        [(pi, pt, transcript.read_point()) for pi, pt in per_proof]
+        for per_proof in lookups_permuted]
 
     random_poly_commitment = transcript.read_point()
     y = transcript.squeeze_challenge()
@@ -91,6 +97,12 @@ def verify_proof(params: Params, vk: VerifyingKey, strategy,
             sets.append({"eval": ev, "next_eval": ev_next,
                          "last_eval": ev_last})
         permutations_evaluated.append(sets)
+    lookup_keys = ("product_eval", "product_next_eval", "permuted_input_eval",
+                   "permuted_input_inv_eval", "permuted_table_eval")
+    lookups_evaluated = [
+        [{key: transcript.read_scalar() for key in lookup_keys}
+         for _ in per_proof]
+        for per_proof in lookups_committed]
 
     # ---- expected h(x) ----
     xn = pow(x, n, p)
@@ -114,6 +126,11 @@ def verify_proof(params: Params, vk: VerifyingKey, strategy,
             cs, fs, permutations_evaluated[pf], permutations_common,
             advice_evals[pf], fixed_evals, instance_evals[pf],
             l_0, l_last, l_blind, beta, gamma, x))
+        for lk_evals, argument in zip(lookups_evaluated[pf], cs.lookups):
+            expressions.extend(lookup_verifier_expressions(
+                argument, fs, lk_evals, advice_evals[pf], fixed_evals,
+                instance_evals[pf], l_0, l_last, l_blind,
+                theta, beta, gamma))
 
     expected_h_eval = 0
     for v in expressions:
@@ -154,6 +171,17 @@ def verify_proof(params: Params, vk: VerifyingKey, strategy,
         for comm, s in list(zip(comms, sets))[::-1][1:]:
             queries.append(VerifierQuery(point=x_last, commitment=comm,
                                          eval=s["last_eval"]))
+        # lookup queries (lookup/verifier.rs:170-208)
+        for (pi_comm, pt_comm, prod_comm), evs in zip(
+                lookups_committed[pf], lookups_evaluated[pf]):
+            for point, comm, key in (
+                    (x, prod_comm, "product_eval"),
+                    (x, pi_comm, "permuted_input_eval"),
+                    (x, pt_comm, "permuted_table_eval"),
+                    (x_inv, pi_comm, "permuted_input_inv_eval"),
+                    (x_next, prod_comm, "product_next_eval")):
+                queries.append(VerifierQuery(point=point, commitment=comm,
+                                             eval=evs[key]))
 
     for qi, (column, at) in enumerate(cs.fixed_queries):
         queries.append(VerifierQuery(

@@ -1,12 +1,17 @@
 """Record the JAX reference's proof hash for chip_smoke.py.
 
-Proves BenchCircuit (halo2_tpu_torch/bench_circuit.py) with the JAX
-package halo2_tpu at 2^k rows, at the fixed witness and RNG seed that
-chip_smoke.py uses, and prints the sha256 of the proof bytes. It lives
-outside halo2_tpu_torch because it imports the reference, which the port
-never does. Run on a CPU, from the repository root:
+Proves a circuit of halo2_tpu_torch/bench_circuit.py with the JAX
+package halo2_tpu at 2^k rows over PALLAS Params, at the fixed witness
+and RNG seed that chip_smoke.py uses, and prints the sha256 of the proof
+bytes: BenchCircuit (`--circuit bench`, witness SEED_A) or halo2's
+dev_lookup circuit (`--circuit dev-lookup`, an 8-bit table and 2^10
+looked-up rows). It lives outside halo2_tpu_torch because it imports the
+reference, which the port never does. Run on a CPU, from the repository
+root:
 
-    JAX_PLATFORMS=cpu python reference_proof_hash.py --k 14
+    JAX_PLATFORMS=cpu python reference_proof_hash.py --circuit bench --k 14
+    JAX_PLATFORMS=cpu python reference_proof_hash.py \
+        --circuit dev-lookup --k 14
 """
 from __future__ import annotations
 
@@ -16,13 +21,16 @@ import os
 import random
 import time
 
-from halo2_tpu_torch.bench_circuit import (bench_circuit_class, regions_for_k,
-                                           expected_output, SEED_A,
-                                           PROOF_SEED)
+from halo2_tpu_torch.bench_circuit import (bench_circuit_class,
+                                           dev_lookup_circuit_class,
+                                           regions_for_k, expected_output,
+                                           SEED_A, PROOF_SEED)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--circuit", choices=("bench", "dev-lookup"),
+                    default="bench")
     ap.add_argument("--k", type=int, default=14)
     args = ap.parse_args()
     # commit on the reference's exact host MSM: the group elements, hence
@@ -37,20 +45,26 @@ def main() -> None:
     from halo2_tpu.plonk import keygen_vk, keygen_pk, create_proof
 
     t0 = time.perf_counter()
-    regions = regions_for_k(args.k)
     fs = PALLAS.scalar
-    circuit = bench_circuit_class(Circuit, Value, Rotation, fs)(
-        SEED_A, regions)
+    if args.circuit == "bench":
+        regions = regions_for_k(args.k)
+        circuit = bench_circuit_class(Circuit, Value, Rotation, fs)(
+            SEED_A, regions)
+        instances = [[[expected_output(fs, SEED_A, regions)]]]
+        what = f"regions={regions}"
+    else:
+        circuit = dev_lookup_circuit_class(Circuit, Value, Rotation, fs)()
+        instances = [[]]
+        what = f"table_bits={circuit.table_bits} rows={circuit.rows}"
     params = Params.new(PALLAS, args.k, use_cache=False)
     vk = keygen_vk(params, circuit)
     pk = keygen_pk(params, vk, circuit)
     tw = TranscriptWrite(PALLAS)
-    create_proof(params, pk, [circuit],
-                 [[[expected_output(fs, SEED_A, regions)]]],
+    create_proof(params, pk, [circuit], instances,
                  random.Random(PROOF_SEED), tw)
     proof = tw.finalize()
-    print(f"k={args.k} regions={regions} proof_bytes={len(proof)} "
-          f"seconds={time.perf_counter() - t0:.1f}")
+    print(f"circuit={args.circuit} k={args.k} {what} "
+          f"proof_bytes={len(proof)} seconds={time.perf_counter() - t0:.1f}")
     print(hashlib.sha256(proof).hexdigest())
 
 

@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_tpu_torch.bench_circuit import BenchCircuit, expected_output
+from halo2_tpu_torch.bench_circuit import (BenchCircuit, DevLookupCircuit,
+                                           expected_output)
 from halo2_tpu_torch.curves.host import PALLAS, VESTA
 from halo2_tpu_torch.curves.native import native_srs_g
 from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
 from halo2_tpu_torch.ops import field_kernels as fk
 from halo2_tpu_torch.ops import msm_pippenger as mp
+from halo2_tpu_torch.ops import ntt as ntt_ops
 from halo2_tpu_torch.ops import point_kernels as pk
 from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
 from halo2_tpu_torch.plonk.prover import create_proof
@@ -60,6 +62,38 @@ def test_field_kernels_match_plain(cuda, df):
                            plain(df, rows, b[:256]))
         assert torch.equal(kern(df, a.to(cuda), b[5].to(cuda)).cpu(),
                            plain(df, a, b[5]))
+
+
+@pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
+@pytest.mark.parametrize("log_n", [10, 14])
+def test_ntt_kernel_matches_plain(cuda, df, log_n):
+    """B7 on 3 columns, forward and inverse: the tile kernel alone at
+    2^10, the tile kernel and four stage launches at 2^14."""
+    n = 1 << log_n
+    spec = df.spec
+    x = _field_operands(df, 3 * n, 6).view(3, n, 16)
+    omega = pow(spec.root_of_unity, 1 << (spec.s - log_n), spec.modulus)
+    for omega in (omega, pow(omega, spec.modulus - 2, spec.modulus)):
+        plan = ntt_ops.make_plan(df, n, omega)
+        before = ntt_ops.LAUNCHES["ntt"]
+        got = ntt_ops.ntt_many(df, x.to(cuda), plan).cpu()
+        assert ntt_ops.LAUNCHES["ntt"] == before + 1 + max(0, log_n - 10)
+        assert torch.equal(got, ntt_ops.ntt_many_plain(df, x, plan))
+
+
+@pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
+def test_limbs_first_kernel_matches_b1(cuda, df):
+    """B8 on limbs-first [16, N] equals B1 on the same elements and its
+    plain version."""
+    a = _field_operands(df, 4099, 7)
+    b = _field_operands(df, 4099, 8)
+    before = fk.LAUNCHES["fmul_limbs_first"]
+    got = fk.fmul_limbs_first(df, a.T.contiguous().to(cuda),
+                              b.T.contiguous().to(cuda))
+    assert fk.LAUNCHES["fmul_limbs_first"] == before + 1
+    assert torch.equal(got.T.cpu(), fk.fmul(df, a.to(cuda), b.to(cuda)).cpu())
+    assert torch.equal(got.cpu(), fk.fmul_limbs_first_plain(
+        df, a.T.contiguous(), b.T.contiguous()))
 
 
 def test_point_kernels_match_plain(cuda):
@@ -144,5 +178,22 @@ def test_proof_on_the_card_equals_the_cpu_proof(cuda, threshold):
                      **kw)
         proofs.append(tw.finalize())
         verify_proof(params, vk, SingleVerifier(params), [[[out]]],
+                     TranscriptRead(PALLAS, proofs[-1]))
+    assert proofs[0] == proofs[1]
+
+
+def test_lookup_proof_on_the_card_equals_the_cpu_proof(cuda):
+    """The scaled-down dev_lookup circuit (a 2^3 table, 16 looked-up rows)
+    at K = 5: the card's proof equals the CPU's and verifies."""
+    proofs = []
+    for dev in ("cpu", cuda):
+        params = Params.new(PALLAS, 5, device=dev)
+        circuit = DevLookupCircuit(3, 16)
+        vk = keygen_vk(params, circuit)
+        pk_ = keygen_pk(params, vk, circuit)
+        tw = TranscriptWrite(PALLAS)
+        create_proof(params, pk_, [circuit], [[]], random.Random(9), tw)
+        proofs.append(tw.finalize())
+        verify_proof(params, vk, SingleVerifier(params), [[]],
                      TranscriptRead(PALLAS, proofs[-1]))
     assert proofs[0] == proofs[1]

@@ -76,6 +76,23 @@ def test_fmul_matches_pallas_interpret():
 
 
 @pytest.mark.parametrize("fi", [0, 1])
+def test_limbs_first_fmul_matches_pallas_interpret(fi):
+    """Kernel B8's plain version on limbs-first [16, 512] operands equals
+    the Pallas multiply in interpret mode."""
+    rdf, pdf = FIELDS[fi]
+    _, ra, ta = _operands(rdf, 512, 31 + fi)
+    _, rb, tb = _operands(rdf, 512, 41 + fi)
+    want = fmul_pallas(rdf, to_limbs_first(jnp.asarray(ra)),
+                       to_limbs_first(jnp.asarray(rb)), interpret=True)
+    got = fk.fmul_limbs_first(pdf, ta.T.contiguous(), tb.T.contiguous())
+    assert got.shape == (16, 512)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int32))
+    with pytest.raises(TypeError):
+        fk.fmul_limbs_first(pdf, ta, tb)          # element-major [512, 16]
+
+
+@pytest.mark.parametrize("fi", [0, 1])
 def test_mont_conversions_and_broadcast(fi):
     rdf, pdf = FIELDS[fi]
     p = rdf.spec.modulus

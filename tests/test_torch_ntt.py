@@ -9,6 +9,8 @@ import torch
 import jax.numpy as jnp
 
 from halo2_tpu.fields import device as rfd
+from halo2_tpu.ops.pallas_field import (ntt_pallas, to_limbs_first,
+                                        from_limbs_first)
 from halo2_tpu.poly import utils as rutils
 from halo2_tpu.poly.domain import EvaluationDomain as RDomain
 
@@ -65,6 +67,42 @@ def test_ntt_matches_reference(fname, k):
     assert torch.equal(back, t[1])
     _eq(pntt.intt(pdf, t[2], inv, n_inv),
         rntt.intt(rdf, jnp.asarray(arr[2]), rinv, rn_inv))
+
+
+@pytest.mark.parametrize("k", [6, 8])
+def test_ntt_matches_pallas_interpret(k):
+    """The port's NTT (kernel B7's plain version on the CPU) equals the TPU
+    routine ntt_pallas, run in interpret mode, forward and inverse."""
+    rdf, pdf = FIELDS["fq"]
+    fs = rdf.spec
+    n = 1 << k
+    arr, t = _mont(rdf, (2, n), 50 + k)
+    for omega in (pow(fs.root_of_unity, 1 << (fs.s - k), fs.modulus),
+                  pow(fs.root_of_unity, (1 << fs.s) - (1 << (fs.s - k)),
+                      fs.modulus)):
+        rplan, plan = (rntt.make_plan(rdf, n, omega),
+                       pntt.make_plan(pdf, n, omega))
+        want = from_limbs_first(ntt_pallas(
+            rdf, to_limbs_first(jnp.asarray(arr[0])), rplan, interpret=True))
+        got = pntt.ntt_many(pdf, t, plan)
+        _eq(got[0], want)
+        assert torch.equal(got[1], pntt.ntt_many_plain(pdf, t[1:], plan)[0])
+
+
+def test_ntt_wrapper_rejects_bad_input():
+    _, pdf = FIELDS["fp"]
+    plan = pntt.make_plan(pdf, 8, pow(pdf.spec.root_of_unity,
+                                      1 << (pdf.spec.s - 3),
+                                      pdf.spec.modulus))
+    with pytest.raises(TypeError):
+        pntt.ntt_many(pdf, torch.zeros(1, 8, 16, dtype=torch.int64), plan)
+    with pytest.raises(TypeError):
+        pntt.ntt_many(pdf, torch.zeros(8, 16, dtype=torch.int32), plan)
+    with pytest.raises(ValueError):
+        pntt.ntt_many(pdf, torch.zeros(1, 4, 16, dtype=torch.int32), plan)
+    with pytest.raises(ValueError):
+        pntt.ntt_many(pdf, torch.zeros(1, 8, 16, dtype=torch.int32,
+                                       device="meta"), plan)
 
 
 @pytest.mark.parametrize("k,j", [(4, 3), (5, 4), (6, 5)])
