@@ -18,20 +18,28 @@ Phases, in this order (any failure exits non-zero):
      the proof's sha256 against the JAX reference's recorded hash;
   7. kernels B2 (masked mixed add) and B3 (masked complete add) against
      their plain versions, bit-exact, at the lane count of a k=14 commit,
-     with random masks and signs and identity-coded bases; B4 (complete
-     add), B5 (doubling) and B6 (masked doubling) likewise at 2^17 lanes
-     (k=18's first IPA fold) and 8,192 lanes (k=14's), with identity
-     lanes, B4 lanes with a == b and a random B6 mask;
+     with random masks and signs and identity-coded bases; B3's forms
+     that read the second operand at a lane offset or by index with
+     signs, timed beside B3 after torch.roll or a gather and a negation
+     (how the commits called it before); B4 (complete add), B5
+     (doubling) and B6 (masked doubling) likewise at 2^17 lanes (k=18's
+     first IPA fold) and 8,192 lanes (k=14's), with identity lanes, B4
+     lanes with a == b and a random B6 mask;
+  7b. [ladder] the fused GLV ladder kernel (one launch per IPA fold
+     round) against the B5/B3 kernel loop it replaced at 2^13 and 2^17
+     lanes and against its plain version at 256 lanes, both fields;
+     device time per round beside its bound and the loop's time (its
+     wall time, and its device time replayed from a CUDA graph);
   8. k=14 commits (random, all-zero, all-equal columns) against the native
      host MSM, exact affine equality;
   9. the device window combine (B5, B4) against the host one on the
-     window sums of a k=14 MSM;
+     window sums of a k=14 MSM (B5's only caller);
  10. the warm k=14 prove once more under torch.profiler: device time by
      kernel and the device's busy share of the wall time;
  11. the device IPA path at k=14: create_proof with every IPA round on
      the card (native_ipa_threshold=0), cold and warm, verified, its
-     sha256 against the same JAX hash, its launches, and the warm prove
-     profiled;
+     sha256 against the same JAX hash, its launches (one ladder per
+     fold round, no B5), and the warm prove profiled;
  12. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
      reference was run at, at the default IPA schedule (four device
      rounds, then native; cold, then warm), with every round native and
@@ -43,7 +51,7 @@ Phases, in this order (any failure exits non-zero):
      prove, verify, a corrupted proof or a wrong instance rejected, the
      proof's sha256 against the JAX reference's (the golden file for
      plonk_api; zcash/halo2's own plonk_api proof verifies), launches per
-     kernel, and one profiled warm prove at k = REF_K;
+     kernel, and one profiled warm prove at each k;
  14. a `kernels` JSON line: launches on the path that runs each kernel
      (main or ipa), mismatches, each kernel's device time per launch
      (torch.profiler) beside its bound, the wrapper's time per call
@@ -79,8 +87,9 @@ REF_SHA256 = {
 }
 REF_K = 18
 # kernels of the main path (the default IPA schedule at k=14 runs every
-# IPA round natively) and of the lookup path; B4 and B5 run on the device
-# IPA path (phase_ipa), B6 and B8 on no path
+# IPA round natively) and of the lookup path; B4 and the GLV ladder run
+# on the device IPA path (phase_ipa), B5 (the device Horner combine), B6
+# and B8 on no proving path
 MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_masked", "padd_masked",
                      "ntt")
 
@@ -96,12 +105,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def timed(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls, CUDA events, after a warm-up:
-    the wall time of the calls on the stream, host work between launches
-    included."""
+def timed(fn, reps: int, warm: bool = True) -> float:
+    """Mean ms per call over `reps` calls, CUDA events, after a warm-up
+    (unless warm is False): the wall time of the calls on the stream,
+    host work between launches included."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -317,6 +327,171 @@ def phase_points(results, params):
             f"bound {bd:.5f} ms by {by})")
     if any(mism.values()):
         raise AssertionError(f"point kernel mismatches {mism}")
+    phase_b3_forms(results, params, A, mask, signs)
+
+
+def phase_b3_forms(results, params, A, mask, signs):
+    """B3 reading its second operand itself, at the k=14 commit's lane
+    count: at a lane offset within each window's row of BL lanes (the
+    first suffix round) and by index with signs from the SRS bases (a
+    projective bucket round), each against its plain version and timed
+    beside B3 after torch.roll, or after a gather and a Y negation: how
+    the commits called it before."""
+    import torch
+    from halo2_tpu_torch.ops import msm_pippenger as mp
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = params.device
+    df = params.base_df
+    L = A.shape[1]
+    BL = 1 << (mp.pick_c(1 << K) - 1)
+    g = params.g_dev
+    gen = torch.Generator(device=dev).manual_seed(17)
+    idx = torch.randint(g.shape[1], (L,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    r = results["padd_masked"]
+    live = int(mask.sum())
+    forms = (
+        ("roll", dict(width=BL, shift=-1), A,
+         lambda: pk.padd_masked_flat(
+             df, A, pk.gather_operand(df, A, width=BL, shift=-1), mask),
+         L * (3 * 192 + 4)),
+        ("index", dict(idx=idx, sign=signs), g,
+         lambda: pk.padd_masked_flat(
+             df, A, mp._negate_y(df, g[:, idx.long()], signs), mask),
+         L * (3 * 192 + 12)))
+    bad = 0
+    for name, kw, src, before, nbytes in forms:
+        fn = lambda: pk.padd_masked_flat(df, A, src, mask, **kw)
+        got = fn()
+        want = pk.padd_masked_plain(df, A, src, mask, **kw)
+        bad += int((got != want).any(dim=0).sum())
+        r["max_abs_err"] = max(r["max_abs_err"], max_abs(got, want))
+        if not torch.equal(before(), got):
+            bad += 1
+        ms = device_ms(fn, 50, "padd_masked_kernel")
+        call_ms = timed(fn, 50)
+        before_ms = timed(before, 50)
+        bd, by = bound_ms(nbytes, live * 12 * MONT_MULADDS)
+        r.update({f"ms_{name}": ms, f"call_ms_{name}": call_ms,
+                  f"call_ms_{name}_before": before_ms,
+                  f"bound_ms_{name}": bd})
+        log(f"[points] padd_masked {name} form L={L}: {ms:.5f} ms on the "
+            f"device, {call_ms:.4f} ms per wrapper call; before (B3 after "
+            f"{'torch.roll' if name == 'roll' else 'a gather and negation'})"
+            f" {before_ms:.4f} ms per call (bound {bd:.5f} ms by {by})")
+    r["mismatches"] += bad
+    log(f"[points] B3 operand forms mismatches {bad}")
+    if bad:
+        raise AssertionError(f"B3 operand forms: {bad} mismatches")
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms per replay of fn's launches captured in a CUDA graph: their
+    device time without the host's gaps between launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timed(graph.replay, reps)
+
+
+def unfused_ladder(df, t1, t2, t12, bits1, bits2, consts):
+    """The GLV ladder as it ran before the fused kernel: B5, then a masked
+    B3, for each bit pair. consts: (the identity batch, an all-on and an
+    all-off mask) on the lanes of t1, made outside any graph capture."""
+    from halo2_tpu_torch.ops import point_kernels as pk
+    acc, on, off = consts
+    table = (t1, t1, t2, t12)
+    for b1, b2 in zip(bits1, bits2):
+        sel = b1 + 2 * b2
+        acc = pk.pdouble_flat(df, acc)
+        acc = pk.padd_masked_flat(df, acc, table[sel], on if sel else off)
+    return acc
+
+
+def phase_ladder(results, params, lanes=(1 << 13, 1 << 17)):
+    """The fused GLV ladder against the B5/B3 kernel loop at 2^13 (k=14's
+    first IPA fold) and 2^17 lanes (k=18's) and against its plain version
+    at 256 lanes, on both fields, 130 random bit pairs; then on the base
+    field of the PALLAS Params the device time per round beside the
+    bound, the wrapper's time, the loop's time (its wall time, and its
+    device time from a CUDA graph replay) and the plain version's."""
+    import torch
+    from halo2_tpu_torch.curves.host import VESTA
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import ipa_device as ipd
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = params.device
+    rng = random.Random(16)
+    nb = ipd.GLV_BITS
+    bits = ([rng.randrange(2) for _ in range(nb)],
+            [rng.randrange(2) for _ in range(nb)])
+    nsel = sum(1 for b1, b2 in zip(*bits) if b1 or b2)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    vesta = pk.points_to_proj(FQ_DEV, native_srs_g(
+        VESTA, "chip-smoke-ladder", 1024), dev)
+
+    def consts(df, L):
+        ident = pk.ident_col(df, dev)[:, None].expand(48, L).contiguous()
+        on = torch.ones(L, dtype=torch.int32, device=dev)
+        return ident, on, torch.zeros_like(on)
+
+    def table(df, pts, L):
+        pick = torch.randint(pts.shape[1], (2, L), generator=gen, device=dev)
+        g = pk.padd_flat(df, pts[:, pick[0]], pts[:, pick[1]])
+        g[:, :4] = pk.ident_col(df, dev)[:, None]
+        return ipd.glv_table(df, g, 1, 0)
+
+    mism, err = 0, 0
+    for df, pts in ((params.base_df, params.g_dev), (FQ_DEV, vesta)):
+        for L in lanes + (256,):
+            t = table(df, pts, L)
+            got = pk.glv_ladder_flat(df, *t, *bits)
+            if L == 256:
+                want = pk.glv_ladder_plain(df, *t, *bits)
+            else:
+                want = unfused_ladder(df, *t, *bits, consts(df, L))
+            bad = int((got != want).any(dim=0).sum())
+            mism += bad
+            err = max(err, max_abs(got, want))
+            log(f"[ladder] field {df.field_id} L={L}: against the "
+                f"{'plain version' if L == 256 else 'B5/B3 kernel loop'}, "
+                f"{bad} mismatches")
+    torch.cuda.synchronize()
+    r = results["glv_ladder"]
+    df = params.base_df
+    for L in lanes:
+        t = table(df, params.g_dev, L)
+        c = consts(df, L)
+        fn = lambda: pk.glv_ladder_flat(df, *t, *bits)
+        loop = lambda: unfused_ladder(df, *t, *bits, c)
+        ms = device_ms(fn, 5, "glv_ladder_kernel")
+        call_ms = timed(fn, 5)
+        loop_ms = timed(loop, 3)
+        loop_dev = graph_ms(loop, 3)
+        bd, by = bound_ms(L * 4 * 192,
+                          L * (8 * nb + 12 * nsel) * MONT_MULADDS)
+        log(f"[ladder] L={L}: {ms:.5f} ms on the device per round, "
+            f"{call_ms:.4f} ms per wrapper call (bound {bd:.5f} ms by "
+            f"{by}); the B5/B3 loop {loop_dev:.5f} ms replayed from a CUDA "
+            f"graph, {loop_ms:.4f} ms per round with its {2 * nb} "
+            f"launches")
+        r.update({f"ms_L{L}": ms, f"bound_ms_L{L}": bd,
+                  f"call_ms_L{L}": call_ms, f"call_ms_loop_L{L}": loop_ms,
+                  f"ms_loop_L{L}": loop_dev})
+        if L == lanes[0]:
+            pms = timed(lambda: pk.glv_ladder_plain(df, *t, *bits), 1,
+                        warm=False)
+            r.update(ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
+                     bound_by=by, shape=[48, L])
+            log(f"[ladder] L={L}: plain {pms:.3f} ms")
+    r.update(mismatches=mism, max_abs_err=err)
+    log(f"[ladder] mismatches {mism}")
+    if mism:
+        raise AssertionError(f"glv_ladder mismatches: {mism}")
 
 
 def _rand_points(params, L, rng):
@@ -500,6 +675,12 @@ def phase_main_path(results):
     launches = launch_counts()
     for name in MAIN_PATH_KERNELS:
         results[name]["launches"] = launches[name]
+    log(f"[main] B3 launches {launches['padd_masked']} (each reads its "
+        f"operand itself), GLV ladder {launches['glv_ladder']}, B5 "
+        f"{launches['pdouble']}")
+    if launches["glv_ladder"] or launches["pdouble"]:
+        raise AssertionError("the default k=14 schedule folds no IPA round "
+                             "on the card, yet a ladder or B5 ran")
     if proofs[0] != proofs[1]:
         raise AssertionError("cold and warm proofs differ")
     digest = hashlib.sha256(proofs[1]).hexdigest()
@@ -609,14 +790,23 @@ def phase_ipa(results, params, pk_, circuit, out):
                         native_ipa_threshold=0)
         torch.cuda.synchronize()
         proofs.append(tw.finalize())
+        diff = diff_counts(before)
         log(f"[ipa] create_proof {label}, every IPA round on the card: "
-            f"{time.perf_counter() - t:.3f}s, launches "
-            f"{diff_counts(before)}")
+            f"{time.perf_counter() - t:.3f}s, launches {diff}")
+        # one fused ladder per fold round (K of them), no B5
+        log(f"[ipa] {label}: GLV ladder {diff['glv_ladder']} launches for "
+            f"{K} device fold rounds, B5 {diff['pdouble']}, B3 "
+            f"{diff['padd_masked']}")
+        if diff["glv_ladder"] != K or diff["pdouble"]:
+            raise AssertionError(f"device IPA prove: {diff['glv_ladder']} "
+                                 f"ladders for {K} fold rounds, "
+                                 f"{diff['pdouble']} B5 launches")
     launches = launch_counts()
     log(f"[ipa] launches in the two proves {launches}")
     log("[ipa] warm phases " + json.dumps(
         {name: round(s, 4) for name, s in pv.LAST_PHASES}))
-    for name in ("padd", "pdouble", "pdouble_masked"):   # B6: no caller
+    # B5 and B6: no caller on a proving path
+    for name in ("padd", "glv_ladder", "pdouble", "pdouble_masked"):
         results[name]["launches"] = launches[name]
     verify_proof(params, pk_.vk, SingleVerifier(params), [[[out]]],
                  TranscriptRead(PALLAS, proofs[1]))
@@ -626,7 +816,7 @@ def phase_ipa(results, params, pk_, circuit, out):
         raise AssertionError(f"device-IPA proof hash {digest} != JAX "
                              f"reference {REF_SHA256['bench', K]}")
     log("[ipa] proof bytes equal the JAX reference's")
-    idle = [k for k in MAIN_PATH_KERNELS + ("padd", "pdouble")
+    idle = [k for k in MAIN_PATH_KERNELS + ("padd", "glv_ladder")
             if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels of the IPA path not launched: {idle}")
@@ -885,8 +1075,7 @@ def phase_lookup(results, params_k, params_ref_k):
     for k, params in ((K, params_k), (REF_K, params_ref_k)):
         _lookup_run(f"dev_lookup k={k}", params, DevLookupCircuit(), [[]],
                     PROOF_SEED, PALLAS,
-                    ref_hash=REF_SHA256["dev-lookup", k],
-                    profile=k == REF_K)
+                    ref_hash=REF_SHA256["dev-lookup", k], profile=True)
     launches = launch_counts()
     log(f"[lookup] launches over the dev_lookup proves {launches}")
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
@@ -964,6 +1153,10 @@ def main() -> int:
         "pdouble_masked": {"route": "cuda",
                            "source": src + "point_kernels.cu",
                            "replaces": "halo2_tpu/ops/pallas_point.py:330"},
+        "glv_ladder": {"route": "cuda", "source": src + "point_kernels.cu",
+                       "replaces": "halo2_tpu/ops/ipa_device.py:219 "
+                                   "(fori_loop of pallas_point.py:274 "
+                                   "and :281)"},
         "ntt": {"route": "cuda", "source": src + "ntt_kernels.cu",
                 "replaces": "halo2_tpu/ops/pallas_field.py:169"},
         "fmul_limbs_first": {"route": "cuda",
@@ -971,8 +1164,8 @@ def main() -> int:
                              "replaces": "scripts/bench_fmul3d.py:29"},
     }
     paths = {name: "main" for name in MAIN_PATH_KERNELS}
-    paths.update(padd="ipa", pdouble="ipa", pdouble_masked=None,
-                 fmul_limbs_first=None)
+    paths.update(padd="ipa", glv_ladder="ipa", pdouble=None,
+                 pdouble_masked=None, fmul_limbs_first=None)
     t_all = time.perf_counter()
     phase_card()
     run_phase(phase_build)
@@ -982,6 +1175,7 @@ def main() -> int:
     state = run_phase(phase_main_path, results)
     run_phase(phase_points, results, state[0])
     run_phase(phase_add_double, results, state[0])
+    run_phase(phase_ladder, results, state[0])
     run_phase(phase_commit, state[0])
     run_phase(phase_horner, state[0])
     run_phase(phase_profile, *state)

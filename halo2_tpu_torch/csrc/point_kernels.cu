@@ -1,7 +1,7 @@
-// Kernels B2-B6: complete additions and doublings of Pasta points in
-// homogeneous projective coordinates (Renes-Costello-Batina 2015, a = 0,
-// b3 = 15): the bucket and reduction rounds of every Pippenger commit, and
-// the GLV ladder that folds G' in the device IPA rounds.
+// Kernels B2-B6 and the GLV ladder: complete additions and doublings of
+// Pasta points in homogeneous projective coordinates (Renes-Costello-Batina
+// 2015, a = 0, b3 = 15): the bucket and reduction rounds of every Pippenger
+// commit, and the ladder that folds G' in the device IPA rounds.
 //
 // B2 (pmixed_masked) replaces halo2_tpu/ops/pallas_point.py::
 // _pmixed_masked_kernel (:297, built at :463/:477, wrapped by
@@ -9,8 +9,14 @@
 // Alg 8 mixed add (11 wide multiplies), the per-lane sign negating y as
 // p - y, and identity-coded (0, mont 1) bases masked off in-kernel.
 // B3 (padd_masked) replaces _padd_masked_kernel (:281, _build_padd(seg=True)
-// at :426/:442, wrapped by padd_masked_flat at :591): out = mask ? A + B : A
-// with the RCB Alg 7 complete add (12 wide multiplies).
+// at :426/:442, wrapped by padd_masked_flat at :591): out[l] = mask[l] ?
+// A[l] + B[j(l)] : A[l] with the RCB Alg 7 complete add (12 wide
+// multiplies), where j(l) is l, the lane `shift` places before l within
+// its row of `width` lanes (a torch.roll of each row), or idx[l] with the
+// per-lane sign negating Y. The reference builds that operand outside its
+// kernel with jnp.roll and jnp.take (msm_pallas.py:335-347, 413, 466,
+// 513, 535), which XLA fuses on the TPU; in eager PyTorch each would be
+// its own pass over device memory and its own host call.
 // B4 (padd) replaces _padd_kernel (:266, _build_padd(seg=False) at
 // :426/:451, wrapped by padd_flat at :574): the unmasked complete add.
 // B5 (pdouble) replaces _pdouble_kernel (:274, _build_pdouble(masked=False)
@@ -18,23 +24,62 @@
 // (8 wide multiplies). B6 (pdouble_masked) replaces _pdouble_masked_kernel
 // (:330, _build_pdouble(masked=True) at :489/:503, wrapped by
 // pdouble_masked_flat at :677): out = mask ? 2A : A.
+// glv_ladder replaces the reference's 130-step jax.lax.fori_loop of B5
+// and a masked B3 in one jitted program per IPA round
+// (halo2_tpu/ops/ipa_device.py:219-230): acc = O, then for each bit pair
+// (b1, b2), most significant first, acc = 2 acc and, where
+// sel = b1 + 2 b2 != 0, acc = acc + {t1, t2, t12}[sel].
 //
 // Layout: a point batch is [48, L] int32 (rows 0-15 X, 16-31 Y, 32-47 Z
 // as 16-bit Montgomery digits, lanes last); an affine batch is [32, L].
 // One thread per lane: neighbouring threads read neighbouring words of
-// each row, so every load and store coalesces. The formulas are written
-// straight-line with all coordinates in registers (8 x 32-bit limbs each).
+// each row, so every load and store coalesces (B3's index form gathers).
+// The formulas are written straight-line with all coordinates in
+// registers (8 x 32-bit limbs each).
 //
-// Bound on an H100: B3 moves 2 x 192 + 4 bytes in and 192 out per lane
-// (580 B, 173 ps at 3.35 TB/s) and does 12 Montgomery products of 224
-// 32-bit multiply-adds (80 ps at 33.5e12 multiply-adds/s); B2 moves
-// 192 + 128 + 8 in and 192 out (520 B) for 11 products; B4 576 B for 12
-// products; B5 384 B for 8 products (53 ps); B6 388 B for 8 products on its
-// live lanes. All are therefore near the balance point; in practice the
-// integer multiplier (half the float rate) and register pressure decide.
-// The design does the masked-off lanes' work as a plain copy (no
-// products), keeps every intermediate in registers, and never re-reads an
-// input.
+// What bounds them on an H100, and what the design does about it:
+// - By the roofline B3 moves 2 x 192 + 4 bytes in and 192 out per lane
+//   (580 B, 173 ps at 3.35 TB/s) against 12 Montgomery products of 224
+//   32-bit multiply-adds (80 ps at 33.5e12 multiply-adds/s); B2 moves
+//   520 B for 11 products, B4 576 B for 12, B5 384 B for 8 (53 ps), B6
+//   388 B for 8 on its live lanes. In practice each thread runs a chain
+//   of dependent products at low occupancy (26,624 lanes are 832 warps,
+//   about six per SM), so latency decides. The masked-off lanes' work is
+//   a plain copy, every intermediate stays in registers, and no input is
+//   read twice.
+// - B3's second operand is read by the kernel itself, from a lane offset
+//   or an index, so no rolled or gathered copy (192 B per lane written
+//   and read again, plus a host call) precedes it; the output never
+//   aliases an input, since a lane reads other lanes.
+// - The ladder is bound by operations: 130 doublings (8 products) and up
+//   to 130 adds (12) per lane, about 2,200-2,600 products, against
+//   4 x 192 B of traffic. Run as 260 launches (B5, then B3) it re-read and
+//   re-wrote the accumulator twice a step and paid a host call for each
+//   launch. One launch keeps the accumulator on the SM for all steps,
+//   stages the lane's three table points in shared memory once (72
+//   packed limbs, 288 B a thread), and takes the bits by value as kernel
+//   parameters: they are the same for every lane, so no warp diverges and
+//   a round needs no host-to-device copy.
+// - What then limits the ladder is instruction fetch. With its 20
+//   products inlined, a step's body is over 14,000 instructions (about
+//   228 KB), far beyond the SM's instruction caches, and the one launch
+//   ran no faster than the 260 (slower at 8,192 lanes, two warps a SM).
+//   So the ladder calls the product (mont_mul_call) rather than inline
+//   it: under 4,000 instructions, about 2x faster at 8,192 lanes and
+//   1.4x at 2^17 on an H100 (ladder_variants.py). The one-step kernels
+//   keep the inlined product, which is as fast or faster for them.
+// - Block size (B3 and the ladder): `nvcc -Xptxas -v` reports 106, 122
+//   and 124 registers for B3's lane, offset and index forms and 96 (with
+//   a 672-byte stack frame) for the ladder, no spills. A 128-thread block
+//   then holds 12-16K of an SM's 64K registers (and the ladder's 36 KB of
+//   shared memory), so every block of B3's 26,624 lanes or the ladder's
+//   8,192 is resident at once, and what the block size decides is how
+//   evenly the lanes spread over the 132 SMs. spread_threads picks, from
+//   32, 64 and 128 threads, the size that puts the fewest lanes on the
+//   busiest SM (B3 at 26,624 lanes: 32, at most 224 a SM against 256;
+//   the ladder at 8,192 lanes: 64, one block on each of 128 SMs, where
+//   128 threads would fill only 64 SMs). For the ladder with inlined
+//   products, 32, 64 and 128 measured the same (ladder_variants.py).
 #include "field.cuh"
 
 using namespace h2t;
@@ -43,26 +88,46 @@ struct Pt {
   uint32_t x[8], y[8], z[8];
 };
 
-// RCB15 Alg 7 on field values (the polynomials of pallas_point._rcb_add)
+// The Montgomery product as a real call: one copy of its code serves
+// every product of a formula, and the operands pass through the stack
+// frame (local memory, resident in L1).
 template <int F>
+__device__ __noinline__ void mont_mul_call(uint32_t r[8], const uint32_t a[8],
+                                           const uint32_t b[8]) {
+  mont_mul<F>(r, a, b);
+}
+
+// The product the formulas use: inlined (straight-line, for the one-step
+// kernels) or called (CALL, for the ladder's loop; see the design note)
+template <int F, bool CALL>
+__device__ __forceinline__ void pmul(uint32_t r[8], const uint32_t a[8],
+                                     const uint32_t b[8]) {
+  if (CALL)
+    mont_mul_call<F>(r, a, b);
+  else
+    mont_mul<F>(r, a, b);
+}
+
+// RCB15 Alg 7 on field values (the polynomials of pallas_point._rcb_add)
+template <int F, bool CALL = false>
 __device__ __forceinline__ void rcb_add(Pt& o, const Pt& a, const Pt& b) {
   uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], xz[8], u[8], v[8];
-  mont_mul<F>(t0, a.x, b.x);
-  mont_mul<F>(t1, a.y, b.y);
-  mont_mul<F>(t2, a.z, b.z);
+  pmul<F, CALL>(t0, a.x, b.x);
+  pmul<F, CALL>(t1, a.y, b.y);
+  pmul<F, CALL>(t2, a.z, b.z);
   add<F>(u, a.x, a.y);
   add<F>(v, b.x, b.y);
-  mont_mul<F>(t3, u, v);
+  pmul<F, CALL>(t3, u, v);
   sub<F>(t3, t3, t0);
   sub<F>(t3, t3, t1);  // X1Y2 + X2Y1
   add<F>(u, a.y, a.z);
   add<F>(v, b.y, b.z);
-  mont_mul<F>(t4, u, v);
+  pmul<F, CALL>(t4, u, v);
   sub<F>(t4, t4, t1);
   sub<F>(t4, t4, t2);  // Y1Z2 + Y2Z1
   add<F>(u, a.x, a.z);
   add<F>(v, b.x, b.z);
-  mont_mul<F>(xz, u, v);
+  pmul<F, CALL>(xz, u, v);
   sub<F>(xz, xz, t0);
   sub<F>(xz, xz, t2);  // X1Z2 + X2Z1
   uint32_t s0[8], b3z[8], z3[8], s1[8], y3[8];
@@ -72,14 +137,14 @@ __device__ __forceinline__ void rcb_add(Pt& o, const Pt& a, const Pt& b) {
   add<F>(z3, t1, b3z);
   sub<F>(s1, t1, b3z);
   mul15<F>(y3, xz);
-  mont_mul<F>(u, t3, s1);
-  mont_mul<F>(v, t4, y3);
+  pmul<F, CALL>(u, t3, s1);
+  pmul<F, CALL>(v, t4, y3);
   sub<F>(o.x, u, v);
-  mont_mul<F>(u, y3, s0);
-  mont_mul<F>(v, s1, z3);
+  pmul<F, CALL>(u, y3, s0);
+  pmul<F, CALL>(v, s1, z3);
   add<F>(o.y, u, v);
-  mont_mul<F>(u, z3, t4);
-  mont_mul<F>(v, s0, t3);
+  pmul<F, CALL>(u, z3, t4);
+  pmul<F, CALL>(v, s0, t3);
   add<F>(o.z, u, v);
 }
 
@@ -123,13 +188,13 @@ __device__ __forceinline__ void rcb_mixed_add(Pt& o, const Pt& a,
 // msm_pallas._host_proj_double). Any other doubling formula gives another
 // projective representative of 2A, and the IPA's G' fold state is held
 // bit for bit against the reference's.
-template <int F>
+template <int F, bool CALL = false>
 __device__ __forceinline__ void rcb_double(Pt& o, const Pt& a) {
   uint32_t t0[8], t1[8], t2[8], xy[8], z3[8], y3[8], u[8], v[8];
-  mont_mul<F>(t0, a.y, a.y);
-  mont_mul<F>(t1, a.y, a.z);
-  mont_mul<F>(u, a.z, a.z);
-  mont_mul<F>(xy, a.x, a.y);
+  pmul<F, CALL>(t0, a.y, a.y);
+  pmul<F, CALL>(t1, a.y, a.z);
+  pmul<F, CALL>(u, a.z, a.z);
+  pmul<F, CALL>(xy, a.x, a.y);
   add<F>(z3, t0, t0);
   add<F>(z3, z3, z3);
   add<F>(z3, z3, z3);  // 8 Y^2
@@ -138,11 +203,11 @@ __device__ __forceinline__ void rcb_double(Pt& o, const Pt& a) {
   add<F>(u, t2, t2);
   add<F>(u, u, t2);
   sub<F>(t0, t0, u);   // Y^2 - 3 b3 Z^2
-  mont_mul<F>(u, t2, z3);
-  mont_mul<F>(o.z, t1, z3);
-  mont_mul<F>(v, t0, y3);
+  pmul<F, CALL>(u, t2, z3);
+  pmul<F, CALL>(o.z, t1, z3);
+  pmul<F, CALL>(v, t0, y3);
   add<F>(o.y, v, u);
-  mont_mul<F>(v, t0, xy);
+  pmul<F, CALL>(v, t0, xy);
   add<F>(o.x, v, v);
 }
 
@@ -165,23 +230,129 @@ __device__ __forceinline__ void copy_rows(int32_t* dst, const int32_t* src,
   for (int r = 0; r < rows; r++) dst[r * stride] = src[r * stride];
 }
 
+// -Y as p - Y, with 0 kept at 0 (the reference's fneg)
 template <int F>
-__global__ void padd_masked_kernel(int32_t* __restrict__ out,
-                                   const int32_t* __restrict__ a,
-                                   const int32_t* __restrict__ b,
-                                   const int32_t* __restrict__ mask,
-                                   uint32_t L) {
+__device__ __forceinline__ void neg_in_place(uint32_t y[8]) {
+  if (is_zero(y)) return;
+  uint32_t p[8];
+  load_p<F>(p);
+  sub_raw(y, p, y);
+}
+
+// where B3 reads its second operand for lane l
+enum SrcMode { SRC_LANE = 0, SRC_ROLL = 1, SRC_INDEX = 2 };
+
+// the largest block of every kernel here
+static const int kMaxThreads = 128;
+
+// B3: out[l] = mask[l] ? a[l] + src[j(l)] : a[l]. SRC_LANE: j = l;
+// SRC_ROLL: j = the lane `shift` (0 <= shift < width) places before l
+// within its row of `width` lanes (torch.roll of each row by shift);
+// SRC_INDEX: j = idx[l], and Y negated where sign (may be null) is set.
+// src has Ls lanes; a and out have L.
+template <int F, int MODE>
+__global__ void __launch_bounds__(kMaxThreads)
+padd_masked_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
+                   const int32_t* __restrict__ src,
+                   const int32_t* __restrict__ mask,
+                   const int32_t* __restrict__ idx,
+                   const int32_t* __restrict__ sign, uint32_t width,
+                   uint32_t shift, uint32_t Ls, uint32_t L) {
   uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
   if (mask[l] == 0) {
     copy_rows(out + l, a + l, L, 48);
     return;
   }
+  uint32_t j = l;
+  if (MODE == SRC_ROLL) {
+    uint32_t c = l % width;
+    j = l - c + (c >= shift ? c - shift : c + width - shift);
+  } else if (MODE == SRC_INDEX) {
+    j = (uint32_t)idx[l];
+  }
   Pt p, q, r;
   load_pt(p, a + l, L);
-  load_pt(q, b + l, L);
+  load_pt(q, src + j, Ls);
+  if (MODE == SRC_INDEX && sign != nullptr && sign[l] != 0)
+    neg_in_place<F>(q.y);
   rcb_add<F>(r, p, q);
   store_pt(out + l, L, r);
+}
+
+// The ladder's bits, most significant first: bit i of b1 (of b2) is bit
+// i % 32 of b1[i / 32]; up to 160 steps.
+struct LadderBits {
+  uint32_t b1[5], b2[5];
+};
+
+// glv_ladder: acc = O; for i < nbits: acc = 2 acc, then, where
+// sel = b1_i + 2 b2_i is not 0, acc += {t1, t2, t12}[sel - 1]. The table
+// lives in dynamic shared memory as [72 limbs][blockDim.x]: each thread
+// reads and writes only its own column, word by word, without bank
+// conflicts.
+template <int F>
+__global__ void __launch_bounds__(kMaxThreads)
+glv_ladder_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ t1,
+                  const int32_t* __restrict__ t2,
+                  const int32_t* __restrict__ t12, LadderBits bits,
+                  uint32_t nbits, uint32_t L) {
+  extern __shared__ uint32_t tab[];
+  __shared__ uint32_t sbits[10];
+  const uint32_t tid = threadIdx.x, bd = blockDim.x;
+  const uint32_t l = blockIdx.x * bd + tid;
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 0; w < 5; w++) {
+      sbits[w] = bits.b1[w];
+      sbits[5 + w] = bits.b2[w];
+    }
+  }
+  const bool live = l < L;
+  if (live) {
+    const int32_t* srcs[3] = {t1, t2, t12};
+#pragma unroll
+    for (int k = 0; k < 3; k++) {
+      Pt q;
+      load_pt(q, srcs[k] + l, L);
+#pragma unroll
+      for (int i = 0; i < 8; i++) {
+        tab[(24 * k + i) * bd + tid] = q.x[i];
+        tab[(24 * k + 8 + i) * bd + tid] = q.y[i];
+        tab[(24 * k + 16 + i) * bd + tid] = q.z[i];
+      }
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  Pt acc, r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    acc.x[i] = 0;
+    acc.y[i] = Field<F>::one(i);
+    acc.z[i] = 0;
+  }
+#pragma unroll 1
+  for (uint32_t s = 0; s < nbits; s++) {
+    rcb_double<F, true>(r, acc);
+    const uint32_t w = s >> 5, b = s & 31;
+    const uint32_t sel = ((sbits[w] >> b) & 1u) |
+                         (((sbits[5 + w] >> b) & 1u) << 1);
+    if (sel == 0) {
+      acc = r;
+      continue;
+    }
+    const uint32_t* e = tab + 24 * (sel - 1) * bd + tid;
+    Pt q;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      q.x[i] = e[i * bd];
+      q.y[i] = e[(8 + i) * bd];
+      q.z[i] = e[(16 + i) * bd];
+    }
+    rcb_add<F, true>(acc, r, q);
+  }
+  store_pt(out + l, L, acc);
 }
 
 template <int F>
@@ -258,26 +429,99 @@ __global__ void pdouble_masked_kernel(int32_t* __restrict__ out,
   store_pt(out + l, L, r);
 }
 
-static const int kThreads = 128;
-
 // Launch the field's instance (k0 for Fp, k1 for Fq) over L lanes, one
-// thread per lane, on `stream`; returns cudaGetLastError().
+// thread per lane in blocks of kMaxThreads, on `stream`; returns
+// cudaGetLastError().
 template <typename... P, typename... A>
 static int launch_lanes(int field, void (*k0)(P...), void (*k1)(P...),
                         long long L, void* stream, A... args) {
   if (L <= 0) return 0;
-  dim3 grid((unsigned)((L + kThreads - 1) / kThreads));
+  dim3 grid((unsigned)((L + kMaxThreads - 1) / kMaxThreads));
   void (*k)(P...) = field == 0 ? k0 : k1;
-  k<<<grid, kThreads, 0, (cudaStream_t)stream>>>(args...);
+  k<<<grid, kMaxThreads, 0, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms <= 0)
+      sms = 1;
+  }
+  return sms;
+}
+
+// The block size of 32, 64 or 128 threads that puts the fewest lanes on
+// the busiest SM when L lanes are dealt out in blocks; ties go to the
+// larger block.
+static int spread_threads(long long L) {
+  const long long sms = sm_count();
+  int best = kMaxThreads;
+  long long best_load = -1;
+  for (int t = kMaxThreads; t >= 32; t >>= 1) {
+    long long blocks = (L + t - 1) / t;
+    long long load = (blocks + sms - 1) / sms * t;
+    if (best_load < 0 || load < best_load) {
+      best_load = load;
+      best = t;
+    }
+  }
+  return best;
+}
+
 extern "C" int h2t_padd_masked(int field, void* out, const void* a,
-                               const void* b, const void* mask, long long L,
-                               void* stream) {
-  return launch_lanes(field, padd_masked_kernel<0>, padd_masked_kernel<1>,
-                      L, stream, (int32_t*)out, (const int32_t*)a,
-                      (const int32_t*)b, (const int32_t*)mask, (uint32_t)L);
+                               const void* src, const void* mask,
+                               const void* idx, const void* sign, int mode,
+                               long long width, long long shift,
+                               long long Ls, long long L, void* stream) {
+  if (L <= 0) return 0;
+  if (mode < SRC_LANE || mode > SRC_INDEX ||
+      (mode == SRC_ROLL && (width <= 0 || L % width != 0 || shift < 0 ||
+                            shift >= width)) ||
+      (mode == SRC_INDEX && idx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  typedef void (*Kern)(int32_t*, const int32_t*, const int32_t*,
+                       const int32_t*, const int32_t*, const int32_t*,
+                       uint32_t, uint32_t, uint32_t, uint32_t);
+  static const Kern kerns[2][3] = {
+      {padd_masked_kernel<0, SRC_LANE>, padd_masked_kernel<0, SRC_ROLL>,
+       padd_masked_kernel<0, SRC_INDEX>},
+      {padd_masked_kernel<1, SRC_LANE>, padd_masked_kernel<1, SRC_ROLL>,
+       padd_masked_kernel<1, SRC_INDEX>}};
+  const int threads = spread_threads(L);
+  dim3 grid((unsigned)((L + threads - 1) / threads));
+  kerns[field != 0][mode]<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)a, (const int32_t*)src,
+      (const int32_t*)mask, (const int32_t*)idx, (const int32_t*)sign,
+      (uint32_t)width, (uint32_t)shift, (uint32_t)Ls, (uint32_t)L);
+  return (int)cudaGetLastError();
+}
+
+// bits1/bits2: host arrays of 5 words each (LadderBits); nbits <= 160
+extern "C" int h2t_glv_ladder(int field, void* out, const void* t1,
+                              const void* t2, const void* t12,
+                              const uint32_t* bits1, const uint32_t* bits2,
+                              int nbits, long long L, void* stream) {
+  if (L <= 0) return 0;
+  if (nbits < 0 || nbits > 160) return (int)cudaErrorInvalidValue;
+  LadderBits bits;
+  for (int w = 0; w < 5; w++) {
+    bits.b1[w] = bits1[w];
+    bits.b2[w] = bits2[w];
+  }
+  const int threads = spread_threads(L);
+  dim3 grid((unsigned)((L + threads - 1) / threads));
+  const size_t shmem = (size_t)72 * sizeof(uint32_t) * threads;
+  void (*k)(int32_t*, const int32_t*, const int32_t*, const int32_t*,
+            LadderBits, uint32_t, uint32_t) =
+      field == 0 ? glv_ladder_kernel<0> : glv_ladder_kernel<1>;
+  k<<<grid, threads, shmem, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)t1, (const int32_t*)t2,
+      (const int32_t*)t12, bits, (uint32_t)nbits, (uint32_t)L);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int h2t_pmixed_masked(int field, void* out, const void* a,

@@ -34,6 +34,7 @@ _HEADERS = ("field.cuh",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_U32P = ctypes.POINTER(ctypes.c_uint32)
 # C signatures (all return int = cudaError_t)
 _ARGTYPES = {
     "field_kernels": {
@@ -45,11 +46,13 @@ _ARGTYPES = {
         "h2t_ntt": [_I, _P, _P, _P, _P, _LL, _I, _I, _P],
     },
     "point_kernels": {
-        "h2t_padd_masked": [_I, _P, _P, _P, _P, _LL, _P],
+        "h2t_padd_masked": [_I, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
+                            _LL, _P],
         "h2t_pmixed_masked": [_I, _P, _P, _P, _P, _P, _LL, _P],
         "h2t_padd": [_I, _P, _P, _P, _LL, _P],
         "h2t_pdouble": [_I, _P, _P, _LL, _P],
         "h2t_pdouble_masked": [_I, _P, _P, _P, _LL, _P],
+        "h2t_glv_ladder": [_I, _P, _P, _P, _P, _U32P, _U32P, _I, _LL, _P],
     },
 }
 

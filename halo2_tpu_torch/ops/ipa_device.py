@@ -6,9 +6,10 @@ inner products, then the collapse p' = p'_lo + u_j^-1 p'_hi,
 b = b_lo + u_j b_hi and G' = G'_lo + [u_j] G'_hi. The scalar u_j is
 split as u_j = +-s1 +- s2 lambda with s1, s2 < 2^130 (GLV), where
 [lambda](x, y) = (zeta_p x, y) is the curve endomorphism, so [u_j] G'_hi
-is a 130-step double-and-add ladder (B5 and a masked B3) over the table
-{t1, t2, t1 + t2} (B4) of (X, +-Y, Z) and (zeta_p X, +-Y, Z); then
-G'_lo is added (B4). p' and b live in the scalar field, G' in the base
+is a 130-step double-and-add ladder over the table {t1, t2, t1 + t2}
+(B4) of (X, +-Y, Z) and (zeta_p X, +-Y, Z), run as one launch of the
+fused ladder kernel (the reference's fori_loop of B5 and a masked B3);
+then G'_lo is added (B4). p' and b live in the scalar field, G' in the base
 field. The L/R window sums are Horner-combined on the host.
 
 The state is folded at its exact width: a round that starts from
@@ -37,8 +38,7 @@ from ..fields.device import NLIMBS, fneg, from_mont
 from ..poly.utils import inner_product
 from . import msm_pippenger as mp
 from .field_kernels import fadd, fmul
-from .point_kernels import (ident_col, padd_flat, padd_masked_flat,
-                            pdouble_flat)
+from .point_kernels import glv_ladder_flat, padd_flat
 
 GLV_BITS = 130  # ceil(|q|/2) + slack for the decomposition bound
 
@@ -110,27 +110,26 @@ def _bits_msb(s: int, nb: int) -> np.ndarray:
     return np.array([(s >> (nb - 1 - i)) & 1 for i in range(nb)], np.uint32)
 
 
-def _glv_mul_add(params, g_lo: torch.Tensor, g_hi: torch.Tensor, u: int
-                 ) -> torch.Tensor:
-    """g_lo + [u] g_hi on [48, h] batches (ipa_device.py:201-233)."""
-    dfb = params.base_df
+def glv_table(dfb, g_hi: torch.Tensor, neg1: int, neg2: int):
+    """The ladder's addends for sel = 1, 2, 3 on a [48, h] batch:
+    t1 = (X, +-Y, Z), t2 = (zeta_p X, +-Y, Z) = +-[lambda] and t1 + t2
+    (ipa_device.py:201-216)."""
     dev = g_hi.device
-    h = g_hi.shape[1]
-    s1, neg1, s2, neg2 = glv_split(params.curve.scalar, params.curve.name, u)
     X, Y, Z = (g_hi[i * NLIMBS:(i + 1) * NLIMBS] for i in range(3))
     negY = fneg(dfb, Y.T).T
     zX = fmul(dfb, X.T, dfb.scalar(dfb.spec.zeta, dev)).T
     t1 = torch.cat([X, negY if neg1 else Y, Z])
     t2 = torch.cat([zX, negY if neg2 else Y, Z])
-    # the addend by sel = b1 + 2 b2; sel = 0 adds nothing (mask off)
-    table = (t1, t1, t2, padd_flat(dfb, t1, t2))
-    off = torch.zeros(h, dtype=torch.int32, device=dev)
-    on = torch.ones(h, dtype=torch.int32, device=dev)
-    acc = ident_col(dfb, dev)[:, None].expand(3 * NLIMBS, h).contiguous()
-    for b1, b2 in zip(_bits_msb(s1, GLV_BITS), _bits_msb(s2, GLV_BITS)):
-        sel = int(b1) + 2 * int(b2)
-        acc = pdouble_flat(dfb, acc)
-        acc = padd_masked_flat(dfb, acc, table[sel], on if sel else off)
+    return t1, t2, padd_flat(dfb, t1, t2)
+
+
+def _glv_mul_add(params, g_lo: torch.Tensor, g_hi: torch.Tensor, u: int
+                 ) -> torch.Tensor:
+    """g_lo + [u] g_hi on [48, h] batches (ipa_device.py:201-233)."""
+    dfb = params.base_df
+    s1, neg1, s2, neg2 = glv_split(params.curve.scalar, params.curve.name, u)
+    acc = glv_ladder_flat(dfb, *glv_table(dfb, g_hi, neg1, neg2),
+                          _bits_msb(s1, GLV_BITS), _bits_msb(s2, GLV_BITS))
     return padd_flat(dfb, g_lo, acc)
 
 

@@ -9,11 +9,12 @@ Port of halo2_tpu/ops/msm_pallas.py (the reference's TPU Pippenger):
   3. bucket accumulation: round r adds the r-th member of every (row,
      bucket) run at once -- one gather and one masked add over [48, G*BL]
      lanes: the mixed add (B2) for affine bases such as the SRS, the
-     complete add (B3) for projective ones such as the IPA's folded G';
-     skewed inputs (few distinct digits) take a log-depth segmented scan
-     (B3) instead;
+     complete add (B3, which gathers and negates its own operand) for
+     projective ones such as the IPA's folded G'; skewed inputs (few
+     distinct digits) take a log-depth segmented scan (B3) instead;
   4. summation by parts: suffix sums over the bucket axis and a halving
-     tree sum (B3), one point per window;
+     tree sum (B3, reading its operand at a lane offset within each
+     window's row), one point per window;
   5. the window Horner combine: on the host (tiny serial group work), or
      on the device with the doubling (B5) and the complete add (B4).
 
@@ -110,13 +111,6 @@ def window_digits_signed(digits16: torch.Tensor, c: int):
     return torch.stack(absd, dim=0), torch.stack(signs, dim=0)
 
 
-def _roll_rows(acc: torch.Tensor, G: int, width: int, shift: int
-               ) -> torch.Tensor:
-    """Roll every row of a [48, G*width] batch by `shift` lanes."""
-    return torch.roll(acc.view(3 * NLIMBS, G, width), shift,
-                      dims=2).reshape(3 * NLIMBS, G * width)
-
-
 def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
                          pts: torch.Tensor, c: int | None = None,
                          signed: bool = True, affine: bool = True):
@@ -126,8 +120,9 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
     affine: the bases are affine in projective coding (Z in {0, mont 1},
     as the SRS bases are), so pts[:32] is the affine batch with identity
     coded (0, mont 1) that the bucket loop's mixed adds (B2) read; with
-    affine=False (any Z, the reference's aff=None) the loop gathers whole
-    [48, lanes] bases and adds with B3. signed: signed window digits
+    affine=False (any Z, the reference's aff=None) the loop adds whole
+    [48] bases with B3, which reads each lane's base by index and negates
+    it by the lane's sign. signed: signed window digits
     (half the buckets) or unsigned ones.
     (Port of msm_pallas_window_sums_many, msm_pallas.py:196-543.)"""
     dev = pts.device
@@ -193,6 +188,7 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
                               maxc_full, G, n, BL, ident)
     else:
         acc = ident[:, None].expand(3 * NLIMBS, lanes).contiguous()
+        src = None if affine else pts.contiguous()
         g_off = (torch.arange(G, device=dev) * n)[:, None]
         order_flat = order.reshape(-1)
         sg_flat = sg.reshape(-1) if signed else None
@@ -203,6 +199,7 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
             rr = torch.arange(r0, min(maxc, r0 + block), device=dev)
             idx = torch.clamp(starts_e[None] + rr[:, None, None], max=n - 1)
             gidx = order_flat[(idx + g_off[None]).reshape(-1)].view(-1, lanes)
+            gidx_k = None if affine else gidx.to(torch.int32)
             valid = (rr[:, None, None] < counts_e[None]).reshape(
                 -1, lanes).to(torch.int32)
             sig = (sg_flat[(gidx.view(-1, G, BL) + g_off[None]).reshape(-1)]
@@ -214,11 +211,9 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
                                              valid[j], signs=sig_j)
                 else:
                     # msm_pallas.py:335-347: each lane's sign applies to
-                    # its own gathered copy
-                    P = pts[:, gidx[j]]
-                    if signed:
-                        P = _negate_y(df, P, sig_j)
-                    acc = padd_masked_flat(df, acc, P, valid[j])
+                    # its own gathered copy; B3 gathers and negates it
+                    acc = padd_masked_flat(df, acc, src, valid[j],
+                                           idx=gidx_k[j], sign=sig_j)
         if S > 1:
             acc = _unslot(df, acc, is_top, G, BL, S, L_pow, ident)
 
@@ -229,7 +224,7 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
     for i in range(logb):
         s = 1 << i
         mask = (bidx + s < BL).expand(G, BL).reshape(-1)
-        acc = padd_masked_flat(df, acc, _roll_rows(acc, G, BL, -s), mask)
+        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-s)
     if not signed:
         acc3 = acc.view(3 * NLIMBS, G, BL).clone()
         acc3[:, :, 0] = ident[:, None]        # drop bucket 0
@@ -237,12 +232,13 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
     for i in range(logb):
         half = BL >> (i + 1)
         mask = (bidx < half).expand(G, BL).reshape(-1)
-        acc = padd_masked_flat(df, acc, _roll_rows(acc, G, BL, -half), mask)
+        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-half)
     wsums = acc.view(3 * NLIMBS, G, BL)[:, :, 0]                 # [48, G]
     return wsums.reshape(3 * NLIMBS, m, W).permute(1, 0, 2), c
 
 
 def _negate_y(df, P: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+    """-P where sig is set, by Y -> p - Y (the scan's starting points)."""
     from ..fields.device import fneg
     Y = P[NLIMBS:2 * NLIMBS].T
     Y = torch.where(sig.bool()[:, None], fneg(df, Y.contiguous()), Y)
@@ -259,7 +255,7 @@ def _unslot(df, acc, is_top, G, BL, S, L_pow, ident):
     for i in range(int(math.log2(S))):
         h = S >> (i + 1)
         mask = (trow & (lane_mod < h)[None, :]).reshape(-1)
-        acc = padd_masked_flat(df, acc, _roll_rows(acc, G, BL, -h), mask)
+        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-h)
     perm = np.arange(BL)
     perm[:L_pow] = np.arange(L_pow) * S
     gidx2 = np.tile(np.arange(BL), (G, 1))
@@ -287,7 +283,7 @@ def _segmented_scan(df, pts, ds, order, sg, ends, eff_counts, maxc_full,
     while d < maxc_full:
         same = torch.roll(ds, d, dims=1) == ds
         mask = (same & (pos >= d)).reshape(-1)
-        cur = padd_masked_flat(df, cur, _roll_rows(cur, G, n, d), mask)
+        cur = padd_masked_flat(df, cur, cur, mask, width=n, shift=d)
         d *= 2
     endpos = torch.clamp(ends - 1, min=0)
     flat = (torch.arange(G, device=dev)[:, None] * n + endpos).reshape(-1)

@@ -1,8 +1,10 @@
 """Kernels B2-B6 on Pasta point batches -- the masked mixed add (B2), the
 masked and unmasked complete adds (B3, B4), the doubling and the masked
-doubling (B5, B6) -- with their plain PyTorch versions.
+doubling (B5, B6) -- and the GLV ladder of the IPA fold (B5 and B3 fused
+over 130 steps), with their plain PyTorch versions.
 
-Replaces halo2_tpu/ops/pallas_point.py. A point batch is one int32
+Replaces halo2_tpu/ops/pallas_point.py and the ladder's fori_loop in
+halo2_tpu/ops/ipa_device.py. A point batch is one int32
 [48, L] tensor, lanes last: rows 0-15 X, 16-31 Y, 32-47 Z (16-bit
 Montgomery digits), homogeneous projective (x = X/Z, y = Y/Z), identity
 (0 : R : 0). An affine batch is [32, L] with the identity coded as
@@ -15,6 +17,7 @@ kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -24,7 +27,10 @@ from .field_kernels import (NLIMBS, fmul_plain, fadd_plain, fsub_plain,
                             _dispatch)
 
 LAUNCHES = {"padd_masked": 0, "pmixed_masked": 0, "padd": 0, "pdouble": 0,
-            "pdouble_masked": 0}
+            "pdouble_masked": 0, "glv_ladder": 0}
+
+# where B3 reads its second operand (SrcMode in csrc/point_kernels.cu)
+_SRC_LANE, _SRC_ROLL, _SRC_INDEX = 0, 1, 2
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +108,27 @@ def padd_plain(df, a, b):
     return _join2d(*rcb_add_plain(df, _split2d(a), _split2d(b)))
 
 
-def padd_masked_plain(df, a, b, mask):
+def gather_operand(df, b, idx=None, sign=None, width=None, shift=0):
+    """B3's second operand as a [48, L] batch: b itself; with `width`,
+    every row of `width` lanes of b rolled by `shift` (torch.roll); with
+    `idx` [L], the lanes b[:, idx], their Y negated where sign is set."""
+    if width is not None:
+        rows = b.view(b.shape[0], -1, width)
+        return torch.roll(rows, shift, dims=2).reshape(b.shape)
+    if idx is None:
+        return b
+    g = b.index_select(1, idx.long())
+    if sign is None:
+        return g
+    Y = g[NLIMBS:2 * NLIMBS].T
+    negY = fsub_plain(df, torch.zeros_like(Y), Y)
+    Y = torch.where(sign.bool()[:, None], negY, Y)
+    return torch.cat([g[:NLIMBS], Y.T, g[2 * NLIMBS:]], dim=0)
+
+
+def padd_masked_plain(df, a, b, mask, idx=None, sign=None, width=None,
+                      shift=0):
+    b = gather_operand(df, b, idx, sign, width, shift)
     return torch.where(mask.bool()[None, :], padd_plain(df, a, b), a)
 
 
@@ -112,6 +138,21 @@ def pdouble_plain(df, a):
 
 def pdouble_masked_plain(df, a, mask):
     return torch.where(mask.bool()[None, :], pdouble_plain(df, a), a)
+
+
+def glv_ladder_plain(df, t1, t2, t12, bits1, bits2):
+    """The ladder step by step: acc = O, then per bit pair (MSB first)
+    acc = 2 acc and, where sel = b1 + 2 b2 != 0, acc = acc + table[sel]."""
+    L = t1.shape[1]
+    acc = ident_col(df, t1.device)[:, None].expand(3 * NLIMBS, L).clone()
+    table = (None, t1, t2, t12)
+    on = torch.ones(L, dtype=torch.int32, device=t1.device)
+    for b1, b2 in zip(bits1, bits2):
+        sel = int(b1) + 2 * int(b2)
+        acc = pdouble_plain(df, acc)
+        if sel:
+            acc = padd_masked_plain(df, acc, table[sel], on)
+    return acc
 
 
 def pmixed_masked_plain(df, a, b_aff, mask, signs):
@@ -147,9 +188,15 @@ def _flags(x: torch.Tensor, L: int, what: str) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
+def _arg(x):
+    return x.data_ptr() if isinstance(x, torch.Tensor) else x
+
+
 def _launch(name: str, df, a: torch.Tensor, *operands) -> torch.Tensor:
     """Launch the point kernel h2t_<name> over the L lanes of the [48, L]
-    batch `a`; operands are contiguous tensors on a's device."""
+    batch `a` into a fresh [48, L] output (never aliasing an input);
+    operands are contiguous tensors on a's device, None (a null pointer)
+    or plain C arguments."""
     from . import cuda_build
     out = torch.empty_like(a)
     L = a.shape[1]
@@ -158,23 +205,74 @@ def _launch(name: str, df, a: torch.Tensor, *operands) -> torch.Tensor:
     lib = cuda_build.library("point_kernels")
     rc = getattr(lib, "h2t_" + name)(
         df.field_id, out.data_ptr(), a.data_ptr(),
-        *(x.data_ptr() for x in operands), L,
-        cuda_build.stream_ptr(a.device))
+        *(_arg(x) for x in operands), L, cuda_build.stream_ptr(a.device))
     cuda_build.check(rc, name)
     LAUNCHES[name] += 1
     return out
 
 
 def padd_masked_flat(df, a: torch.Tensor, b: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
-    """out = mask ? a + b : a on [48, L] batches (kernel B3 on CUDA)."""
+                     mask: torch.Tensor, idx=None, sign=None, width=None,
+                     shift: int = 0) -> torch.Tensor:
+    """out[l] = mask[l] ? a[l] + b[j(l)] : a[l] on [48, L] batches (kernel
+    B3 on CUDA, which reads b[j(l)] itself), where b[j(l)] is:
+      - b[l] by default (b is [48, L]);
+      - with `width` (dividing L): lane l of b rolled by `shift` within its
+        row of `width` lanes, as torch.roll of b.view(48, -1, width) along
+        the last axis (b is [48, L]);
+      - with `idx` [L] (values in [0, Lb)): lane idx[l] of b [48, Lb], its
+        Y negated where `sign` [L] is set."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
-    _check_batch(b, 3 * NLIMBS, L, "b")
+    if idx is None:
+        _check_batch(b, 3 * NLIMBS, L, "b")
+        if sign is not None:
+            raise TypeError("sign needs idx")
+    else:
+        _check_batch(b, 3 * NLIMBS, b.shape[1], "b")
+        if width is not None:
+            raise TypeError("give width or idx, not both")
+        idx = _flags(idx, L, "idx")
+        if sign is not None:
+            sign = _flags(sign, L, "sign")
+    if width is not None and (width <= 0 or L % width):
+        raise TypeError(f"width {width} does not divide {L} lanes")
     if not _dispatch(a):
-        return padd_masked_plain(df, a, b, mask)
+        return padd_masked_plain(df, a, b, mask, idx, sign, width, shift)
+    mode = (_SRC_ROLL if width is not None
+            else _SRC_INDEX if idx is not None else _SRC_LANE)
     return _launch("padd_masked", df, a.contiguous(), b.contiguous(),
-                   _flags(mask, L, "mask"))
+                   _flags(mask, L, "mask"), idx, sign, mode, width or 0,
+                   shift % width if width else 0, b.shape[1])
+
+
+def _pack_bits(bits):
+    """0/1 steps, most significant first -> the kernel's 5 words (bit i
+    at bit i % 32 of word i // 32)."""
+    words = [0] * 5
+    for i, bit in enumerate(bits):
+        words[i >> 5] |= (int(bit) & 1) << (i & 31)
+    return (ctypes.c_uint32 * 5)(*words)
+
+
+def glv_ladder_flat(df, t1: torch.Tensor, t2: torch.Tensor, t12: torch.Tensor,
+                    bits1, bits2) -> torch.Tensor:
+    """The GLV double-and-add ladder on [48, L] tables (one launch of the
+    fused kernel on CUDA): acc = O, then for each bit pair, most
+    significant first, acc = 2 acc (RCB Alg 9) and, where
+    sel = b1 + 2 b2 != 0, acc = acc + {t1, t2, t12}[sel] (RCB Alg 7).
+    bits1, bits2: equal-length sequences of 0/1, at most 160."""
+    L = t1.shape[1]
+    for x, what in ((t1, "t1"), (t2, "t2"), (t12, "t12")):
+        _check_batch(x, 3 * NLIMBS, L, what)
+    if len(bits1) != len(bits2) or len(bits1) > 160:
+        raise TypeError(f"bits: {len(bits1)} and {len(bits2)} steps; "
+                        f"want equal counts of at most 160")
+    if not _dispatch(t1):
+        return glv_ladder_plain(df, t1, t2, t12, bits1, bits2)
+    return _launch("glv_ladder", df, t1.contiguous(), t2.contiguous(),
+                   t12.contiguous(), _pack_bits(bits1), _pack_bits(bits2),
+                   len(bits1))
 
 
 def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,

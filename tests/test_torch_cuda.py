@@ -17,6 +17,7 @@ from halo2_tpu_torch.curves.host import PALLAS, VESTA
 from halo2_tpu_torch.curves.native import native_srs_g
 from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
 from halo2_tpu_torch.ops import field_kernels as fk
+from halo2_tpu_torch.ops import ipa_device as ipd
 from halo2_tpu_torch.ops import msm_pippenger as mp
 from halo2_tpu_torch.ops import ntt as ntt_ops
 from halo2_tpu_torch.ops import point_kernels as pk
@@ -143,6 +144,76 @@ def test_add_and_double_kernels_match_plain(cuda):
         assert torch.equal(got, pk.pdouble_masked_plain(df, a, mask))
         assert all(pk.LAUNCHES[k] == before[k] + 1
                    for k in ("padd", "pdouble", "pdouble_masked"))
+
+
+def _card_points(curve, df, L, rng, cuda):
+    """[48, L] projective points with Z != 1 on the card: B4 sums of two
+    random picks from 1,024 SRS points, one identity lane."""
+    pts = pk.points_to_proj(df, native_srs_g(curve, "torch-cuda-test", 1024),
+                            cuda)
+    pick = lambda: torch.from_numpy(rng.integers(0, 1024, L)).to(cuda)
+    g = pk.padd_flat(df, pts[:, pick()], pts[:, pick()])
+    g[:, 3] = pk.ident_col(df, cuda)
+    return g
+
+
+def _unfused_ladder(df, t1, t2, t12, bits1, bits2):
+    """The loop the ladder kernel replaced: B5, then a masked B3, a step."""
+    L = t1.shape[1]
+    acc = pk.ident_col(df, t1.device)[:, None].expand(48, L).contiguous()
+    table = (t1, t1, t2, t12)
+    on = torch.ones(L, dtype=torch.int32, device=t1.device)
+    off = torch.zeros_like(on)
+    for b1, b2 in zip(bits1, bits2):
+        sel = int(b1) + 2 * int(b2)
+        acc = pk.pdouble_flat(df, acc)
+        acc = pk.padd_masked_flat(df, acc, table[sel], on if sel else off)
+    return acc
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_glv_ladder_matches_unfused_loop_and_plain(cuda, curve):
+    """The fused ladder equals the B5/B3 kernel loop at 2^13 and 2^17
+    lanes (130 random bit pairs) and its plain version at 256 lanes, in
+    one launch per call."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(11)
+    bits1 = rng.integers(0, 2, ipd.GLV_BITS)
+    bits2 = rng.integers(0, 2, ipd.GLV_BITS)
+    for L in (1 << 13, 1 << 17, 256):
+        table = ipd.glv_table(df, _card_points(curve, df, L, rng, cuda),
+                              1, 0)
+        before = pk.LAUNCHES["glv_ladder"]
+        got = pk.glv_ladder_flat(df, *table, bits1, bits2)
+        assert pk.LAUNCHES["glv_ladder"] == before + 1
+        if L == 256:
+            want = pk.glv_ladder_plain(df, *table, bits1, bits2)
+        else:
+            want = _unfused_ladder(df, *table, bits1, bits2)
+        assert torch.equal(got, want), L
+
+
+def test_padd_masked_operand_forms_match_plain(cuda):
+    """B3 reading its operand at a lane offset (rows of 512 lanes, as the
+    k = 14 commits' suffix and tree rounds; the whole batch, as the scan)
+    and by index with and without signs, at 26,624 lanes."""
+    df = FP_DEV
+    rng = np.random.default_rng(12)
+    L = 26624
+    a = _card_points(PALLAS, df, L, rng, cuda)
+    src = _card_points(PALLAS, df, 1 << 14, rng, cuda)
+    mask = torch.from_numpy((rng.random(L) < 0.8).astype(np.int32)).to(cuda)
+    signs = torch.from_numpy((rng.random(L) < 0.5).astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 1 << 14, L)).to(cuda)
+    forms = [dict(width=512, shift=-1), dict(width=512, shift=-256),
+             dict(width=L, shift=3)]
+    for kw in forms:
+        got = pk.padd_masked_flat(df, a, a, mask, **kw)
+        assert torch.equal(got, pk.padd_masked_plain(df, a, a, mask, **kw))
+    for sign in (None, signs):
+        got = pk.padd_masked_flat(df, a, src, mask, idx=idx, sign=sign)
+        want = pk.padd_masked_plain(df, a, src, mask, idx=idx, sign=sign)
+        assert torch.equal(got, want)
 
 
 def test_msm_on_the_card_matches_host(cuda):

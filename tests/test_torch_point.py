@@ -2,8 +2,11 @@
 unmasked complete add, doubling, masked doubling) against the JAX
 reference's pmixed_masked_flat / padd_masked_flat / padd_flat /
 pdouble_flat / pdouble_masked_flat (interpret=True, its CPU path) and
-against the exact host group law, on both Pasta curves. Inputs are
-numpy-seeded; results must be bit-equal."""
+against the exact host group law, on both Pasta curves; B3's forms that
+read the second operand at a lane offset or an index (with a per-lane
+sign) against the reference's padd_masked_flat on the operand built with
+jnp.roll and jnp.take. Inputs are numpy-seeded; results must be
+bit-equal."""
 import numpy as np
 import pytest
 import torch
@@ -109,6 +112,45 @@ def _ref(x):
     return jnp.asarray(x.numpy().astype(np.uint32))
 
 
+# (curve, form, width or source lanes, shift): rolls within rows of
+# `width` lanes as the MSM's suffix, tree and scan rounds read them, and
+# gathers from a wider batch as its projective bucket rounds do
+SRC_CASES = [("pallas", "roll", L, -1), ("pallas", "roll", 24, -5),
+             ("vesta", "roll", 32, 3), ("pallas", "roll-self", 8, -4),
+             ("pallas", "index", 2 * L, 0), ("pallas", "index-sign", 2 * L, 0),
+             ("vesta", "index-sign", 3 * L, 0)]
+
+
+@pytest.mark.parametrize("name,form,width,shift", SRC_CASES,
+                         ids=[f"{c}-{f}-{w}-{s}" for c, f, w, s in SRC_CASES])
+def test_padd_masked_operand_forms_match_reference(name, form, width,
+                                                   shift):
+    curve, rdf = CURVES[name]
+    df, a, _, b, _, mask, signs = _batches(curve, 5)
+    rng = np.random.default_rng(width)
+    if form.startswith("roll"):
+        src = a if form == "roll-self" else b
+        got = pk.padd_masked_flat(df, a, src, mask, width=width, shift=shift)
+        operand = jnp.roll(_ref(src).reshape(48, -1, width), shift,
+                           axis=2).reshape(48, L)
+    else:
+        src = pk.padd_plain(df, torch.cat([a] * (width // L), dim=1),
+                            torch.cat([b] * (width // L), dim=1).flip(1))
+        idx = torch.from_numpy(rng.integers(0, width, L).astype(np.int32))
+        sign = signs if form == "index-sign" else None
+        got = pk.padd_masked_flat(df, a, src, mask, idx=idx, sign=sign)
+        operand = jnp.take(_ref(src), jnp.asarray(idx.numpy()), axis=1)
+        if sign is not None:
+            Y = operand[16:32]
+            negY = rfd.fneg(rdf, Y.T).T
+            Y = jnp.where(jnp.asarray(sign.numpy() != 0)[None, :], negY, Y)
+            operand = jnp.concatenate([operand[:16], Y, operand[32:]])
+    want = rpp.padd_masked_flat(rdf, _ref(a), operand,
+                                jnp.asarray(mask.numpy()), interpret=True)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int32))
+
+
 @pytest.mark.parametrize("name", list(CURVES))
 def test_padd_matches_reference_and_host(name):
     """B4 on projective operands with identity lanes and a == b lanes."""
@@ -163,6 +205,14 @@ def test_wrappers_reject_bad_input():
         pk.padd_masked_flat(df, a, a[:, :3], mask)
     with pytest.raises(TypeError):
         pk.padd_masked_flat(df, a.long(), a.long(), mask)
+    with pytest.raises(TypeError):
+        pk.padd_masked_flat(df, a, a, mask, width=3)       # 3 does not divide 4
+    with pytest.raises(TypeError):
+        pk.padd_masked_flat(df, a, a, mask, sign=mask)     # sign needs idx
+    with pytest.raises(TypeError):
+        pk.padd_masked_flat(df, a, a, mask, idx=mask[:3])
+    with pytest.raises(TypeError):
+        pk.padd_masked_flat(df, a, a, mask, idx=mask, width=2)
     with pytest.raises(TypeError):
         pk.pmixed_masked_flat(df, a, a, mask)
     with pytest.raises(TypeError):
