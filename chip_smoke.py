@@ -3,19 +3,25 @@
 
 Phases, in this order (any failure exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+  2. build every CUDA kernel from csrc/ (one nvcc per source, in
+     parallel); registers and spills, and the SASS size of the bucket-run,
+     B2 and NTT kernels;
   3. kernel B1 (Montgomery multiply) and the field add/sub kernel against
      their plain PyTorch versions, bit-exact, 2^20 operands + edges, both
      fields;
-  4. [ntt] kernel B7 (the NTT) against its plain version, bit-exact, at
-     n = 2^10, 2^16 and 2^20 with 1 and 4 columns, forward and inverse,
-     both fields; device time per transform, wrapper time, bound;
+  4. [ntt] kernel B7 (the two-pass NTT) against the plain version,
+     bit-exact, at n = 2^10,
+     2^16 and 2^20 with 1 and 4 columns, forward and inverse, both
+     fields; device time per transform from a CUDA graph and by the
+     profiler, wrapper time, bound;
   5. [layout] kernel B8 (limbs-first [16, N] multiply) beside B1
      (element-major [N, 16]) at N = 2^12 .. 2^20, both against the plain
      version, device time against the same byte bound;
   6. the main path at k=14: Params.new, keygen_vk, keygen_pk, create_proof
      twice (cold, warm), verify_proof, a wrong public input rejected, and
-     the proof's sha256 against the JAX reference's recorded hash;
+     the proof's sha256 against the JAX reference's recorded hash; the
+     bucket-run kernel launched and no one-step B2; then [ntt-main], B7
+     timed at the shapes the warm prove transforms;
   7. kernels B2 (masked mixed add) and B3 (masked complete add) against
      their plain versions, bit-exact, at the lane count of a k=14 commit,
      with random masks and signs and identity-coded bases; B3's forms
@@ -45,6 +51,11 @@ Phases, in this order (any failure exits non-zero):
      rounds, then native; cold, then warm), with every round native and
      with every round on the card; each proof's sha256 against that
      run's; the default and the all-device proves profiled;
+ 12b. [bucket] the bucket-run kernel against its plain version and the
+     one-step B2 kernel run round by round, at a k=14 advice commit's
+     26,624 lanes and a k=REF_K commit's 163,840, both fields; the kernel
+     and the round loop timed from a CUDA graph and by the profiler,
+     beside the bound over the whole commit;
  13. [lookup] the lookup path: halo2's dev_lookup circuit at k = 14 and
      k = REF_K (PALLAS Params of phases 6 and 12) and the plonk_api
      circuit at K = 5 (VESTA, two instances): keygen, a cold and a warm
@@ -54,8 +65,9 @@ Phases, in this order (any failure exits non-zero):
      kernel, and one profiled warm prove at each k;
  14. a `kernels` JSON line: launches on the path that runs each kernel
      (main or ipa), mismatches, each kernel's device time per launch
-     (torch.profiler) beside its bound, the wrapper's time per call
-     (CUDA events) and the plain version's;
+     (torch.profiler; from a CUDA graph for B7 and the bucket-run kernel,
+     with the profiler's beside it) against its bound, the wrapper's time
+     per call (CUDA events) and the plain version's;
 and, last, {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -88,9 +100,9 @@ REF_SHA256 = {
 REF_K = 18
 # kernels of the main path (the default IPA schedule at k=14 runs every
 # IPA round natively) and of the lookup path; B4 and the GLV ladder run
-# on the device IPA path (phase_ipa), B5 (the device Horner combine), B6
-# and B8 on no proving path
-MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_masked", "padd_masked",
+# on the device IPA path (phase_ipa), B5 (the device Horner combine), B6,
+# B8 and the one-step B2 on no proving path
+MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_bucket_runs", "padd_masked",
                      "ntt")
 
 # the card's peaks (H100 SXM at 700 W)
@@ -128,35 +140,40 @@ def _device_us(ev) -> float:
     return ev.self_cuda_time_total if dev_us is None else dev_us
 
 
-def device_ms(fn, reps: int, kernel: str, per_call: bool = False) -> float:
+def device_ms(fn, reps: int, kernel, per_call: bool = False) -> float:
     """Mean device time per launch of the CUDA kernels whose names hold
-    `kernel` over `reps` calls of fn (per call of fn with per_call), from
-    torch.profiler: the kernels alone, without the wrapper's host work
-    between launches."""
+    `kernel` (a name fragment, or a tuple of them) over `reps` calls of fn
+    (per call of fn with per_call), from torch.profiler: the kernels
+    alone, without the wrapper's host work between launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity, schedule
     fn()
     torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     # one warm-up step before the recorded one: device tracing that starts
     # with the window can miss its first launches, and a window of a few
-    # ms can then show none at all
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
-                 ) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
-            total += _device_us(ev)
-            count += ev.count
-    if count == 0:
-        raise RuntimeError(f"the profiler saw no launch of {kernel}")
-    return total / (reps if per_call else count) / 1e3
+    # ms can then show none at all; where it still shows none, the window
+    # is recorded again with four and then sixteen times the calls
+    for reps in (reps, 4 * reps, 16 * reps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and any(k in ev.key
+                                                         for k in names):
+                total += _device_us(ev)
+                count += ev.count
+        if count:
+            return total / (reps if per_call else count) / 1e3
+    raise RuntimeError(f"the profiler saw no launch of {kernel}")
 
 
 def max_abs(got, want) -> int:
@@ -183,6 +200,29 @@ def phase_card():
         f"python {sys.version.split()[0]}")
 
 
+def sass_counts(so: str) -> dict:
+    """SASS instructions of each kernel of the built library at path `so`
+    (cuobjdump -sass beside nvcc; {} where it is missing)."""
+    import os
+    import re
+    from halo2_tpu_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", so],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur and re.search(r"/\*[0-9a-f]{4,6}\*/", line):
+            counts[cur] += 1
+    return counts
+
+
 def phase_build():
     from halo2_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -193,6 +233,14 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "error")):
                 log(f"[ptxas {name}] {line.strip()}")
+    # the redesigned kernels' code size (instruction fetch, as the ladder
+    # showed)
+    for name, key in (("point_kernels", "pmixed_bucket_runs"),
+                      ("point_kernels", "pmixed_masked_kernel"),
+                      ("ntt_kernels", "ntt_")):
+        for fn, count in sass_counts(cuda_build._so_path(name)).items():
+            if key in fn:
+                log(f"[sass {name}] {fn}: {count} instructions")
 
 
 def rand_field(df, n, seed, device):
@@ -383,6 +431,131 @@ def phase_b3_forms(results, params, A, mask, signs):
     log(f"[points] B3 operand forms mismatches {bad}")
     if bad:
         raise AssertionError(f"B3 operand forms: {bad} mismatches")
+
+
+def b2_round_loop(df, aff, gidx, valid, sig, acc):
+    """The affine bucket loop as it ran before the bucket-run kernel: from
+    the identity batch acc, per round, a gather of every lane's base,
+    aff[:, gidx[r]], then the one-step B2 kernel (the index rows built
+    beforehand, as the old loop built them in blocks)."""
+    from halo2_tpu_torch.ops import point_kernels as pk
+    for r in range(gidx.shape[0]):
+        acc = pk.pmixed_masked_flat(df, acc, aff[:, gidx[r]], valid[r],
+                                    signs=sig[r])
+    return acc
+
+
+def phase_bucket(results, params, params_ref_k):
+    """[bucket] The bucket-run kernel against its plain version and
+    against the one-step B2
+    kernel run round by round over the gathered bases, on two columns of
+    random scalars: at a k = 14 advice commit's 26,624 lanes (2^14 bases)
+    and a k = 18 commit's 163,840 lanes (2^18 bases), on the PALLAS base
+    field (the SRS) and the VESTA one (native SRS points; at 2^18, 2^14 of
+    them repeated). Then, on PALLAS at both widths: device time from a
+    CUDA graph and by the profiler, and the wrapper's time, of the
+    kernel and of the B2 round loop (its gathers and launches)
+    replayed from a graph and called; the bound over the whole commit."""
+    import torch
+    from halo2_tpu_torch.curves.host import PALLAS, VESTA
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import msm_pippenger as mp
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = params.device
+    r = results["pmixed_bucket_runs"]
+    vesta14 = pk.points_to_proj(FQ_DEV, native_srs_g(
+        VESTA, "chip-smoke-bucket", 1 << K), dev)[:32]
+    mism, err = 0, 0
+    for k, pallas in ((K, params), (REF_K, params_ref_k)):
+        n = 1 << k
+        c = mp.pick_c(n)
+        for curve, df, aff in (
+                (PALLAS, params.base_df, pallas.g_dev[:32].contiguous()),
+                (VESTA, FQ_DEV, vesta14.repeat(1, n >> K).contiguous())):
+            gen = torch.Generator(device=dev).manual_seed(k)
+            digits = torch.randint(0, 1 << 16, (2, n, 16), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            digits[..., 15] >>= 2                # below 2^254 < q
+            runs = mp.bucket_runs(curve, digits, c)
+            packed = pk.pack_affine(aff)
+            members = pk.bucket_members(runs.order, runs.sg)
+            starts = runs.starts_e.reshape(-1).to(torch.int32)
+            counts = runs.counts_e.reshape(-1).to(torch.int32)
+            L = starts.shape[0]
+            maxc = int(counts.max())
+            rr = torch.arange(maxc, device=dev)[:, None]
+            valid = rr < counts[None]
+            m = members.reshape(-1).long()[
+                torch.arange(L, device=dev) // runs.BL * n
+                + torch.where(valid, starts.long() + rr, 0)]
+            gidx = m & 0x7FFFFFFF
+            sig = (m < 0).to(torch.int32)
+            valid = valid.to(torch.int32)
+            # made outside any graph capture (a copy from the host)
+            ident = pk.ident_col(df, dev)[:, None].expand(48, L).contiguous()
+            want = pk.pmixed_bucket_runs_plain(df, packed, members, starts,
+                                               counts, runs.BL)
+            loop = b2_round_loop(df, aff, gidx, valid, sig, ident)
+            bad = int((loop != want).any(dim=0).sum())
+            # the kernel takes the int64 run bounds, as the MSM passes them
+            starts64 = runs.starts_e.reshape(-1)
+            counts64 = runs.counts_e.reshape(-1)
+            got = pk.pmixed_bucket_runs(df, packed, members, starts64,
+                                        counts64, runs.BL)
+            bad += int((got != want).any(dim=0).sum())
+            err = max(err, max_abs(got, want))
+            mism += bad
+            log(f"[bucket] k={k} {curve.name}: {L} lanes, runs up to {maxc}"
+                f": kernel against its plain version and the B2 round loop, "
+                f"{bad} mismatches")
+            if curve is not PALLAS:
+                continue
+            # timing on PALLAS: the whole commit's bucket phase
+            fn = lambda: pk.pmixed_bucket_runs(
+                df, packed, members, starts64, counts64, runs.BL)
+            g_ms, p_ms, c_ms = (graph_ms(fn, 5),
+                                device_ms(fn, 5, "pmixed_bucket_runs_kernel"),
+                                timed(fn, 5))
+            loop_fn = lambda: b2_round_loop(df, aff, gidx, valid, sig, ident)
+            loop_graph = graph_ms(loop_fn, 3)
+            loop_b2 = device_ms(loop_fn, 2, "pmixed_masked_kernel",
+                                per_call=True)
+            loop_call = timed(loop_fn, 2)
+            members_total = int(counts.sum())
+            ident_base = ((aff[:16] == 0).all(0)
+                          & (aff[16:] == pk.mont_one(df, dev)[:, None]).all(0))
+            live = members_total - int(ident_base[gidx][valid.bool()].sum())
+            bd, by = bound_ms(members_total * (64 + 4) + L * (8 + 192),
+                              live * 11 * MONT_MULADDS)
+            key = f"k{k}"
+            log(f"[bucket] k={k} L={L} kernel: {g_ms:.5f} ms from a CUDA "
+                f"graph, {p_ms:.5f} ms by the profiler, {c_ms:.4f} ms per "
+                f"wrapper call")
+            r.update({f"graph_ms_{key}": g_ms, f"profiler_ms_{key}": p_ms,
+                      f"call_ms_{key}": c_ms})
+            log(f"[bucket] k={k} L={L}: the B2 round loop ({maxc} gathers "
+                f"and launches) {loop_graph:.5f} ms from a CUDA graph, its "
+                f"B2 launches {loop_b2:.5f} ms by the profiler, "
+                f"{loop_call:.4f} ms called; bound {bd:.5f} ms by {by} "
+                f"({members_total} members, {live} live)")
+            r.update({f"graph_ms_b2_loop_{key}": loop_graph,
+                      f"profiler_ms_b2_loop_{key}": loop_b2,
+                      f"call_ms_b2_loop_{key}": loop_call,
+                      f"bound_ms_{key}": bd})
+            if k == K:
+                pms = timed(lambda: pk.pmixed_bucket_runs_plain(
+                    df, packed, members, starts, counts, runs.BL), 1,
+                    warm=False)
+                r.update(ms=g_ms, profiler_ms=p_ms, call_ms=c_ms,
+                         plain_ms=pms, bound_ms=bd, bound_by=by,
+                         shape=[48, L])
+                log(f"[bucket] k={k}: plain {pms:.3f} ms")
+    torch.cuda.synchronize()
+    r.update(mismatches=mism, max_abs_err=err)
+    log(f"[bucket] mismatches {mism}")
+    if mism:
+        raise AssertionError(f"bucket-run kernel mismatches: {mism}")
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -652,13 +825,16 @@ def phase_main_path(results):
         tw = TranscriptWrite(PALLAS)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        pv.create_proof(params, pk_, [circuit], [[[out]]],
-                        random.Random(PROOF_SEED), tw)
+        with ntt_shapes() as shapes:
+            pv.create_proof(params, pk_, [circuit], [[[out]]],
+                            random.Random(PROOF_SEED), tw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         proofs.append(tw.finalize())
         log(f"[main] create_proof {label}: {times[-1]:.3f}s, "
             f"{len(proofs[-1])} bytes, launches {diff_counts(before)}")
+    log(f"[main] NTT calls of the warm prove, (columns, n): count "
+        f"{dict(shapes)}")
     log("[main] warm phases " + json.dumps(
         {name: round(s, 4) for name, s in pv.LAST_PHASES}))
     t = time.perf_counter()
@@ -673,14 +849,19 @@ def phase_main_path(results):
     else:
         raise AssertionError("a wrong public input was accepted")
     launches = launch_counts()
-    for name in MAIN_PATH_KERNELS:
+    for name in MAIN_PATH_KERNELS + ("pmixed_masked",):
         results[name]["launches"] = launches[name]
     log(f"[main] B3 launches {launches['padd_masked']} (each reads its "
         f"operand itself), GLV ladder {launches['glv_ladder']}, B5 "
         f"{launches['pdouble']}")
+    log(f"[main] B2 family: bucket-run kernel {launches['pmixed_bucket_runs']}"
+        f" launches (one per affine-base commit), one-step B2 "
+        f"{launches['pmixed_masked']}; B7 {launches['ntt']} launches")
     if launches["glv_ladder"] or launches["pdouble"]:
         raise AssertionError("the default k=14 schedule folds no IPA round "
                              "on the card, yet a ladder or B5 ran")
+    if launches["pmixed_masked"]:
+        raise AssertionError("the main path ran a per-round B2")
     if proofs[0] != proofs[1]:
         raise AssertionError("cold and warm proofs differ")
     digest = hashlib.sha256(proofs[1]).hexdigest()
@@ -693,7 +874,30 @@ def phase_main_path(results):
     if idle:
         raise AssertionError(f"kernels of the main path not launched: "
                              f"{idle}")
-    return params, pk_, circuit, out
+    return params, pk_, circuit, out, shapes
+
+
+class ntt_shapes:
+    """Within the block, the (columns, n) of every NTT the domain runs,
+    counted (a measurement hook around poly/domain.py's ntt_many)."""
+
+    def __enter__(self):
+        from collections import Counter
+        from halo2_tpu_torch.poly import domain
+        self.shapes = Counter()
+        self.orig = orig = domain.ntt_many
+
+        def recording(df, x, plan, **kw):
+            self.shapes[tuple(x.shape[:2])] += 1
+            return orig(df, x, plan, **kw)
+
+        domain.ntt_many = recording
+        return self.shapes
+
+    def __exit__(self, *exc):
+        from halo2_tpu_torch.poly import domain
+        domain.ntt_many = self.orig
+        return False
 
 
 def _counters() -> tuple:
@@ -881,11 +1085,29 @@ def phase_reference_k():
     return params
 
 
+def ntt_times(df, x, plan):
+    """B7 on x [m, n, 16] from a CUDA graph (device time without host
+    gaps), by the profiler, and per wrapper call."""
+    from halo2_tpu_torch.ops import ntt
+    fn = lambda: ntt.ntt_many(df, x, plan)
+    return {"graph_ms": graph_ms(fn, 20),
+            "profiler_ms": device_ms(fn, 20, "ntt_pass", per_call=True),
+            "call_ms": timed(fn, 20)}
+
+
+def ntt_bound(m, n, log_n):
+    """Each column read and written once, the packed twiddles read once,
+    (n/2) log n products a column."""
+    return bound_ms(m * n * 128 + (n - 1) * 32,
+                    m * (n // 2) * log_n * MONT_MULADDS)
+
+
 def phase_ntt(results):
-    """B7 against its plain version at n = 2^10 (the tile kernel alone),
-    2^16 (k = 14's extended domain) and 2^20 (k = 18's), 1 and 4 columns,
-    forward and inverse, both fields; device time per transform
-    (torch.profiler, both of B7's kernels), wrapper time, bound."""
+    """B7 against the plain version at n = 2^10 (one pass), 2^16 (k = 14's
+    extended domain) and 2^20 (k = 18's), 1 and 4 columns, forward and
+    inverse, both fields, with its launches per transform (at most two);
+    its device time per transform from a CUDA graph and by the profiler,
+    its wrapper time and the bound."""
     import torch
     from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV
     from halo2_tpu_torch.ops import ntt
@@ -904,10 +1126,10 @@ def phase_ntt(results):
                                                      spec.modulus))}
             for direction, plan in plans.items():
                 for m in (1, 4):
+                    want = ntt.ntt_many_plain(df, x[:m], plan)
                     before = ntt.LAUNCHES["ntt"]
                     got = ntt.ntt_many(df, x[:m], plan)
                     launches[log_n] = ntt.LAUNCHES["ntt"] - before
-                    want = ntt.ntt_many_plain(df, x[:m], plan)
                     bad = int((got != want).any(dim=-1).sum())
                     mism += bad
                     err = max(err, max_abs(got, want))
@@ -915,37 +1137,75 @@ def phase_ntt(results):
                     if bad:
                         log(f"[ntt] n=2^{log_n} m={m} {direction} "
                             f"field {df.field_id}: {bad} mismatches")
+                    if launches[log_n] != (1 if log_n <= 10 else 2):
+                        raise AssertionError(
+                            f"B7 made {launches[log_n]} launches for a "
+                            f"transform of 2^{log_n}")
             if df is FQ_DEV:
                 # times on the scalar field of PALLAS Params, forward
                 plan = plans["fwd"]
                 for m in (1, 4):
                     xm = x[:m].contiguous()
-                    fn = lambda: ntt.ntt_many(df, xm, plan)
-                    ms = device_ms(fn, 20, "ntt_", per_call=True)
-                    call_ms = timed(fn, 20)
-                    nbytes = m * n * 128 + n * 8 + (n - 1) * 64
-                    bd, by = bound_ms(nbytes, m * (n // 2) * log_n
-                                      * MONT_MULADDS)
-                    log(f"[ntt] n=2^{log_n} m={m}: {ms:.5f} ms on the "
-                        f"device per transform in {launches[log_n]} "
-                        f"launches, {call_ms:.4f} ms per wrapper call "
+                    t = ntt_times(df, xm, plan)
+                    bd, by = ntt_bound(m, n, log_n)
+                    log(f"[ntt] n=2^{log_n} m={m}: {t['graph_ms']:.5f} ms "
+                        f"per transform from a CUDA graph, "
+                        f"{t['profiler_ms']:.5f} ms by the profiler, in "
+                        f"{launches[log_n]} launches, "
+                        f"{t['call_ms']:.4f} ms per wrapper call "
                         f"(bound {bd:.5f} ms by {by})")
                     key = f"n{log_n}_m{m}"
-                    r[f"ms_{key}"], r[f"call_ms_{key}"] = ms, call_ms
+                    r.update({f"{k}_{key}": v for k, v in t.items()})
                     r[f"bound_ms_{key}"] = bd
                     if (log_n, m) == (16, 1):
                         pms = timed(lambda: ntt.ntt_many_plain(df, xm, plan),
                                     2)
-                        r.update(ms=ms, call_ms=call_ms, plain_ms=pms,
-                                 bound_ms=bd, bound_by=by, shape=[1, n, 16])
+                        r.update(ms=t["graph_ms"], call_ms=t["call_ms"],
+                                 profiler_ms=t["profiler_ms"],
+                                 plain_ms=pms, bound_ms=bd, bound_by=by,
+                                 shape=[1, n, 16])
                         log(f"[ntt] n=2^{log_n} m=1: plain {pms:.3f} ms")
             del x
     torch.cuda.synchronize()
     r.update(mismatches=mism, max_abs_err=err)
     log(f"[ntt] mismatches {mism}, max abs error {err}; launches per "
-        f"transform {launches}")
+        f"transform by log n {launches}")
     if mism:
         raise AssertionError(f"NTT kernel mismatches: {mism}")
+
+
+def phase_ntt_main(results, shapes):
+    """B7 timed at every (columns, n) the main path's warm
+    prove transforms (from [main]), forward, on the PALLAS scalar field,
+    against the plain version at that shape."""
+    import torch
+    from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import ntt
+    dev = torch.device("cuda")
+    df = FQ_DEV
+    r = results["ntt"]
+    bad = 0
+    for (m, n), count in sorted(shapes.items()):
+        log_n = n.bit_length() - 1
+        plan = ntt.make_plan(df, n, pow(df.spec.root_of_unity,
+                                        1 << (df.spec.s - log_n),
+                                        df.spec.modulus))
+        x = rand_field(df, m * n, 40 + log_n, dev).view(m, n, 16)
+        bad += int((ntt.ntt_many(df, x, plan) !=
+                    ntt.ntt_many_plain(df, x, plan)).any(dim=-1).sum())
+        t = ntt_times(df, x, plan)
+        bd, by = ntt_bound(m, n, log_n)
+        log(f"[ntt-main] {count}x (m={m}, n=2^{log_n}): "
+            f"{t['graph_ms']:.5f} ms from a CUDA graph, "
+            f"{t['profiler_ms']:.5f} ms by the profiler (bound {bd:.5f} ms "
+            f"by {by})")
+        key = f"main_n{log_n}_m{m}"
+        r.update({f"{k}_{key}": v for k, v in t.items()})
+        r[f"bound_ms_{key}"] = bd
+    r["mismatches"] += bad
+    if bad:
+        raise AssertionError(f"NTT kernel mismatches at the main path's "
+                             f"shapes: {bad}")
 
 
 def phase_layout(results):
@@ -1144,6 +1404,11 @@ def main() -> int:
                                 "no Pallas kernel)"},
         "pmixed_masked": {"route": "cuda", "source": src + "point_kernels.cu",
                           "replaces": "halo2_tpu/ops/pallas_point.py:297"},
+        "pmixed_bucket_runs": {"route": "cuda",
+                               "source": src + "point_kernels.cu",
+                               "replaces": "halo2_tpu/ops/pallas_point.py:297"
+                                           " (B2 run round by round, "
+                                           "msm_pallas.py:327-397)"},
         "padd_masked": {"route": "cuda", "source": src + "point_kernels.cu",
                         "replaces": "halo2_tpu/ops/pallas_point.py:281"},
         "padd": {"route": "cuda", "source": src + "point_kernels.cu",
@@ -1165,14 +1430,16 @@ def main() -> int:
     }
     paths = {name: "main" for name in MAIN_PATH_KERNELS}
     paths.update(padd="ipa", glv_ladder="ipa", pdouble=None,
-                 pdouble_masked=None, fmul_limbs_first=None)
+                 pdouble_masked=None, fmul_limbs_first=None,
+                 pmixed_masked=None)
     t_all = time.perf_counter()
     phase_card()
     run_phase(phase_build)
     run_phase(phase_field, results)
     run_phase(phase_ntt, results)
     run_phase(phase_layout, results)
-    state = run_phase(phase_main_path, results)
+    *state, shapes = run_phase(phase_main_path, results)
+    run_phase(phase_ntt_main, results, shapes)
     run_phase(phase_points, results, state[0])
     run_phase(phase_add_double, results, state[0])
     run_phase(phase_ladder, results, state[0])
@@ -1181,6 +1448,7 @@ def main() -> int:
     run_phase(phase_profile, *state)
     run_phase(phase_ipa, results, *state)
     params_ref_k = run_phase(phase_reference_k)
+    run_phase(phase_bucket, results, state[0], params_ref_k)
     run_phase(phase_lookup, results, state[0], params_ref_k)
     kernels = [{"name": name, "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "path": paths[name],
@@ -1192,8 +1460,8 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": None,
                 "shape": r["shape"],
                 **{k: v for k, v in r.items() if k.startswith(
-                    ("ms_", "bound_ms_", "call_ms_", "b1_ms_",
-                     "lookup_"))}}
+                    ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
+                     "graph_ms", "profiler_ms"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,13 @@
 // pmixed_masked_flat at :613): out = mask ? A +/- B_aff : A with the RCB
 // Alg 8 mixed add (11 wide multiplies), the per-lane sign negating y as
 // p - y, and identity-coded (0, mont 1) bases masked off in-kernel.
+// pmixed_bucket_runs replaces B2 as the commits drive it: the reference
+// runs _pmixed_masked_kernel once per bucket round, round r adding the
+// r-th member of every (window row, bucket) run over all lanes, its bases
+// gathered with jnp.take (halo2_tpu/ops/msm_pallas.py:327-397, fused by
+// XLA on the TPU). Here one launch runs every round: each lane sums its
+// whole run from the identity, in the same order with the same Alg 8
+// formulas, so the projective result is the round loop's bit for bit.
 // B3 (padd_masked) replaces _padd_masked_kernel (:281, _build_padd(seg=True)
 // at :426/:442, wrapped by padd_masked_flat at :591): out[l] = mask[l] ?
 // A[l] + B[j(l)] : A[l] with the RCB Alg 7 complete add (12 wide
@@ -51,6 +58,28 @@
 //   or an index, so no rolled or gathered copy (192 B per lane written
 //   and read again, plus a host call) precedes it; the output never
 //   aliases an input, since a lane reads other lanes.
+// - The bucket-run kernel is bound by operations over the whole commit:
+//   every member's mixed add (11 products) against a 68-byte read per
+//   member (a packed 64-byte base and its index) and one 192-byte write
+//   per lane. Run as one B2 launch per round (50-140 of them per commit)
+//   it re-read and re-wrote the accumulator each round, and each round
+//   was preceded by a gather of the bases and a host call. One launch
+//   keeps each lane's accumulator in registers for its whole run, reads
+//   its own run bounds, members (index, sign in bit 31) and bases, the
+//   bases point-major and packed (pack_affine, built once per base
+//   tensor: four 16-byte loads a base, where the lanes-last batch needs
+//   32 strided reads). A warp runs as long as its longest run; splitting
+//   long runs over more threads would change the order of additions
+//   (ROADMAP B). At 26,624 lanes (six warps a SM) each thread is a
+//   latency-bound chain of about 70 x 11 dependent products. The inlined
+//   body is 7,224 SASS instructions, the called one 2,080; the called
+//   product measured faster at both commit widths (0.79 against 0.98 ms
+//   at 26,624 lanes, 5.45 against 7.10 ms at 163,840, NVIDIA H100 80GB
+//   HBM3, 700 W; PERF.md), so the instruction caches decide here too and
+//   only the called build is kept. Also tried and lost: a carry-chain
+//   product in PTX (mad.lo.cc / madc.hi.cc, 5-10% slower in both forms)
+//   and a build calling two independent products at a time (0.82 ms at
+//   26,624 lanes): the chain of dependent calls is not what bounds it.
 // - The ladder is bound by operations: 130 doublings (8 products) and up
 //   to 130 adds (12) per lane, about 2,200-2,600 products, against
 //   4 x 192 B of traffic. Run as 260 launches (B5, then B3) it re-read and
@@ -98,7 +127,8 @@ __device__ __noinline__ void mont_mul_call(uint32_t r[8], const uint32_t a[8],
 }
 
 // The product the formulas use: inlined (straight-line, for the one-step
-// kernels) or called (CALL, for the ladder's loop; see the design note)
+// kernels) or called (CALL, for the ladder's and the bucket runs' loops;
+// see the design note)
 template <int F, bool CALL>
 __device__ __forceinline__ void pmul(uint32_t r[8], const uint32_t a[8],
                                      const uint32_t b[8]) {
@@ -150,21 +180,21 @@ __device__ __forceinline__ void rcb_add(Pt& o, const Pt& a, const Pt& b) {
 
 // RCB15 Alg 8: second operand affine (Z2 = 1); the polynomials of
 // pallas_point._rcb_mixed_add
-template <int F>
+template <int F, bool CALL = false>
 __device__ __forceinline__ void rcb_mixed_add(Pt& o, const Pt& a,
                                               const uint32_t x2[8],
                                               const uint32_t y2[8]) {
   uint32_t t0[8], t1[8], t3[8], t4[8], xz[8], u[8], v[8];
-  mont_mul<F>(t0, a.x, x2);
-  mont_mul<F>(t1, a.y, y2);
+  pmul<F, CALL>(t0, a.x, x2);
+  pmul<F, CALL>(t1, a.y, y2);
   add<F>(u, a.x, a.y);
   add<F>(v, x2, y2);
-  mont_mul<F>(t3, u, v);
+  pmul<F, CALL>(t3, u, v);
   sub<F>(t3, t3, t0);
   sub<F>(t3, t3, t1);  // X1Y2 + X2Y1
-  mont_mul<F>(t4, y2, a.z);
+  pmul<F, CALL>(t4, y2, a.z);
   add<F>(t4, t4, a.y);  // Y1 + Y2 Z1
-  mont_mul<F>(xz, x2, a.z);
+  pmul<F, CALL>(xz, x2, a.z);
   add<F>(xz, xz, a.x);  // X1 + X2 Z1
   uint32_t s0[8], b3z[8], z3[8], s1[8], y3[8];
   add<F>(s0, t0, t0);
@@ -173,14 +203,14 @@ __device__ __forceinline__ void rcb_mixed_add(Pt& o, const Pt& a,
   add<F>(z3, t1, b3z);
   sub<F>(s1, t1, b3z);
   mul15<F>(y3, xz);
-  mont_mul<F>(u, t3, s1);
-  mont_mul<F>(v, t4, y3);
+  pmul<F, CALL>(u, t3, s1);
+  pmul<F, CALL>(v, t4, y3);
   sub<F>(o.x, u, v);
-  mont_mul<F>(u, y3, s0);
-  mont_mul<F>(v, s1, z3);
+  pmul<F, CALL>(u, y3, s0);
+  pmul<F, CALL>(v, s1, z3);
   add<F>(o.y, u, v);
-  mont_mul<F>(u, z3, t4);
-  mont_mul<F>(v, s0, t3);
+  pmul<F, CALL>(u, z3, t4);
+  pmul<F, CALL>(v, s0, t3);
   add<F>(o.z, u, v);
 }
 
@@ -388,6 +418,58 @@ __global__ void pmixed_masked_kernel(int32_t* __restrict__ out,
   store_pt(out + l, L, r);
 }
 
+// pmixed_bucket_runs: every lane l (bucket l % BL of window row l / BL)
+// sums its run of affine bases from the identity, in the order of the
+// B2 round loop it replaces: acc = O, then for r < counts[l], with
+// m = members[row, starts[l] + r], acc = acc +/- bases[m & 0x7fffffff],
+// negated where bit 31 of m is set; identity-coded bases are skipped.
+// bases: point-major packed [n][16] words (x limbs 0-7, y limbs 0-7), 64 B
+// per point, read as four 16-byte loads. The products are called, not
+// inlined (see the design note).
+template <int F>
+__global__ void __launch_bounds__(kMaxThreads)
+pmixed_bucket_runs_kernel(int32_t* __restrict__ out,
+                          const uint4* __restrict__ bases,
+                          const int32_t* __restrict__ members,
+                          const int32_t* __restrict__ starts,
+                          const int32_t* __restrict__ counts, uint32_t BL,
+                          uint32_t n, uint32_t L) {
+  const uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  const size_t run = (size_t)(l / BL) * n + (uint32_t)starts[l];
+  const int32_t cnt = counts[l];
+  Pt acc;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    acc.x[i] = 0;
+    acc.y[i] = Field<F>::one(i);
+    acc.z[i] = 0;
+  }
+#pragma unroll 1
+  for (int32_t r = 0; r < cnt; r++) {
+    const int32_t m = members[run + r];
+    const uint4* b = bases + (size_t)(m & 0x7fffffff) * 4;
+    uint32_t x2[8], y2[8];
+    const uint4 q0 = b[0], q1 = b[1], q2 = b[2], q3 = b[3];
+    x2[0] = q0.x; x2[1] = q0.y; x2[2] = q0.z; x2[3] = q0.w;
+    x2[4] = q1.x; x2[5] = q1.y; x2[6] = q1.z; x2[7] = q1.w;
+    y2[0] = q2.x; y2[1] = q2.y; y2[2] = q2.z; y2[3] = q2.w;
+    y2[4] = q3.x; y2[5] = q3.y; y2[6] = q3.z; y2[7] = q3.w;
+    // identity base marker: X == 0 and Y == mont(1), masked off as B2 does
+    if (is_zero(x2) && is_one<F>(y2)) continue;
+    if (m < 0) {
+      // -B = (x, p - y), as B2
+      uint32_t p[8];
+      load_p<F>(p);
+      sub_raw(y2, p, y2);
+    }
+    Pt r2;
+    rcb_mixed_add<F, true>(r2, acc, x2, y2);
+    acc = r2;
+  }
+  store_pt(out + l, L, acc);
+}
+
 template <int F>
 __global__ void padd_kernel(int32_t* __restrict__ out,
                             const int32_t* __restrict__ a,
@@ -533,6 +615,24 @@ extern "C" int h2t_pmixed_masked(int field, void* out, const void* a,
                       (const int32_t*)a, (const int32_t*)b,
                       (const int32_t*)mask, (const int32_t*)sign,
                       (uint32_t)L);
+}
+
+// bases [n][16] packed words, members [L / BL][n], starts and counts [L]
+extern "C" int h2t_pmixed_bucket_runs(int field, void* out,
+                                      const void* bases, const void* members,
+                                      const void* starts, const void* counts,
+                                      long long BL, long long n, long long L,
+                                      void* stream) {
+  if (L <= 0) return 0;
+  if (BL <= 0 || L % BL != 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = spread_threads(L);
+  dim3 grid((unsigned)((L + threads - 1) / threads));
+  auto kern = field ? pmixed_bucket_runs_kernel<1> : pmixed_bucket_runs_kernel<0>;
+  kern<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const uint4*)bases, (const int32_t*)members,
+      (const int32_t*)starts, (const int32_t*)counts, (uint32_t)BL,
+      (uint32_t)n, (uint32_t)L);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int h2t_padd(int field, void* out, const void* a, const void* b,

@@ -43,12 +43,14 @@ _ARGTYPES = {
         "h2t_fmul_limbs_first": [_I, _P, _P, _P, _LL, _P],
     },
     "ntt_kernels": {
-        "h2t_ntt": [_I, _P, _P, _P, _P, _LL, _I, _I, _P],
+        "h2t_ntt_pass": [_I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     },
     "point_kernels": {
         "h2t_padd_masked": [_I, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
                             _LL, _P],
         "h2t_pmixed_masked": [_I, _P, _P, _P, _P, _P, _LL, _P],
+        "h2t_pmixed_bucket_runs": [_I, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                   _P],
         "h2t_padd": [_I, _P, _P, _P, _LL, _P],
         "h2t_pdouble": [_I, _P, _P, _LL, _P],
         "h2t_pdouble_masked": [_I, _P, _P, _P, _LL, _P],

@@ -6,12 +6,14 @@ Port of halo2_tpu/ops/msm_pallas.py (the reference's TPU Pippenger):
      index half as many buckets, the sign rides the free negation);
   2. a sort per window row and the bucket run starts (torch.sort /
      torch.searchsorted);
-  3. bucket accumulation: round r adds the r-th member of every (row,
-     bucket) run at once -- one gather and one masked add over [48, G*BL]
-     lanes: the mixed add (B2) for affine bases such as the SRS, the
-     complete add (B3, which gathers and negates its own operand) for
-     projective ones such as the IPA's folded G'; skewed inputs (few
-     distinct digits) take a log-depth segmented scan (B3) instead;
+  3. bucket accumulation over [48, G*BL] lanes, one per (row, bucket):
+     for affine bases such as the SRS, one launch of the bucket-run
+     kernel, each lane summing its whole run with the mixed add (B2's
+     formulas) and reading its own bases, signs and run bounds; for
+     projective ones such as the IPA's folded G', round r adds the r-th
+     member of every run at once with the complete add (B3, which gathers
+     and negates its own operand); skewed inputs (few distinct digits)
+     take a log-depth segmented scan (B3) instead;
   4. summation by parts: suffix sums over the bucket axis and a halving
      tree sum (B3, reading its operand at a lane offset within each
      window's row), one point per window;
@@ -24,13 +26,15 @@ the reference; only projective representatives differ along the way.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .field_kernels import NLIMBS
-from .point_kernels import (padd_flat, padd_masked_flat, pdouble_flat,
-                            pmixed_masked_flat, ident_col, points_from_proj)
+from .point_kernels import (bucket_members, ident_col, pack_affine,
+                            padd_flat, padd_masked_flat, pdouble_flat,
+                            pmixed_bucket_runs, points_from_proj)
 
 # Window-size model: a round of the bucket loop costs its lane count plus
 # a fixed launch-and-gather overhead, counted in lanes. The TPU value
@@ -111,27 +115,35 @@ def window_digits_signed(digits16: torch.Tensor, c: int):
     return torch.stack(absd, dim=0), torch.stack(signs, dim=0)
 
 
-def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
-                         pts: torch.Tensor, c: int | None = None,
-                         signed: bool = True, affine: bool = True):
-    """m MSMs over shared bases: returns ([m, 48, W] window sums, c).
+class BucketRuns(NamedTuple):
+    """The bucket runs of m MSMs' G = m W window rows over n bases: the
+    sorted digits `ds` [G, n] and their base indices `order`, the signs
+    `sg` [G, n] by base index (None for unsigned digits), each bucket's
+    run end `ends` and length `eff_counts` [G, BL], and each lane's run
+    slice after the top-window slotting, `starts_e` and `counts_e`
+    [G, BL] (S slices a top-row bucket, over L_pow live buckets; `is_top`
+    marks the top rows)."""
+    ds: torch.Tensor
+    order: torch.Tensor
+    sg: torch.Tensor | None
+    ends: torch.Tensor
+    eff_counts: torch.Tensor
+    starts_e: torch.Tensor
+    counts_e: torch.Tensor
+    BL: int
+    S: int
+    L_pow: int
+    is_top: np.ndarray
 
-    digits16: [m, n, 16] canonical scalars; pts: [48, n] projective bases.
-    affine: the bases are affine in projective coding (Z in {0, mont 1},
-    as the SRS bases are), so pts[:32] is the affine batch with identity
-    coded (0, mont 1) that the bucket loop's mixed adds (B2) read; with
-    affine=False (any Z, the reference's aff=None) the loop adds whole
-    [48] bases with B3, which reads each lane's base by index and negates
-    it by the lane's sign. signed: signed window digits
-    (half the buckets) or unsigned ones.
-    (Port of msm_pallas_window_sums_many, msm_pallas.py:196-543.)"""
-    dev = pts.device
+
+def bucket_runs(cv_spec, digits16: torch.Tensor, c: int,
+                signed: bool = True) -> BucketRuns:
+    """Window digits, a sort per row and the run bounds of every bucket
+    lane (msm_pallas.py:196-318), for [m, n, 16] canonical scalars."""
+    dev = digits16.device
     m, n = digits16.shape[0], digits16.shape[1]
-    if c is None:
-        c = pick_c(n, signed)
     W = -(-256 // c)
     G = m * W
-    aff = pts[:2 * NLIMBS]
     if signed:
         parts = [window_digits_signed(digits16[j], c) for j in range(m)]
         d = torch.cat([p[0] for p in parts], dim=0)          # [G, n]
@@ -175,6 +187,34 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
                                             min=0), Ls), eff_counts)
     else:
         starts_e, counts_e = starts, eff_counts
+    return BucketRuns(ds, order, sg, ends, eff_counts, starts_e, counts_e,
+                      BL, S, L_pow, is_top)
+
+
+def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
+                         pts: torch.Tensor, c: int | None = None,
+                         signed: bool = True, affine: bool = True,
+                         packed=None):
+    """m MSMs over shared bases: returns ([m, 48, W] window sums, c).
+
+    digits16: [m, n, 16] canonical scalars; pts: [48, n] projective bases.
+    affine: the bases are affine in projective coding (Z in {0, mont 1},
+    as the SRS bases are), so pts[:32] is the affine batch with identity
+    coded (0, mont 1) whose mixed adds the bucket-run kernel runs, from
+    `packed` (pack_affine(pts[:32]), made here if None); with
+    affine=False (any Z, the reference's aff=None) the loop adds whole
+    [48] bases with B3, which reads each lane's base by index and negates
+    it by the lane's sign. signed: signed window digits
+    (half the buckets) or unsigned ones.
+    (Port of msm_pallas_window_sums_many, msm_pallas.py:196-543.)"""
+    dev = pts.device
+    m, n = digits16.shape[0], digits16.shape[1]
+    if c is None:
+        c = pick_c(n, signed)
+    W = -(-256 // c)
+    G = m * W
+    (ds, order, sg, ends, eff_counts, starts_e, counts_e, BL, S, L_pow,
+     is_top) = bucket_runs(cv_spec, digits16, c, signed)
     maxc = int(counts_e.max())
     maxc_full = int(eff_counts.max())
     ident = ident_col(df, dev)
@@ -187,33 +227,15 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
         acc = _segmented_scan(df, pts, ds, order, sg, ends, eff_counts,
                               maxc_full, G, n, BL, ident)
     else:
-        acc = ident[:, None].expand(3 * NLIMBS, lanes).contiguous()
-        src = None if affine else pts.contiguous()
-        g_off = (torch.arange(G, device=dev) * n)[:, None]
-        order_flat = order.reshape(-1)
-        sg_flat = sg.reshape(-1) if signed else None
-        # gather indices, valid bits and signs for a block of rounds at
-        # once (a few large gathers instead of several small ones per round)
-        block = max(1, (1 << 24) // max(1, lanes))
-        for r0 in range(0, maxc, block):
-            rr = torch.arange(r0, min(maxc, r0 + block), device=dev)
-            idx = torch.clamp(starts_e[None] + rr[:, None, None], max=n - 1)
-            gidx = order_flat[(idx + g_off[None]).reshape(-1)].view(-1, lanes)
-            gidx_k = None if affine else gidx.to(torch.int32)
-            valid = (rr[:, None, None] < counts_e[None]).reshape(
-                -1, lanes).to(torch.int32)
-            sig = (sg_flat[(gidx.view(-1, G, BL) + g_off[None]).reshape(-1)]
-                   .view(-1, lanes).to(torch.int32) if signed else None)
-            for j in range(rr.shape[0]):
-                sig_j = sig[j] if signed else None
-                if affine:
-                    acc = pmixed_masked_flat(df, acc, aff[:, gidx[j]],
-                                             valid[j], signs=sig_j)
-                else:
-                    # msm_pallas.py:335-347: each lane's sign applies to
-                    # its own gathered copy; B3 gathers and negates it
-                    acc = padd_masked_flat(df, acc, src, valid[j],
-                                           idx=gidx_k[j], sign=sig_j)
+        if affine:
+            if packed is None:
+                packed = pack_affine(pts[:2 * NLIMBS])
+            acc = pmixed_bucket_runs(df, packed, bucket_members(order, sg),
+                                     starts_e.reshape(-1),
+                                     counts_e.reshape(-1), BL)
+        else:
+            acc = _projective_rounds(df, pts, order, sg, starts_e, counts_e,
+                                     maxc, ident)
         if S > 1:
             acc = _unslot(df, acc, is_top, G, BL, S, L_pow, ident)
 
@@ -235,6 +257,39 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
         acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-half)
     wsums = acc.view(3 * NLIMBS, G, BL)[:, :, 0]                 # [48, G]
     return wsums.reshape(3 * NLIMBS, m, W).permute(1, 0, 2), c
+
+
+def _projective_rounds(df, pts, order, sg, starts_e, counts_e, maxc,
+                       ident):
+    """The bucket loop over projective bases: round r adds the r-th member
+    of every lane's run with B3, which gathers each lane's base by index
+    and negates it by its sign (msm_pallas.py:335-347)."""
+    dev = pts.device
+    G, n = order.shape
+    lanes = starts_e.numel()
+    BL = lanes // G
+    acc = ident[:, None].expand(3 * NLIMBS, lanes).contiguous()
+    src = pts.contiguous()
+    g_off = (torch.arange(G, device=dev) * n)[:, None]
+    order_flat = order.reshape(-1)
+    sg_flat = sg.reshape(-1) if sg is not None else None
+    # gather indices, valid bits and signs for a block of rounds at once
+    # (a few large gathers instead of several small ones per round)
+    block = max(1, (1 << 24) // max(1, lanes))
+    for r0 in range(0, maxc, block):
+        rr = torch.arange(r0, min(maxc, r0 + block), device=dev)
+        idx = torch.clamp(starts_e[None] + rr[:, None, None], max=n - 1)
+        gidx = order_flat[(idx + g_off[None]).reshape(-1)].view(-1, lanes)
+        valid = (rr[:, None, None] < counts_e[None]).reshape(
+            -1, lanes).to(torch.int32)
+        sig = (sg_flat[(gidx.view(-1, G, BL) + g_off[None]).reshape(-1)]
+               .view(-1, lanes).to(torch.int32)
+               if sg_flat is not None else None)
+        gidx = gidx.to(torch.int32)
+        for j in range(rr.shape[0]):
+            acc = padd_masked_flat(df, acc, src, valid[j], idx=gidx[j],
+                                   sign=sig[j] if sig is not None else None)
+    return acc
 
 
 def _negate_y(df, P: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
@@ -366,11 +421,11 @@ def device_horner_combine(df, wsums: torch.Tensor, c: int) -> torch.Tensor:
 
 def msm_many(cv_spec, df, digits16: torch.Tensor, pts: torch.Tensor,
              c: int | None = None, signed: bool = True,
-             affine: bool = True) -> list:
+             affine: bool = True, packed=None) -> list:
     """m MSMs -> m affine host points (device window sums + host
     combine); arguments as msm_window_sums_many."""
     wsums, c = msm_window_sums_many(cv_spec, df, digits16, pts, c, signed,
-                                    affine)
+                                    affine, packed)
     wnp = wsums.cpu().numpy()
     return [host_horner_combine(cv_spec, points_from_proj(df, wnp[j]), c)
             for j in range(wnp.shape[0])]

@@ -2,11 +2,12 @@
 
 Port of halo2_tpu/ops/ntt.py (`make_plan`, `ntt`, `ntt_many`, `intt`) and
 of the TPU routine halo2_tpu/ops/pallas_field.py::ntt_pallas. On CUDA
-`ntt_many` launches kernel B7 (csrc/ntt_kernels.cu): the bit-reversal
-gather and the first min(log n, TILE_LOG) stages in one launch, then one
-launch per later stage. On the CPU it runs `ntt_many_plain`, log2(n)
-vectorized butterfly stages after one gather, with the plain field ops.
-`LAUNCHES` counts B7's kernel launches, nowhere else. The reference's
+`ntt_many` launches kernel B7 (csrc/ntt_kernels.cu) once per pass of
+`ntt_passes`: two launches for 2^10 < n <= 2^20 (one up to 2^10), the
+first with the bit-reversal gather fused into its load, each running up
+to PASS_LOG stages in shared memory. On the CPU it runs `ntt_many_plain`,
+log2(n) vectorized butterfly stages after one gather, with the plain field
+ops. `LAUNCHES` counts B7's kernel launches, nowhere else. The reference's
 group NTT serves SRS setup, which the port leaves to the native host
 library.
 """
@@ -22,9 +23,29 @@ from .field_kernels import (fmul, fmul_plain, fadd_plain, fsub_plain,
                             _dispatch)
 
 LAUNCHES = {"ntt": 0}
-# stages per block in shared memory: a 2^10-element tile of 8 x 32-bit
-# limbs is 32 KB, under the 48 KB a block gets without opting in
-TILE_LOG = 10
+# stages a pass runs in shared memory at most: a 2^10-element tile of 8 x
+# 32-bit limbs is 33 KB with its padding, so several blocks share an SM
+PASS_LOG = 10
+# a later pass takes enough residues that its tile holds 2^8 elements
+MIN_TILE_LOG = 8
+
+
+def ntt_passes(log_n: int) -> tuple:
+    """The launch plan of a 2^log_n transform: (a, cnt, r_log) per pass,
+    running stages a+1 .. a+cnt on tiles of 2^r_log consecutive residues
+    mod 2^a times 2^cnt elements. ceil(log_n / PASS_LOG) passes of near
+    equal stage counts (8 + 8 at 2^16, so each pass has 2^8 tiles a
+    column); the first pass (a = 0) gathers through the bit reversal."""
+    if log_n <= 0:
+        return ()
+    npass = -(-log_n // PASS_LOG)
+    size, extra = divmod(log_n, npass)
+    passes, a = [], 0
+    for p in range(npass):
+        cnt = size + (p < extra)
+        passes.append((a, cnt, min(a, max(0, MIN_TILE_LOG - cnt))))
+        a += cnt
+    return tuple(passes)
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -51,18 +72,23 @@ class NttPlan:
     _dev: dict = field(default_factory=dict, repr=False)
 
     def on(self, device) -> tuple:
-        """(perm, the concatenated twiddle table, the per-stage views) on
-        `device`."""
+        """(perm, the concatenated twiddle table, the per-stage views, the
+        table as packed 32-bit limbs [n - 1, 8]) on `device`."""
         device = torch.device(device)
         ent = self._dev.get(device)
         if ent is None:
-            table = torch.from_numpy(np.concatenate(
+            digits = np.concatenate(
                 self.twiddles or (np.zeros((0, NLIMBS), np.int32),))
-            ).to(device)
+            table = torch.from_numpy(digits).to(device)
             stages = tuple(table[(1 << s) - 1:(1 << (s + 1)) - 1]
                            for s in range(len(self.twiddles)))
+            words = (digits[:, 0::2].astype(np.uint32)
+                     | (digits[:, 1::2].astype(np.uint32) << 16))
+            packed = torch.from_numpy(np.ascontiguousarray(
+                words.view(np.int32))).to(device)
             ent = self._dev[device] = (
-                torch.as_tensor(self.perm, device=device), table, stages)
+                torch.as_tensor(self.perm, device=device), table, stages,
+                packed)
         return ent
 
 
@@ -91,7 +117,7 @@ def ntt_many_plain(df: DeviceField, x: torch.Tensor, plan: NttPlan
     butterfly sums over all m columns (the twiddle row broadcasts over
     the butterfly groups)."""
     m, n = x.shape[0], x.shape[1]
-    perm, _, tws = plan.on(x.device)
+    perm, _, tws, _ = plan.on(x.device)
     x = x.index_select(1, perm)
     for s, tw in enumerate(tws, start=1):
         mm = 1 << s
@@ -107,8 +133,8 @@ def ntt_many_plain(df: DeviceField, x: torch.Tensor, plan: NttPlan
 def ntt_many(df: DeviceField, x: torch.Tensor, plan: NttPlan
              ) -> torch.Tensor:
     """Forward NTT of [m, n, 16] int32 Montgomery digits along axis 1 (m
-    independent transforms share every launch): kernel B7 on CUDA, the
-    plain version on the CPU."""
+    independent transforms share every launch): kernel B7 on CUDA, one
+    launch per pass of ntt_passes, the plain version on the CPU."""
     if x.dtype != torch.int32 or x.dim() != 3 or x.shape[2] != NLIMBS:
         raise TypeError(f"ntt_many takes int32 [m, n, 16], got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -124,16 +150,19 @@ def ntt_many(df: DeviceField, x: torch.Tensor, plan: NttPlan
                          f"elements")
     from . import cuda_build
     x = x.contiguous()
-    perm, table, _ = plan.on(x.device)
+    packed = plan.on(x.device)[3]
     out = torch.empty_like(x)
     log_n = n.bit_length() - 1
-    log_tile = min(log_n, TILE_LOG)
-    rc = cuda_build.library("ntt_kernels").h2t_ntt(
-        df.field_id, out.data_ptr(), x.data_ptr(), perm.data_ptr(),
-        table.data_ptr(), m, log_n, log_tile,
-        cuda_build.stream_ptr(x.device))
-    cuda_build.check(rc, "h2t_ntt")
-    LAUNCHES["ntt"] += 1 + log_n - log_tile
+    lib = cuda_build.library("ntt_kernels")
+    stream = cuda_build.stream_ptr(x.device)
+    src = x
+    for a, cnt, r_log in ntt_passes(log_n):
+        rc = lib.h2t_ntt_pass(df.field_id, out.data_ptr(), src.data_ptr(),
+                              packed.data_ptr(), m, log_n, a, cnt, r_log,
+                              int(a == 0), stream)
+        cuda_build.check(rc, "h2t_ntt_pass")
+        LAUNCHES["ntt"] += 1
+        src = out
     return out
 
 

@@ -1,7 +1,8 @@
 """Kernels B2-B6 on Pasta point batches -- the masked mixed add (B2), the
 masked and unmasked complete adds (B3, B4), the doubling and the masked
-doubling (B5, B6) -- and the GLV ladder of the IPA fold (B5 and B3 fused
-over 130 steps), with their plain PyTorch versions.
+doubling (B5, B6) -- the bucket-run kernel that runs B2's whole round loop
+of an affine-base commit in one launch, and the GLV ladder of the IPA fold
+(B5 and B3 fused over 130 steps), with their plain PyTorch versions.
 
 Replaces halo2_tpu/ops/pallas_point.py and the ladder's fori_loop in
 halo2_tpu/ops/ipa_device.py. A point batch is one int32
@@ -26,8 +27,8 @@ import torch
 from .field_kernels import (NLIMBS, fmul_plain, fadd_plain, fsub_plain,
                             _dispatch)
 
-LAUNCHES = {"padd_masked": 0, "pmixed_masked": 0, "padd": 0, "pdouble": 0,
-            "pdouble_masked": 0, "glv_ladder": 0}
+LAUNCHES = {"padd_masked": 0, "pmixed_masked": 0, "pmixed_bucket_runs": 0,
+            "padd": 0, "pdouble": 0, "pdouble_masked": 0, "glv_ladder": 0}
 
 # where B3 reads its second operand (SrcMode in csrc/point_kernels.cu)
 _SRC_LANE, _SRC_ROLL, _SRC_INDEX = 0, 1, 2
@@ -172,6 +173,56 @@ def pmixed_masked_plain(df, a, b_aff, mask, signs):
     return torch.where(m[None, :], added, a)
 
 
+def pack_affine(aff: torch.Tensor) -> torch.Tensor:
+    """[32, n] affine batch (16-bit digit rows, lanes last) -> [n, 16]
+    point-major words: x's 32-bit limbs 0-7, then y's, as int32 bits (64 B
+    a point, what the bucket-run kernel reads)."""
+    d = aff.reshape(2, NLIMBS // 2, 2, -1).to(torch.int64)
+    w = d[:, :, 0] | (d[:, :, 1] << 16)
+    w = torch.where(w >= 1 << 31, w - (1 << 32), w)
+    return w.reshape(NLIMBS, -1).T.to(torch.int32).contiguous()
+
+
+def unpack_affine(packed: torch.Tensor) -> torch.Tensor:
+    """pack_affine's inverse: [n, 16] words -> [32, n] digit rows."""
+    w = packed.T.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(
+        2 * NLIMBS, -1).to(torch.int32)
+
+
+def bucket_members(order: torch.Tensor, signs=None) -> torch.Tensor:
+    """[G, n] sorted base indices -> int32 [G, n] members of the bucket
+    runs: the index, with bit 31 set where the base is negated (`signs`
+    [G, n] per base index, 0/1)."""
+    mem = order.to(torch.int32)
+    if signs is None:
+        return mem.contiguous()
+    neg = torch.gather(signs, 1, order).bool()
+    return torch.where(neg, mem | -(1 << 31), mem).contiguous()
+
+
+def pmixed_bucket_runs_plain(df, bases, members, starts, counts, BL):
+    """The bucket runs as the B2 round loop: round r adds the r-th member
+    of every lane's run with pmixed_masked_plain, lanes past their run
+    masked off."""
+    aff = unpack_affine(bases)
+    n = members.shape[1]
+    L = starts.shape[0]
+    acc = ident_col(df, bases.device)[:, None].expand(3 * NLIMBS, L).clone()
+    if L == 0:
+        return acc
+    row_off = torch.arange(L, device=bases.device) // BL * n
+    flat = members.reshape(-1).to(torch.int64)
+    starts, counts = starts.to(torch.int64), counts.to(torch.int64)
+    for r in range(int(counts.max())):
+        valid = r < counts
+        m = flat[row_off + torch.where(valid, starts + r, 0)]
+        acc = pmixed_masked_plain(df, acc, aff[:, m & 0x7FFFFFFF],
+                                  valid.to(torch.int32),
+                                  (m < 0).to(torch.int32))
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -289,6 +340,44 @@ def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,
         return pmixed_masked_plain(df, a, b_aff, mask, signs)
     return _launch("pmixed_masked", df, a.contiguous(), b_aff.contiguous(),
                    _flags(mask, L, "mask"), _flags(signs, L, "signs"))
+
+
+def pmixed_bucket_runs(df, bases: torch.Tensor, members: torch.Tensor,
+                       starts: torch.Tensor, counts: torch.Tensor, BL: int
+                       ) -> torch.Tensor:
+    """[48, L] bucket sums of an affine-base commit (one launch of the
+    bucket-run kernel on CUDA): lane l, bucket l % BL of window row
+    l // BL, adds +/- bases[m & 0x7fffffff] for the members m of its run
+    members[l // BL, starts[l]:starts[l] + counts[l]], negated where bit
+    31 of m is set, from the identity and in order, with RCB Alg 8;
+    identity-coded bases are skipped. bases: [n, 16] from pack_affine;
+    members: int32 [G, n] from bucket_members; starts, counts: [G * BL]."""
+    n = bases.shape[0]
+    L = starts.shape[0]
+    _check_batch(bases, n, NLIMBS, "bases")
+    if members.dtype != torch.int32 or members.dim() != 2 or \
+            members.shape[1] != n or members.shape[0] * BL != L:
+        raise TypeError(f"members: expected int32 [{L // max(BL, 1)}, {n}],"
+                        f" got {members.dtype} {tuple(members.shape)}")
+    if not _dispatch(bases):
+        return pmixed_bucket_runs_plain(df, bases, members, starts, counts,
+                                        BL)
+    from . import cuda_build
+    out = torch.empty((3 * NLIMBS, L), dtype=torch.int32,
+                      device=bases.device)
+    if L == 0:
+        return out
+    # every operand held in a name until the launch: a temporary freed
+    # earlier could hand its memory to the next conversion
+    bases, members = bases.contiguous(), members.contiguous()
+    starts, counts = _flags(starts, L, "starts"), _flags(counts, L, "counts")
+    rc = cuda_build.library("point_kernels").h2t_pmixed_bucket_runs(
+        df.field_id, out.data_ptr(), bases.data_ptr(), members.data_ptr(),
+        starts.data_ptr(), counts.data_ptr(), BL, n, L,
+        cuda_build.stream_ptr(bases.device))
+    cuda_build.check(rc, "pmixed_bucket_runs")
+    LAUNCHES["pmixed_bucket_runs"] += 1
+    return out
 
 
 def padd_flat(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,13 @@ opens are all native; 0 runs every round on the device.
 
 Setup (SRS generation, the g_lagrange group iNTT, decompression) and the
 verifier's final MSM run in the native library, as in the reference at
-these sizes.
+these sizes; `Params.new` falls back to Python for the SRS where the
+library is absent, and shares the reference's `.srs_cache`.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,7 +36,7 @@ from ..curves.sswu import hash_to_curve
 from ..curves import native
 from ..curves.device import normalize
 from ..ops.field_kernels import fmul, fadd, fsub
-from ..ops.point_kernels import points_to_proj
+from ..ops.point_kernels import pack_affine, points_to_proj
 from ..ops import msm_pippenger as mp
 from ..ops.ipa_device import ipa_device_lr, ipa_device_fold_lr
 from .utils import eval_poly, powers
@@ -47,6 +50,35 @@ COMMIT_GN_BUDGET = 1 << 26
 # IPA rounds with half > this run on the device, the rest in the native
 # host library (halo2_tpu/poly/commitment.py:654-656, accelerator default)
 NATIVE_IPA_THRESHOLD = 8192
+
+# the reference's SRS cache, shared with it (same file format)
+_SRS_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "..", ".srs_cache")
+
+
+def _host_group_intt(curve: CurveSpec, g: list, omega_inv: int,
+                     minv: int) -> list:
+    """g_lagrange without the native library: an iterative radix-2 group
+    iNTT on host points, scaled by 1/n (the reference's
+    Params._host_group_intt)."""
+    from ..ops.ntt import bit_reverse_perm
+    q = curve.scalar.modulus
+    n = len(g)
+    x = [g[int(i)] for i in bit_reverse_perm(n)]
+    m = 2
+    while m <= n:
+        w_m = pow(omega_inv, n // m, q)
+        half = m // 2
+        for start in range(0, n, m):
+            w = 1
+            for j in range(half):
+                lo = x[start + j]
+                hi = curve.mul(x[start + j + half], w)
+                x[start + j] = curve.add(lo, hi)
+                x[start + j + half] = curve.add(lo, curve.neg(hi))
+                w = w * w_m % q
+        m *= 2
+    return [curve.mul(pt, minv) for pt in x]
 
 
 class Params:
@@ -68,19 +100,33 @@ class Params:
         self.g_dev = points_to_proj(self.base_df, g, self.device)
         self.g_lagrange_dev = points_to_proj(self.base_df, g_lagrange,
                                              self.device)
+        self._packed = {}
 
     # ----------------- construction -----------------
     @classmethod
-    def new(cls, curve: CurveSpec, k: int, device=None) -> "Params":
+    def new(cls, curve: CurveSpec, k: int, device=None,
+            use_cache: bool = True) -> "Params":
         """SRS via hash_to_curve("Halo2-Parameters") with messages
-        [0, i_le4] / [1] / [2] (commitment.rs:38-114), in the native
-        library."""
+        [0, i_le4] / [1] / [2] (commitment.rs:38-114): g and g_lagrange in
+        the native library, in Python (curves/sswu.py, a host group iNTT)
+        where it is absent. With use_cache, read from and written to
+        .srs_cache/{curve}_{k}.params at the repository root, the
+        reference's cache (halo2_tpu/poly/commitment.py:62-88)."""
         device = resolve_device(device)
+        cache = os.path.join(_SRS_CACHE, f"{curve.name}_{k}.params")
+        if use_cache and os.path.exists(cache):
+            with open(cache, "rb") as fh:
+                data = fh.read()
+            try:
+                return cls.read(curve, data, device)
+            except ValueError:
+                pass    # a file another process is still writing: rebuild
         n = 1 << k
         g = native.native_srs_g(curve, "Halo2-Parameters", n)
         if g is False:
-            raise RuntimeError("the native pasta library (g++) is required "
-                               "for SRS generation")
+            g = [hash_to_curve(curve, "Halo2-Parameters",
+                               b"\x00" + i.to_bytes(4, "little"))
+                 for i in range(n)]
         w = hash_to_curve(curve, "Halo2-Parameters", b"\x01")
         u = hash_to_curve(curve, "Halo2-Parameters", b"\x02")
         fs = curve.scalar
@@ -88,7 +134,24 @@ class Params:
         omega_inv = pow(omega, fs.modulus - 2, fs.modulus)
         minv = pow(n, fs.modulus - 2, fs.modulus)
         g_lagrange = native.native_group_ntt(curve, g, omega_inv, minv)
-        return cls(curve, k, g, g_lagrange, w, u, device)
+        if g_lagrange is False:
+            g_lagrange = _host_group_intt(curve, g, omega_inv, minv)
+        params = cls(curve, k, g, g_lagrange, w, u, device)
+        if use_cache:
+            # a file of its own renamed into place: a reader in another
+            # process or thread never sees half a file
+            os.makedirs(_SRS_CACHE, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=_SRS_CACHE,
+                                       prefix=os.path.basename(cache) + ".",
+                                       suffix=".tmp")
+            try:
+                with os.fdopen(fd, "wb") as fh:
+                    fh.write(params.write())
+                os.replace(tmp, cache)
+            except BaseException:
+                os.unlink(tmp)
+                raise
+        return params
 
     # ----------------- serialization (commitment.rs:169-205) ------------
     def write(self) -> bytes:
@@ -110,14 +173,27 @@ class Params:
         n = 1 << k
         if len(data) < 4 + 32 * (2 * n + 2):
             raise ValueError(f"truncated SRS buffer for k={k}")
-        pts = native.native_decompress_many(
-            curve, data[4:4 + 32 * (2 * n + 2)])
+        body = data[4:4 + 32 * (2 * n + 2)]
+        pts = native.native_decompress_many(curve, body)
         if pts is False:
-            raise RuntimeError("the native pasta library (g++) is required")
+            # no native library: decompress in Python, as the reference
+            pts = [curve.from_bytes(body[i:i + 32])
+                   for i in range(0, len(body), 32)]
+            if any(pt is False for pt in pts):
+                raise ValueError("SRS buffer holds an invalid point")
         return cls(curve, k, pts[:n], pts[n:2 * n], pts[2 * n],
                    pts[2 * n + 1], device)
 
     # ----------------- commitments -----------------
+    def packed_bases(self, lagrange: bool) -> torch.Tensor:
+        """g_lagrange_dev or g_dev as the bucket-run kernel reads them
+        (pack_affine: [n, 16] words, 64 B a point), made once."""
+        ent = self._packed.get(lagrange)
+        if ent is None:
+            bases = self.g_lagrange_dev if lagrange else self.g_dev
+            ent = self._packed[lagrange] = pack_affine(bases[:2 * NLIMBS])
+        return ent
+
     def commit(self, coeffs_mont: torch.Tensor, blind: int) -> Point:
         assert coeffs_mont.shape[0] == self.n
         return self.commit_many([coeffs_mont], [blind], lagrange=False)[0]
@@ -143,7 +219,8 @@ class Params:
         for i in range(0, m, m_chunk):
             vals = torch.stack(polys_mont[i:i + m_chunk], dim=0)
             digits = from_mont(self.scalar_df, vals)
-            pts = mp.msm_many(self.curve, self.base_df, digits, bases, c=c)
+            pts = mp.msm_many(self.curve, self.base_df, digits, bases, c=c,
+                              packed=self.packed_bases(lagrange))
             for pt, b in zip(pts, blinds[i:i + m_chunk]):
                 b %= fs.modulus
                 if b:

@@ -13,7 +13,8 @@ every IPA round on the card; the default schedule when it is left out).
 Prints one JSON line: the label, the threshold, the wall time of each
 warm prove (the first prove is cold and not counted), their median, the
 medians of the phases that hold the domain transforms and of the IPA
-open (`multiopen+ipa`), and the last prove's phases.
+open (`multiopen+ipa`), the median of every phase, and the last prove's
+phases.
 """
 import json
 import os
@@ -51,7 +52,7 @@ def main() -> None:
     params = Params.new(PALLAS, K)
     vk = keygen_vk(params, circuit)
     pk = keygen_pk(params, vk, circuit)
-    times, ntt_s, ipa_s = [], [], []
+    times, ntt_s, ipa_s, per_phase = [], [], [], {}
     for i in range(PROVES):
         tw = TranscriptWrite(PALLAS)
         torch.cuda.synchronize()
@@ -64,11 +65,15 @@ def main() -> None:
             phases = dict(pv.LAST_PHASES)
             ntt_s.append(sum(phases.get(n, 0) for n in TRANSFORM_PHASES))
             ipa_s.append(phases[IPA_PHASE])
+            for name, sec in phases.items():
+                per_phase.setdefault(name, []).append(sec)
     print(json.dumps({
         "label": label, "native_ipa_threshold": threshold, "times": times,
         "median": statistics.median(times),
         "ntt_phases_median": statistics.median(ntt_s),
         "ipa_phase_median": statistics.median(ipa_s),
+        "phase_medians": {n: round(statistics.median(v), 4)
+                          for n, v in per_phase.items()},
         "phases": {n: round(s, 4) for n, s in pv.LAST_PHASES}}), flush=True)
 
 

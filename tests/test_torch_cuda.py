@@ -66,20 +66,21 @@ def test_field_kernels_match_plain(cuda, df):
 
 
 @pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
-@pytest.mark.parametrize("log_n", [10, 14])
+@pytest.mark.parametrize("log_n", [10, 14, 17])
 def test_ntt_kernel_matches_plain(cuda, df, log_n):
-    """B7 on 3 columns, forward and inverse: the tile kernel alone at
-    2^10, the tile kernel and four stage launches at 2^14."""
+    """B7 on 3 columns, forward and inverse, in one launch per pass of
+    ntt_passes (one at 2^10; 7 + 7 stages at 2^14, 9 + 8 at 2^17)."""
     n = 1 << log_n
     spec = df.spec
     x = _field_operands(df, 3 * n, 6).view(3, n, 16)
     omega = pow(spec.root_of_unity, 1 << (spec.s - log_n), spec.modulus)
     for omega in (omega, pow(omega, spec.modulus - 2, spec.modulus)):
         plan = ntt_ops.make_plan(df, n, omega)
+        want = ntt_ops.ntt_many_plain(df, x, plan)
         before = ntt_ops.LAUNCHES["ntt"]
         got = ntt_ops.ntt_many(df, x.to(cuda), plan).cpu()
-        assert ntt_ops.LAUNCHES["ntt"] == before + 1 + max(0, log_n - 10)
-        assert torch.equal(got, ntt_ops.ntt_many_plain(df, x, plan))
+        assert ntt_ops.LAUNCHES["ntt"] == before + (1 if log_n <= 10 else 2)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
@@ -214,6 +215,51 @@ def test_padd_masked_operand_forms_match_plain(cuda):
         got = pk.padd_masked_flat(df, a, src, mask, idx=idx, sign=sign)
         want = pk.padd_masked_plain(df, a, src, mask, idx=idx, sign=sign)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_bucket_runs_kernel_matches_plain_and_b2_loop(cuda, curve):
+    """The bucket-run kernel at a k = 14 advice commit's 26,624 lanes (two
+    columns of 2^14 random scalars, c = 10, with identity bases): equal to
+    its plain version and to the
+    one-step B2 kernel run round by round, in one launch."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    n = 1 << 14
+    pts = native_srs_g(curve, "torch-cuda-test", n)
+    pts[7] = pts[1000] = None
+    aff = pk.points_to_proj(df, pts, cuda)[:32].contiguous()
+    packed = pk.pack_affine(aff)
+    rng = np.random.default_rng(13)
+    q = curve.scalar.modulus
+    cols = [[int.from_bytes(rng.bytes(32), "little") % q for _ in range(n)]
+            for _ in range(2)]
+    digits = torch.from_numpy(np.stack([ints_to_digits(c) for c in cols]))
+    runs = mp.bucket_runs(curve, digits.to(cuda), 10)
+    starts = runs.starts_e.reshape(-1).to(torch.int32)
+    counts = runs.counts_e.reshape(-1).to(torch.int32)
+    assert starts.shape[0] == 26624
+    members = pk.bucket_members(runs.order, runs.sg)
+    want = pk.pmixed_bucket_runs_plain(df, packed, members, starts, counts,
+                                       runs.BL)
+    # the one-step B2 kernel, round by round, on the gathered bases
+    flat = members.reshape(-1).long()
+    row_off = torch.arange(starts.shape[0], device=cuda) // runs.BL * n
+    loop = pk.ident_col(df, cuda)[:, None].expand(48, 26624).contiguous()
+    for r in range(int(counts.max())):
+        valid = r < counts
+        m = flat[row_off + torch.where(valid, starts.long() + r, 0)]
+        loop = pk.pmixed_masked_flat(df, loop, aff[:, m & 0x7FFFFFFF],
+                                     valid.to(torch.int32),
+                                     (m < 0).to(torch.int32))
+    assert torch.equal(loop, want)
+    # from int32 run bounds and from the int64 ones the MSM passes
+    # (converted in the wrapper)
+    for st, ct in ((starts, counts),
+                   (runs.starts_e.reshape(-1), runs.counts_e.reshape(-1))):
+        before = pk.LAUNCHES["pmixed_bucket_runs"]
+        got = pk.pmixed_bucket_runs(df, packed, members, st, ct, runs.BL)
+        assert pk.LAUNCHES["pmixed_bucket_runs"] == before + 1
+        assert torch.equal(got, want), st.dtype
 
 
 def test_msm_on_the_card_matches_host(cuda):

@@ -2,8 +2,9 @@
 window digits against the JAX reference's, and MSMs against the exact host
 MSM -- random, all-zero, q-1 and all-equal scalar columns, identity bases,
 affine and projective (Z != 1) bases, signed and unsigned digits, the
-serial and the segmented-scan branch, and Params' chunked commits -- and
-the device window combine against the host one. Inputs are numpy-seeded;
+serial and the segmented-scan branch, and Params' chunked commits -- the
+device window combine against the host one, and the bucket-run kernel's
+plain version against the B2 round loop it replaced. Inputs are numpy-seeded;
 points must be equal."""
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from halo2_tpu_torch.curves.host import PALLAS, VESTA
 from halo2_tpu_torch.curves.native import native_srs_g
 from halo2_tpu_torch.fields.device import DeviceField, ints_to_digits
 from halo2_tpu_torch.ops import msm_pippenger as mp
+from halo2_tpu_torch.ops import point_kernels as pk
 from halo2_tpu_torch.ops.point_kernels import (ident_col, padd_masked_plain,
                                                points_from_proj,
                                                points_to_proj)
@@ -205,3 +207,74 @@ def test_params_commit_many_chunks(monkeypatch):
         assert got == want
     assert params.commit(polys[2], 12345) == PALLAS.add(
         PALLAS.msm(cols[2], params.g), PALLAS.mul(params.w, 12345))
+
+
+def _b2_round_loop(df, aff, runs, n):
+    """The affine bucket loop before the bucket-run kernel: round r
+    gathers every lane's r-th member, aff[:, gidx], and adds it with B2's
+    plain version, lanes past their run masked off."""
+    G, BL = runs.starts_e.shape
+    g_off = (torch.arange(G) * n)[:, None]
+    acc = ident_col(df, "cpu")[:, None].expand(48, G * BL).clone()
+    for r in range(int(runs.counts_e.max())):
+        idx = torch.clamp(runs.starts_e + r, max=n - 1)
+        gidx = runs.order.reshape(-1)[(idx + g_off).reshape(-1)]
+        valid = (r < runs.counts_e).reshape(-1).to(torch.int32)
+        sig = (runs.sg.reshape(-1)[(gidx.view(G, BL) + g_off).reshape(-1)]
+               if runs.sg is not None else torch.zeros_like(gidx))
+        acc = pk.pmixed_masked_plain(df, acc, aff[:, gidx], valid,
+                                     sig.to(torch.int32))
+    return acc
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+@pytest.mark.parametrize("c,signed,slotted", [(4, True, False),
+                                              (5, False, True)])
+def test_bucket_runs_plain_equals_b2_round_loop(curve, c, signed, slotted):
+    """pmixed_bucket_runs over packed bases and packed members equals the
+    B2 round loop over the gathered operands, projective digits and all,
+    with the top-window slotting on (c = 5) and off (c = 4), for signed
+    and unsigned digits."""
+    n = 64
+    pts = native_srs_g(curve, "torch-msm-test", n)
+    pts[5] = pts[40] = None
+    df = DeviceField(curve.base)
+    aff = points_to_proj(df, pts, "cpu")[:32]
+    packed = pk.pack_affine(aff)
+    assert packed.shape == (n, 16)
+    assert torch.equal(pk.unpack_affine(packed), aff)
+    q = curve.scalar.modulus
+    rng = np.random.default_rng(c)
+    col = _rand_scalars(rng, n, q)
+    col[:3] = [0, 1, q - 1]
+    digits = torch.from_numpy(ints_to_digits(col))[None]
+    runs = mp.bucket_runs(curve, digits, c, signed)
+    assert (runs.S > 1) == slotted
+    members = pk.bucket_members(runs.order, runs.sg)
+    assert torch.equal(members.long() & 0x7FFFFFFF, runs.order)
+    if signed:
+        assert torch.equal((members < 0).long(),
+                           torch.gather(runs.sg, 1, runs.order))
+    got = pk.pmixed_bucket_runs(df, packed, members,
+                                runs.starts_e.reshape(-1),
+                                runs.counts_e.reshape(-1), runs.BL)
+    assert torch.equal(got, _b2_round_loop(df, aff, runs, n))
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_msm_through_bucket_runs_matches_host(curve):
+    """An MSM of 2^6 affine bases with an identity base, from a packed
+    copy given once for two columns, equals the host MSM."""
+    n = 64
+    pts = native_srs_g(curve, "torch-msm-test", n)
+    pts[9] = None
+    df = DeviceField(curve.base)
+    proj = points_to_proj(df, pts, "cpu")
+    q = curve.scalar.modulus
+    rng = np.random.default_rng(21)
+    cols = [_rand_scalars(rng, n, q), [0] * n]
+    cols[0][:3] = [0, 1, q - 1]
+    digits = torch.from_numpy(np.stack([ints_to_digits(v) for v in cols]))
+    got = mp.msm_many(curve, df, digits, proj, c=5,
+                      packed=pk.pack_affine(proj[:32]))
+    assert got == [curve.msm(v, pts) for v in cols]

@@ -175,3 +175,116 @@ def test_poly_utils_match_reference():
     _eq(putils.distribute_powers(pdf, [t[0], t[1], t[2]], x),
         rutils.distribute_powers(rdf, [jnp.asarray(a) for a in arr],
                                  rdf.scalar(x)))
+
+
+def _pass_map(log_n, a, cnt, r_log):
+    """[blocks, E] global element of each block's local element u, as
+    ntt_pass_kernel computes it (GIDX)."""
+    E = 1 << (r_log + cnt)
+    blocks = np.arange(1 << (log_n - r_log - cnt))
+    g = blocks % (1 << (a - r_log))
+    h = blocks >> (a - r_log)
+    u = np.arange(E)
+    base = (g << r_log) + (h << (a + cnt))
+    return base[:, None] + (u & ((1 << r_log) - 1))[None] + \
+        ((u >> r_log) << a)[None]
+
+
+def _brev(i, log_n):
+    """__brev(i) >> (32 - log_n) on uint32 values."""
+    out = np.zeros_like(i)
+    for b in range(32):
+        out |= ((i >> b) & 1) << (31 - b)
+    return out >> (32 - log_n)
+
+
+def _emulate_b7(x, log_n, tw, p):
+    """ntt_pass_kernel's schedule over host ints: for each pass of
+    ntt_passes, each block loads its tile (through the bit reversal in the
+    first pass), runs one radix-2 stage when its stage count is odd, then
+    radix-4 units of two stages, reading twiddle rows of the table `tw`
+    as the kernel does, and stores the tile back."""
+    x = list(x)
+    for a, cnt, r_log in pntt.ntt_passes(log_n):
+        gmap = _pass_map(log_n, a, cnt, r_log)
+        src = list(x)
+        for blk in gmap:
+            loc = [src[int(_brev(np.int64(i), log_n))] if a == 0 else src[i]
+                   for i in blk]
+
+            def bf(lo, hi, row):
+                t = loc[hi] * tw[row] % p
+                loc[lo], loc[hi] = (loc[lo] + t) % p, (loc[lo] - t) % p
+
+            E = len(blk)
+            sp = 1
+            if cnt & 1:
+                half, ls = 1 << a, 1 << r_log
+                for q in range(E // 2):
+                    u0 = (q & (ls - 1)) | ((q >> r_log) << (r_log + 1))
+                    bf(u0, u0 + ls, half - 1 + (int(blk[u0]) & (half - 1)))
+                sp = 2
+            while sp < cnt:
+                LS = r_log + sp - 1
+                ls, half = 1 << LS, 1 << (a + sp - 1)
+                for q in range(E // 4):
+                    u0 = (q & (ls - 1)) | ((q >> LS) << (LS + 2))
+                    jj = int(blk[u0]) & (half - 1)
+                    bf(u0, u0 + ls, half - 1 + jj)
+                    bf(u0 + 2 * ls, u0 + 3 * ls, half - 1 + jj)
+                    bf(u0, u0 + 2 * ls, 2 * half - 1 + jj)
+                    bf(u0 + ls, u0 + 3 * ls, 2 * half - 1 + jj + half)
+                sp += 2
+            for i, v in zip(blk, loc):
+                x[int(i)] = v
+    return x
+
+
+@pytest.mark.parametrize("log_n", [1, 4, 11, 12])
+def test_b7_pass_schedule_equals_plain(log_n):
+    """B7's two-pass schedule (the pass plan of ntt_passes and the
+    kernel's index arithmetic: tiles, residues, radix-4 units, twiddle
+    rows of make_plan's table, the bit reversal by __brev), emulated on
+    host ints, equals ntt_many_plain."""
+    rdf, pdf = FIELDS["fq"]
+    fs = rdf.spec
+    p = fs.modulus
+    n = 1 << log_n
+    omega = pow(fs.root_of_unity, 1 << (fs.s - log_n), p)
+    plan = pntt.make_plan(pdf, n, omega)
+    _, table, _, packed = plan.on("cpu")
+    rinv = pow(1 << 256, -1, p)
+    tw = [v * rinv % p for v in pfd.digits_to_ints(table.numpy())]
+    words = packed.numpy().view(np.uint32).astype(object)
+    assert [sum(int(w) << (32 * i) for i, w in enumerate(row)) * rinv % p
+            for row in words] == tw
+    arr, t = _mont(rdf, (1, n), 70 + log_n)
+    vals = [v * rinv % p for v in pfd.digits_to_ints(arr[0])]
+    want = pntt.ntt_many_plain(pdf, t, plan)[0]
+    assert _emulate_b7(vals, log_n, tw, p) == \
+        [v * rinv % p for v in pfd.digits_to_ints(want.numpy())]
+
+
+@pytest.mark.parametrize("log_n", [2, 10, 11, 14, 16, 17, 20, 21])
+def test_b7_pass_plan(log_n):
+    """ntt_passes covers stages 1..log n in order with at most 10 stages
+    a pass: two launches for 2^10 < n <= 2^20, one below; every pass's
+    tiles cover each element once; the first pass's __brev gather is
+    bit_reverse_perm; 2^16 splits 8 + 8 stages (2^8 tiles a pass)."""
+    passes = pntt.ntt_passes(log_n)
+    assert len(passes) == -(-log_n // pntt.PASS_LOG)
+    if log_n <= 20:
+        assert len(passes) == (1 if log_n <= 10 else 2)
+    a_next = 0
+    for a, cnt, r_log in passes:
+        assert a == a_next and 1 <= cnt <= pntt.PASS_LOG
+        assert r_log <= a and r_log + cnt <= pntt.PASS_LOG
+        a_next = a + cnt
+        gmap = _pass_map(log_n, a, cnt, r_log)
+        assert np.array_equal(np.sort(gmap.reshape(-1)),
+                              np.arange(1 << log_n))
+    assert a_next == log_n
+    if log_n == 16:
+        assert passes == ((0, 8, 0), (8, 8, 0))
+    i = np.arange(1 << log_n, dtype=np.int64)
+    assert np.array_equal(_brev(i, log_n), pntt.bit_reverse_perm(1 << log_n))

@@ -249,7 +249,7 @@ def test_wrong_instance_rejected(name):
         _verify_ref(b["rparams"], b["rvk"], b["proof"], b["out"] + 1)
 
 
-def test_lookups_not_ported():
+def test_circuit_with_lookup_proves_and_verifies():
     """Lookups were once refused by keygen; a circuit with one (an advice
     column looked up in an unassigned table) now keygens, proves and
     verifies."""
