@@ -17,7 +17,8 @@ Phases, in this order (any failure exits non-zero):
   5. [layout] kernel B8 (limbs-first [16, N] multiply) beside B1
      (element-major [N, 16]) at N = 2^12 .. 2^20, both against the plain
      version, device time against the same byte bound;
-  6. the main path at k=14: Params.new, keygen_vk, keygen_pk, create_proof
+  6. the main path at k=14: Params.new (g_lagrange by the device group
+     iNTT), keygen_vk, keygen_pk, create_proof
      twice (cold, warm), verify_proof, a wrong public input rejected, and
      the proof's sha256 against the JAX reference's recorded hash; the
      bucket-run kernel launched and no one-step B2; then [ntt-main], B7
@@ -36,6 +37,13 @@ Phases, in this order (any failure exits non-zero):
      lanes and against its plain version at 256 lanes, both fields;
      device time per round beside its bound and the loop's time (its
      wall time, and its device time replayed from a CUDA graph);
+  7c. [scalar-ladder] the per-lane scalar-multiplication ladder (one
+     launch per group-NTT stage, with the butterfly fused) against its
+     plain version at 256 lanes and against the B5/B4/torch.where loop at
+     2^13 and 2^17 lanes, both fields, edge scalars, identity lanes, one
+     scalar a lane and a table read by lane % T; device time from a CUDA
+     graph and by the profiler beside its bound, the loop's and the plain
+     version's;
   8. k=14 commits (random, all-zero, all-equal columns) against the native
      host MSM, exact affine equality;
   9. the device window combine (B5, B4) against the host one on the
@@ -46,6 +54,10 @@ Phases, in this order (any failure exits non-zero):
      the card (native_ipa_threshold=0), cold and warm, verified, its
      sha256 against the same JAX hash, its launches (one ladder per
      fold round, no B5), and the warm prove profiled;
+ 11b. [verify] AccumulatorStrategy (its G, a device MSM, against the
+     native MSM), BatchVerifier (a pair of k=14 proofs accepted, a
+     corrupted proof and a wrong instance rejected) and the device branch
+     of MSMAccumulator.eval against the host one;
  12. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
      reference was run at, at the default IPA schedule (four device
      rounds, then native; cold, then warm), with every round native and
@@ -63,8 +75,12 @@ Phases, in this order (any failure exits non-zero):
      proof's sha256 against the JAX reference's (the golden file for
      plonk_api; zcash/halo2's own plonk_api proof verifies), launches per
      kernel, and one profiled warm prove at each k;
+ 13b. [srs] Params.new(use_cache=False) at k=14 and k=REF_K on the card:
+     write() bytes equal to those with the native library's g_lagrange;
+     native g, native group iNTT and the device group iNTT timed apart;
+     one ladder launch a stage and one for the 1/n scale;
  14. a `kernels` JSON line: launches on the path that runs each kernel
-     (main or ipa), mismatches, each kernel's device time per launch
+     (main, ipa or srs), mismatches, each kernel's device time per launch
      (torch.profiler; from a CUDA graph for B7 and the bucket-run kernel,
      with the profiler's beside it) against its bound, the wrapper's time
      per call (CUDA events) and the plain version's;
@@ -237,6 +253,7 @@ def phase_build():
     # showed)
     for name, key in (("point_kernels", "pmixed_bucket_runs"),
                       ("point_kernels", "pmixed_masked_kernel"),
+                      ("point_kernels", "scalar_mul_ladder"),
                       ("ntt_kernels", "ntt_")):
         for fn, count in sass_counts(cuda_build._so_path(name)).items():
             if key in fn:
@@ -1373,6 +1390,351 @@ def phase_lookup(results, params_k, params_ref_k):
         "instance is rejected")
 
 
+def _ladder_inputs(df, pts, L, gen, edge=True):
+    """[48, L] projective points with Z != 1 (B4 sums of two random picks
+    from pts) with identity lanes, and [L, 16] random 256-bit scalars
+    whose first rows are 0, 1, q - 1 and 2^256 - 1 (q: the order of the
+    points' group)."""
+    import torch
+    from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = pts.device
+    pick = torch.randint(pts.shape[1], (2, L), generator=gen, device=dev)
+    g = pk.padd_flat(df, pts[:, pick[0]], pts[:, pick[1]])
+    g[:, 5:L:97] = pk.ident_col(df, dev)[:, None]
+    digits = torch.randint(0, 1 << 16, (L, 16), generator=gen, device=dev,
+                           dtype=torch.int32)
+    if edge:
+        q = (FQ_DEV if df is FP_DEV else FP_DEV).spec.modulus
+        digits[:4] = torch.from_numpy(ints_to_digits(
+            [0, 1, q - 1, (1 << 256) - 1])).to(dev)
+    return g, digits
+
+
+def ladder_work(digits, nbits, L, fused):
+    """(bytes, multiply-adds) the ladder needs on these inputs: each lane's
+    point read and result written (and lo read and a second result written
+    when fused), the scalar table read once; 8 products a doubling, 12 an
+    add for each set bit this data has, 24 for the fused butterfly."""
+    import torch
+    from halo2_tpu_torch.ops import point_kernels as pk
+    lanes = digits[torch.arange(L, device=digits.device) % digits.shape[0]]
+    adds = int(pk.scalar_bits(lanes, nbits).sum())
+    nbytes = L * (4 if fused else 2) * 192 + digits.shape[0] * 64
+    prods = L * 8 * nbits + 12 * adds + (24 * L if fused else 0)
+    return nbytes, prods * MONT_MULADDS
+
+
+def phase_scalar_ladder(results, params, lanes=(1 << 13, 1 << 17)):
+    """[scalar-ladder] The per-lane scalar-multiplication ladder, on both
+    fields: against its plain version at 256 lanes (256 bits, one scalar
+    a lane; 255 bits, a 16-row table read by lane % 16 with the fused
+    butterfly), and against the B5/B4/torch.where loop at 2^13 lanes (one
+    scalar a lane) and 2^17 lanes (a table of 2^16 rows with the fused
+    butterfly, whose loop ends with B4 on lo + t and lo - t), with edge
+    scalars and identity lanes. Then on the base field of the PALLAS
+    Params, at the shapes the srs path gives it: the group-NTT stages of
+    k=14 and k=18 (2^13 and 2^17 lanes, 255 bits, a table of half the
+    lanes, fused) against the plain version, with device time from a CUDA
+    graph and by the profiler beside the bound, the wrapper's time, the
+    loop's time and the plain version's; and the 1/n scale of k=14 (2^14
+    lanes, 255 bits, a table of one row) against the plain version and
+    the loop."""
+    import torch
+    from halo2_tpu_torch.curves.device import pneg
+    from halo2_tpu_torch.curves.host import VESTA
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FQ_DEV, ints_to_digits
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = params.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    vesta = pk.points_to_proj(FQ_DEV, native_srs_g(
+        VESTA, "chip-smoke-scalar-ladder", 1024), dev)
+    loop_ladder = pk.scalar_mul_ladder_loop
+    mism, err = 0, 0
+
+    def check(tag, got, want):
+        nonlocal mism, err
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        bad = sum(int((g != w).any(dim=0).sum()) for g, w in zip(got, want))
+        mism += bad
+        err = max([err] + [max_abs(g, w) for g, w in zip(got, want)])
+        log(f"[scalar-ladder] {tag}: {bad} mismatches")
+
+    def plain_timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pk.scalar_mul_ladder_plain(*args, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    for df, src in ((params.base_df, params.g_dev), (FQ_DEV, vesta)):
+        f = df.field_id
+        pts, digits = _ladder_inputs(df, src, 256, gen)
+        lo, _ = _ladder_inputs(df, src, 256, gen, edge=False)
+        check(f"field {f} L=256 256 bits, against the plain version",
+              pk.scalar_mul_ladder_flat(df, pts, digits, 256),
+              pk.scalar_mul_ladder_plain(df, pts, digits, 256))
+        check(f"field {f} L=256 255 bits, table of 16, fused, against the "
+              f"plain version",
+              pk.scalar_mul_ladder_flat(df, pts, digits[:16], 255, lo=lo),
+              pk.scalar_mul_ladder_plain(df, pts, digits[:16], 255, lo=lo))
+        L = lanes[0]
+        pts, digits = _ladder_inputs(df, src, L, gen)
+        check(f"field {f} L={L} 256 bits, against the B5/B4/where loop",
+              pk.scalar_mul_ladder_flat(df, pts, digits, 256),
+              loop_ladder(df, pts, digits, 256))
+        L = lanes[1]
+        pts, digits = _ladder_inputs(df, src, L, gen)
+        lo, _ = _ladder_inputs(df, src, L, gen, edge=False)
+        table = digits[:L // 2]
+        full = table[torch.arange(L, device=dev) % (L // 2)]
+        t = loop_ladder(df, pts, full, 255)
+        check(f"field {f} L={L} 255 bits, table of {L // 2}, fused, "
+              f"against the B5/B4/where loop and B4",
+              pk.scalar_mul_ladder_flat(df, pts, table, 255, lo=lo),
+              (pk.padd_flat(df, lo, t), pk.padd_flat(df, lo, pneg(df, t))))
+    torch.cuda.synchronize()
+    r = results["scalar_mul_ladder"]
+    df = params.base_df
+    for L in lanes:
+        pts, digits = _ladder_inputs(df, params.g_dev, L, gen, edge=False)
+        lo, _ = _ladder_inputs(df, params.g_dev, L, gen, edge=False)
+        table = digits[:L // 2]
+        full = table[torch.arange(L, device=dev) % (L // 2)]
+        ident = pk.ident_col(df, dev)[:, None].expand(48, L).contiguous()
+        fn = lambda: pk.scalar_mul_ladder_flat(df, pts, table, 255, lo=lo)
+        loop = lambda: (lambda t: (pk.padd_flat(df, lo, t), pk.padd_flat(
+            df, lo, pneg(df, t))))(loop_ladder(df, pts, full, 255, ident))
+        ms = device_ms(fn, 3, "scalar_mul_ladder_kernel")
+        g_ms = graph_ms(fn, 3)
+        call_ms = timed(fn, 3)
+        loop_ms = timed(loop, 1)
+        loop_dev = graph_ms(loop, 1)
+        plain, pms = plain_timed(df, pts, table, 255, lo=lo)
+        check(f"field {df.field_id} L={L} 255 bits, table of {L // 2}, "
+              f"fused (a group-NTT stage), against the plain version",
+              fn(), plain)
+        del plain
+        nbytes, muladds = ladder_work(table, 255, L, fused=True)
+        bd, by = bound_ms(nbytes, muladds)
+        log(f"[scalar-ladder] L={L} (a group-NTT stage, 255 bits, fused): "
+            f"{g_ms:.5f} ms from a CUDA graph, {ms:.5f} ms by the profiler,"
+            f" {call_ms:.4f} ms per wrapper call (bound {bd:.5f} ms by "
+            f"{by}); the B5/B4/where loop and two B4 {loop_dev:.5f} ms "
+            f"replayed from a CUDA graph, {loop_ms:.4f} ms per call with "
+            f"its {2 * 255 + 3} launches; plain {pms:.3f} ms")
+        r.update({f"ms_L{L}": g_ms, f"profiler_ms_L{L}": ms,
+                  f"bound_ms_L{L}": bd, f"call_ms_L{L}": call_ms,
+                  f"call_ms_loop_L{L}": loop_ms, f"ms_loop_L{L}": loop_dev,
+                  f"plain_ms_L{L}": pms})
+        if L == lanes[0]:
+            r.update(ms=g_ms, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
+                     bound_by=by, shape=[48, L])
+    # the 1/n scale of Params.new at k=14: every lane by one scalar
+    L, q = 1 << K, params.scalar_df.spec.modulus
+    pts, _ = _ladder_inputs(df, params.g_dev, L, gen, edge=False)
+    scale = torch.from_numpy(ints_to_digits([pow(L, q - 2, q)])).to(dev)
+    got = pk.scalar_mul_ladder_flat(df, pts, scale, 255)
+    plain, pms = plain_timed(df, pts, scale, 255)
+    tag = f"field {df.field_id} L={L} 255 bits, one scalar (the 1/n scale)"
+    check(f"{tag}, against the plain version ({pms:.3f} ms)", got, plain)
+    check(f"{tag}, against the B5/B4/where loop", got,
+          loop_ladder(df, pts, scale.expand(L, -1), 255))
+    r.update(mismatches=mism, max_abs_err=err)
+    log(f"[scalar-ladder] mismatches {mism}")
+    if mism:
+        raise AssertionError(f"scalar_mul_ladder mismatches: {mism}")
+
+
+def phase_srs(results, ks=(K, REF_K)):
+    """[srs] Params.new(PALLAS, k, use_cache=False) on the card at k=14 and
+    k=REF_K, counts set to 0 just before each and read just after: g from
+    the native library, g_lagrange by the device group iNTT (the scalar
+    ladder, one launch a stage and one for the 1/n scale). Its write()
+    bytes must equal those of the same Params with g_lagrange from the
+    native library's group iNTT (the route before, the oracle here); the
+    native library's g, its group iNTT and the device group iNTT timed
+    apart."""
+    import copy
+    import torch
+    from halo2_tpu_torch.curves import native
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.curves.device import batch_scalar_mul
+    from halo2_tpu_torch.fields.device import ints_to_digits
+    from halo2_tpu_torch.ops.ntt import group_ntt, make_plan
+    from halo2_tpu_torch.ops.point_kernels import points_to_proj
+    from halo2_tpu_torch.poly.commitment import Params
+    fs = PALLAS.scalar
+    r = results["scalar_mul_ladder"]
+    for k in ks:
+        n = 1 << k
+        reset_counts()                    # the srs path's count starts
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params = Params.new(PALLAS, k, use_cache=False)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        launches = launch_counts()
+        omega = pow(fs.root_of_unity, 1 << (fs.s - k), fs.modulus)
+        omega_inv = pow(omega, fs.modulus - 2, fs.modulus)
+        minv = pow(n, fs.modulus - 2, fs.modulus)
+        t = time.perf_counter()
+        native_gl = native.native_group_ntt(PALLAS, params.g, omega_inv,
+                                            minv)
+        t_native = time.perf_counter() - t
+        t = time.perf_counter()
+        native.native_srs_g(PALLAS, "Halo2-Parameters", n)
+        t_g = time.perf_counter() - t
+        # the host work around the transform: the plan's tables made and
+        # uploaded (with the twiddles taken out of Montgomery form), and
+        # g's upload as a [48, n] batch
+        t = time.perf_counter()
+        plan = make_plan(params.scalar_df, n, omega_inv)
+        plan.on(params.device)
+        plan.exponents(params.device)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t
+        t = time.perf_counter()
+        points_to_proj(params.base_df, params.g, params.device)
+        torch.cuda.synchronize()
+        t_proj = time.perf_counter() - t
+        # the transform alone: group NTT and scale on the card, from the
+        # device copy of g, its plan's tables made and uploaded before
+        scale = torch.from_numpy(ints_to_digits([minv])).to(params.device)
+        transform = lambda: batch_scalar_mul(
+            params.base_df, group_ntt(params.base_df, params.g_dev, plan),
+            scale, nbits=255)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        transform()
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t
+        kern_dev = device_ms(transform, 1, "scalar_mul_ladder_kernel",
+                             per_call=True) / 1e3
+        oracle = copy.copy(params)
+        oracle.g_lagrange = native_gl
+        same = oracle.write() == params.write()
+        log(f"[srs] k={k}: Params.new(use_cache=False) {total:.3f}s; "
+            f"launches {launches}")
+        log(f"[srs] k={k}: native_srs_g {t_g:.3f}s, native_group_ntt "
+            f"{t_native:.3f}s, device group iNTT and 1/n scale "
+            f"{t_dev:.3f}s ({launches['scalar_mul_ladder']} ladder "
+            f"launches, {kern_dev:.4f}s of ladder device time by the "
+            f"profiler); the plan's tables {t_plan:.3f}s, g's upload "
+            f"{t_proj:.3f}s; write() bytes equal the native g_lagrange's: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"k={k}: the device g_lagrange differs from "
+                                 f"the native library's")
+        if launches["scalar_mul_ladder"] != k + 1:
+            raise AssertionError(f"k={k}: {launches['scalar_mul_ladder']} "
+                                 f"ladder launches, want {k + 1}")
+        for name in ("scalar_mul_ladder", "padd", "pdouble", "fmul"):
+            results[name][f"srs_launches_k{k}"] = launches[name]
+        r.update({f"srs_params_new_s_k{k}": total,
+                  f"srs_native_srs_g_s_k{k}": t_g,
+                  f"srs_native_group_ntt_s_k{k}": t_native,
+                  f"srs_device_group_intt_s_k{k}": t_dev,
+                  f"srs_ladder_device_s_k{k}": kern_dev,
+                  f"srs_plan_s_k{k}": t_plan, f"srs_g_upload_s_k{k}": t_proj})
+        if k == ks[0]:
+            r["launches"] = launches["scalar_mul_ladder"]
+        del params, oracle, native_gl
+
+
+def phase_verify(results, params, pk_, circuit, out):
+    """[verify] The verification strategies on two k=14 BenchCircuit proofs
+    (the main path's and one from another rng seed): AccumulatorStrategy,
+    whose G (Guard.compute_g, a device MSM over the SRS g) must equal the
+    native host MSM; BatchVerifier, True for the pair and False with one
+    proof corrupted or one wrong instance; MSMAccumulator.eval's device
+    branch (taken without the native library above 4096 terms) against
+    the host one on a valid proof and a wrong instance. Counts set to 0
+    just before and read just after."""
+    import torch
+    from halo2_tpu_torch.curves import native
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.plonk.verifier import (verify_proof,
+                                                AccumulatorStrategy,
+                                                BatchVerifier)
+    from halo2_tpu_torch.poly.commitment import compute_s
+    from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    vk = pk_.vk
+    proofs = []
+    for seed in (PROOF_SEED, 7):
+        tw = TranscriptWrite(PALLAS)
+        pv.create_proof(params, pk_, [circuit], [[[out]]],
+                        random.Random(seed), tw)
+        proofs.append(tw.finalize())
+    reset_counts()                        # the verify path's count starts
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    acc = verify_proof(params, vk, AccumulatorStrategy(params), [[[out]]],
+                       TranscriptRead(PALLAS, proofs[0]))
+    torch.cuda.synchronize()
+    t_acc = time.perf_counter() - t
+    t = time.perf_counter()
+    want = PALLAS.msm(compute_s(PALLAS.scalar, acc.u_packed, 1), params.g)
+    t_host = time.perf_counter() - t
+    log(f"[verify] AccumulatorStrategy {t_acc:.3f}s; its G (device MSM "
+        f"over 2^{K} SRS points) equals the native MSM ({t_host:.3f}s): "
+        f"{acc.g == want}")
+    if acc.g != want:
+        raise AssertionError("compute_g on the card != the native MSM")
+
+    def batch(ps, outs):
+        bv = BatchVerifier(params)
+        for p, o in zip(ps, outs):
+            bv.add_proof([[[o]]], p)
+        return bv.finalize(vk)
+
+    bad = bytearray(proofs[1])
+    bad[-32] ^= 1                         # the IPA's f, still canonical
+    verdicts = (batch(proofs, [out, out]), batch([proofs[0], bytes(bad)],
+                                                 [out, out]),
+                batch(proofs, [out, out + 1]))
+    log(f"[verify] BatchVerifier: the pair {verdicts[0]}, with a corrupted "
+        f"proof {verdicts[1]}, with a wrong instance {verdicts[2]}")
+    if verdicts != (True, False, False):
+        raise AssertionError(f"BatchVerifier verdicts {verdicts}")
+
+    class Keep:
+        def process(self, f):
+            self.msm = f(params.empty_msm()).use_challenges()
+
+    for o, valid in ((out, True), (out + 1, False)):
+        keep = Keep()
+        verify_proof(params, vk, keep, [[[o]]],
+                     TranscriptRead(PALLAS, proofs[0]))
+        host = keep.msm.clone().eval()
+        real = native._load
+        native._load = lambda: None        # the branch without the library
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            on_card = keep.msm.clone().eval()
+            torch.cuda.synchronize()
+            t_dev = time.perf_counter() - t
+        finally:
+            native._load = real
+        what = "valid proof" if valid else "wrong instance"
+        log(f"[verify] MSMAccumulator.eval, {what}: host {host}, device "
+            f"branch {on_card} ({t_dev:.3f}s)")
+        if host is not valid or on_card is not valid:
+            raise AssertionError(f"eval verdicts host {host}, device "
+                                 f"{on_card}, want {valid}")
+    launches = launch_counts()
+    log(f"[verify] launches {launches}")
+    for name in ("pmixed_bucket_runs", "padd_masked", "fmul"):
+        results[name]["verify_launches"] = launches[name]
+    if not launches["pmixed_bucket_runs"]:
+        raise AssertionError("no device MSM ran on the verify path")
+
+
 def run_phase(phase, *args):
     t = time.perf_counter()
     ret = phase(*args)
@@ -1422,6 +1784,12 @@ def main() -> int:
                        "replaces": "halo2_tpu/ops/ipa_device.py:219 "
                                    "(fori_loop of pallas_point.py:274 "
                                    "and :281)"},
+        "scalar_mul_ladder": {"route": "cuda",
+                              "source": src + "point_kernels.cu",
+                              "replaces": "halo2_tpu/curves/device.py:151 "
+                                          "(batch_scalar_mul's fori_loop "
+                                          "of jnp pdouble, padd, pselect; "
+                                          "no Pallas kernel)"},
         "ntt": {"route": "cuda", "source": src + "ntt_kernels.cu",
                 "replaces": "halo2_tpu/ops/pallas_field.py:169"},
         "fmul_limbs_first": {"route": "cuda",
@@ -1429,7 +1797,8 @@ def main() -> int:
                              "replaces": "scripts/bench_fmul3d.py:29"},
     }
     paths = {name: "main" for name in MAIN_PATH_KERNELS}
-    paths.update(padd="ipa", glv_ladder="ipa", pdouble=None,
+    paths.update(padd="ipa", glv_ladder="ipa", scalar_mul_ladder="srs",
+                 pdouble=None,
                  pdouble_masked=None, fmul_limbs_first=None,
                  pmixed_masked=None)
     t_all = time.perf_counter()
@@ -1443,13 +1812,17 @@ def main() -> int:
     run_phase(phase_points, results, state[0])
     run_phase(phase_add_double, results, state[0])
     run_phase(phase_ladder, results, state[0])
+    run_phase(phase_scalar_ladder, results, state[0])
     run_phase(phase_commit, state[0])
     run_phase(phase_horner, state[0])
     run_phase(phase_profile, *state)
     run_phase(phase_ipa, results, *state)
+    run_phase(phase_verify, results, *state)
     params_ref_k = run_phase(phase_reference_k)
     run_phase(phase_bucket, results, state[0], params_ref_k)
     run_phase(phase_lookup, results, state[0], params_ref_k)
+    del params_ref_k
+    run_phase(phase_srs, results)
     kernels = [{"name": name, "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "path": paths[name],
                 "launches": r["launches"],
@@ -1461,7 +1834,7 @@ def main() -> int:
                 "shape": r["shape"],
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
-                     "graph_ms", "profiler_ms"))}}
+                     "graph_ms", "profiler_ms", "srs_", "verify_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

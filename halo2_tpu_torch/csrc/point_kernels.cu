@@ -1,7 +1,9 @@
-// Kernels B2-B6 and the GLV ladder: complete additions and doublings of
-// Pasta points in homogeneous projective coordinates (Renes-Costello-Batina
-// 2015, a = 0, b3 = 15): the bucket and reduction rounds of every Pippenger
-// commit, and the ladder that folds G' in the device IPA rounds.
+// Kernels B2-B6, the GLV ladder and the scalar-multiplication ladder:
+// complete additions and doublings of Pasta points in homogeneous
+// projective coordinates (Renes-Costello-Batina 2015, a = 0, b3 = 15): the
+// bucket and reduction rounds of every Pippenger commit, the ladder that
+// folds G' in the device IPA rounds, and the per-lane scalar
+// multiplication of the SRS's group NTT.
 //
 // B2 (pmixed_masked) replaces halo2_tpu/ops/pallas_point.py::
 // _pmixed_masked_kernel (:297, built at :463/:477, wrapped by
@@ -31,6 +33,15 @@
 // (8 wide multiplies). B6 (pdouble_masked) replaces _pdouble_masked_kernel
 // (:330, _build_pdouble(masked=True) at :489/:503, wrapped by
 // pdouble_masked_flat at :677): out = mask ? 2A : A.
+// scalar_mul_ladder replaces the reference's per-lane variable-base scalar
+// multiplication, batch_scalar_mul (halo2_tpu/curves/device.py:151-169):
+// a jax.lax.fori_loop of 255 or 256 steps of pdouble, padd and pselect on
+// the lane's own bit, jnp group ops with no Pallas kernel. It serves the
+// group NTT that builds the SRS's g_lagrange (halo2_tpu/ops/ntt.py:179),
+// the 1/n scale after it and msm_small: acc = O, then for each bit of the
+// lane's scalar, most significant first, acc = 2 acc and, where the bit is
+// set, acc = acc + P. Optionally it ends with the group NTT's butterfly:
+// given lo, it writes lo + acc and lo - acc instead of acc.
 // glv_ladder replaces the reference's 130-step jax.lax.fori_loop of B5
 // and a masked B3 in one jitted program per IPA round
 // (halo2_tpu/ops/ipa_device.py:219-230): acc = O, then for each bit pair
@@ -97,13 +108,36 @@
 //   it: under 4,000 instructions, about 2x faster at 8,192 lanes and
 //   1.4x at 2^17 on an H100 (ladder_variants.py). The one-step kernels
 //   keep the inlined product, which is as fast or faster for them.
+// - The scalar-multiplication ladder is bound by operations too: 255 or
+//   256 doublings (8 products) and an add (12) for each set bit, about
+//   3,600 products a lane for a random 255-bit scalar, against a 192-byte
+//   read and write and a 64-byte scalar. As a loop of jnp ops it would be
+//   3 x nbits launches, each re-reading and re-writing the accumulator;
+//   one launch keeps it in registers, stages P in shared memory (24 limbs
+//   a thread, as the GLV ladder stages its table) and calls the product
+//   (the instruction-fetch finding above). Unlike the GLV ladder, each
+//   lane reads its own scalar: row l % T of a [T, 16] digit table (T = L
+//   for one scalar a lane; T = half for a group-NTT stage, whose lanes
+//   share the stage's half twiddles, so no n/2-row copy is written). So
+//   lanes of one warp hold different bits. The add is a branch, not an
+//   always-computed add and a select: a warp runs the add once whenever
+//   any of its lanes has the bit set, which a masked add would also pay,
+//   and skips it when none has (a group NTT's first stage and its 1/n
+//   scale, where every lane holds the same scalar); the select would be
+//   24 more moves a step. So with random scalars every step costs a
+//   doubling and an add: 3.99 ms at 2^13 lanes and 21.8 ms at 2^17 for a
+//   fused 255-bit stage (NVIDIA H100 80GB HBM3, 700 W; PERF.md), 20x and
+//   6.9x the bound. The fused butterfly adds two complete adds (24
+//   products) and saves the two B4 launches and the negation of a stage.
 // - Block size (B3 and the ladder): `nvcc -Xptxas -v` reports 106, 122
 //   and 124 registers for B3's lane, offset and index forms and 96 (with
 //   a 672-byte stack frame) for the ladder, no spills. A 128-thread block
 //   then holds 12-16K of an SM's 64K registers (and the ladder's 36 KB of
 //   shared memory), so every block of B3's 26,624 lanes or the ladder's
 //   8,192 is resident at once, and what the block size decides is how
-//   evenly the lanes spread over the 132 SMs. spread_threads picks, from
+//   evenly the lanes spread over the 132 SMs. (The scalar-multiplication
+//   ladder takes 168 registers and a 672-byte frame: at most 12 warps a
+//   SM, so its 2^17-lane stages run in waves.) spread_threads picks, from
 //   32, 64 and 128 threads, the size that puts the fewest lanes on the
 //   busiest SM (B3 at 26,624 lanes: 32, at most 224 a SM against 256;
 //   the ladder at 8,192 lanes: 64, one block on each of 128 SMs, where
@@ -385,6 +419,78 @@ glv_ladder_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ t1,
   store_pt(out + l, L, acc);
 }
 
+// scalar_mul_ladder: acc = O; for s = nbits - 1 down to 0: acc = 2 acc,
+// then acc = acc + P where bit s of the lane's scalar is set. Lane l reads
+// P = pts[l] and its scalar from row l % T of `digits` (16 canonical
+// 16-bit digits, int32). P lives in dynamic shared memory as
+// [24 limbs][blockDim.x]: each thread reads only its own column. With lo,
+// out = lo + acc and out2 = lo - acc (the group NTT's butterfly), else
+// out = acc.
+template <int F>
+__global__ void __launch_bounds__(kMaxThreads)
+scalar_mul_ladder_kernel(int32_t* __restrict__ out,
+                         int32_t* __restrict__ out2,
+                         const int32_t* __restrict__ pts,
+                         const int32_t* __restrict__ digits,
+                         const int32_t* __restrict__ lo, uint32_t T,
+                         uint32_t nbits, uint32_t L) {
+  extern __shared__ uint32_t tab[];
+  const uint32_t tid = threadIdx.x, bd = blockDim.x;
+  const uint32_t l = blockIdx.x * bd + tid;
+  if (l >= L) return;
+  {
+    Pt q;
+    load_pt(q, pts + l, L);
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      tab[i * bd + tid] = q.x[i];
+      tab[(8 + i) * bd + tid] = q.y[i];
+      tab[(16 + i) * bd + tid] = q.z[i];
+    }
+  }
+  const int32_t* d = digits + (size_t)(l % T) * 16;
+  Pt acc, r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    acc.x[i] = 0;
+    acc.y[i] = Field<F>::one(i);
+    acc.z[i] = 0;
+  }
+  uint32_t word = 0;
+#pragma unroll 1
+  for (int s = (int)nbits - 1; s >= 0; s--) {
+    if (s == (int)nbits - 1 || (s & 31) == 31) {
+      const int w = s >> 5;
+      word = ((uint32_t)d[2 * w] & 0xFFFFu) |
+             (((uint32_t)d[2 * w + 1] & 0xFFFFu) << 16);
+    }
+    rcb_double<F, true>(r, acc);
+    if (((word >> (s & 31)) & 1u) == 0) {
+      acc = r;
+      continue;
+    }
+    Pt q;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      q.x[i] = tab[i * bd + tid];
+      q.y[i] = tab[(8 + i) * bd + tid];
+      q.z[i] = tab[(16 + i) * bd + tid];
+    }
+    rcb_add<F, true>(acc, r, q);
+  }
+  if (lo == nullptr) {
+    store_pt(out + l, L, acc);
+    return;
+  }
+  Pt a;
+  load_pt(a, lo + l, L);
+  rcb_add<F, true>(r, a, acc);
+  store_pt(out + l, L, r);
+  neg_in_place<F>(acc.y);
+  rcb_add<F, true>(r, a, acc);
+  store_pt(out2 + l, L, r);
+}
+
 template <int F>
 __global__ void pmixed_masked_kernel(int32_t* __restrict__ out,
                                      const int32_t* __restrict__ a,
@@ -603,6 +709,26 @@ extern "C" int h2t_glv_ladder(int field, void* out, const void* t1,
   k<<<grid, threads, shmem, (cudaStream_t)stream>>>(
       (int32_t*)out, (const int32_t*)t1, (const int32_t*)t2,
       (const int32_t*)t12, bits, (uint32_t)nbits, (uint32_t)L);
+  return (int)cudaGetLastError();
+}
+
+// digits [T, 16] (lane l reads row l % T); nbits <= 256; lo and out2
+// both given (the fused butterfly) or both null
+extern "C" int h2t_scalar_mul_ladder(int field, void* out, void* out2,
+                                     const void* pts, const void* digits,
+                                     const void* lo, long long T, int nbits,
+                                     long long L, void* stream) {
+  if (L <= 0) return 0;
+  if (T <= 0 || nbits < 1 || nbits > 256 || (lo == nullptr) != (out2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int threads = spread_threads(L);
+  dim3 grid((unsigned)((L + threads - 1) / threads));
+  const size_t shmem = (size_t)24 * sizeof(uint32_t) * threads;
+  auto kern = field ? scalar_mul_ladder_kernel<1> : scalar_mul_ladder_kernel<0>;
+  kern<<<grid, threads, shmem, (cudaStream_t)stream>>>(
+      (int32_t*)out, (int32_t*)out2, (const int32_t*)pts,
+      (const int32_t*)digits, (const int32_t*)lo, (uint32_t)T,
+      (uint32_t)nbits, (uint32_t)L);
   return (int)cudaGetLastError();
 }
 

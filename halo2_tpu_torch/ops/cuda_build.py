@@ -55,6 +55,7 @@ _ARGTYPES = {
         "h2t_pdouble": [_I, _P, _P, _LL, _P],
         "h2t_pdouble_masked": [_I, _P, _P, _P, _LL, _P],
         "h2t_glv_ladder": [_I, _P, _P, _P, _P, _U32P, _U32P, _I, _LL, _P],
+        "h2t_scalar_mul_ladder": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _P],
     },
 }
 

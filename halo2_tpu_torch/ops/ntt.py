@@ -7,9 +7,12 @@ of the TPU routine halo2_tpu/ops/pallas_field.py::ntt_pallas. On CUDA
 first with the bit-reversal gather fused into its load, each running up
 to PASS_LOG stages in shared memory. On the CPU it runs `ntt_many_plain`,
 log2(n) vectorized butterfly stages after one gather, with the plain field
-ops. `LAUNCHES` counts B7's kernel launches, nowhere else. The reference's
-group NTT serves SRS setup, which the port leaves to the native host
-library.
+ops. `LAUNCHES` counts B7's kernel launches, nowhere else.
+
+`group_ntt` (halo2_tpu/ops/ntt.py:179) runs the same stages over a [48, n]
+point batch, whose twiddle products are per-lane scalar multiplications:
+one launch a stage of the scalar-multiplication ladder with its fused
+butterfly (ops/point_kernels.py). It builds the SRS's g_lagrange.
 """
 from __future__ import annotations
 
@@ -18,9 +21,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..fields.device import DeviceField, NLIMBS, int_to_limbs
+from ..fields.device import DeviceField, NLIMBS, from_mont, int_to_limbs
 from .field_kernels import (fmul, fmul_plain, fadd_plain, fsub_plain,
                             _dispatch)
+from .point_kernels import scalar_mul_ladder_flat
 
 LAUNCHES = {"ntt": 0}
 # stages a pass runs in shared memory at most: a 2^10-element tile of 8 x
@@ -59,17 +63,35 @@ def bit_reverse_perm(n: int) -> np.ndarray:
 
 @dataclass(eq=False)
 class NttPlan:
-    """Tables for a size-n NTT with root `omega` (host ints): `twiddles[s]`
-    holds the 2^s twiddles of stage s+1 as Montgomery digits, `perm` the
-    bit-reversal gather. The device copy is made once per device: the
-    stage tables concatenated into one [n - 1, 16] tensor (stage s at rows
-    2^(s-1) - 1 .. 2^s - 2), which the kernel indexes, and views of it per
-    stage."""
+    """Tables for a size-n NTT with root `omega` (host ints) over the
+    field `df`: `twiddles[s]` holds the 2^s twiddles of stage s+1 as
+    Montgomery digits, `perm` the bit-reversal gather. The device copy is
+    made once per device: the stage tables concatenated into one
+    [n - 1, 16] tensor (stage s at rows 2^(s-1) - 1 .. 2^s - 2), which the
+    kernel indexes, and views of it per stage. `exponents` gives the group
+    NTT the same twiddles as canonical digits (the reference's
+    twiddle_exps)."""
     n: int
     omega: int
     perm: np.ndarray
     twiddles: tuple
+    df: DeviceField
     _dev: dict = field(default_factory=dict, repr=False)
+    _exps: dict = field(default_factory=dict, repr=False)
+
+    def exponents(self, device) -> tuple:
+        """Per stage, its twiddles as int32 [2^s, 16] canonical 16-bit
+        digits on `device`, the scalars of the group NTT's ladders: the
+        device table taken out of Montgomery form (one B1 launch on CUDA),
+        once per device."""
+        device = torch.device(device)
+        ent = self._exps.get(device)
+        if ent is None:
+            table = from_mont(self.df, self.on(device)[1])
+            ent = self._exps[device] = tuple(
+                table[(1 << s) - 1:(1 << (s + 1)) - 1]
+                for s in range(len(self.twiddles)))
+        return ent
 
     def on(self, device) -> tuple:
         """(perm, the concatenated twiddle table, the per-stage views, the
@@ -107,7 +129,7 @@ def make_plan(df: DeviceField, n: int, omega: int) -> NttPlan:
             w = w * w_m % p
         twiddles.append(df.to_mont_np(ws).reshape(half, NLIMBS))
     return NttPlan(n=n, omega=omega, perm=bit_reverse_perm(n),
-                   twiddles=tuple(twiddles))
+                   twiddles=tuple(twiddles), df=df)
 
 
 def ntt_many_plain(df: DeviceField, x: torch.Tensor, plan: NttPlan
@@ -185,3 +207,30 @@ def intt(df: DeviceField, a: torch.Tensor, inv_plan: NttPlan,
          n_inv_mont) -> torch.Tensor:
     x = ntt(df, a, inv_plan)
     return fmul(df, x, torch.as_tensor(n_inv_mont, device=x.device))
+
+
+def group_ntt(df: DeviceField, pts: torch.Tensor, plan: NttPlan
+              ) -> torch.Tensor:
+    """NTT over a [48, n] point batch (df: the points' base field; plan:
+    over the scalar field): the butterflies of `ntt_many_plain` with
+    point adds, whose twiddle products are per-lane scalar
+    multiplications, 255 bits since every twiddle is below q < 2^255 (the
+    reference's group_ntt, halo2_tpu/ops/ntt.py:179). Each stage is one
+    launch of the scalar-multiplication ladder on the hi half, lane j of
+    each group of `half` reading twiddle j % half, with the butterfly
+    lo + t, lo - t fused."""
+    n = plan.n
+    if pts.dim() != 2 or pts.shape != (3 * NLIMBS, n):
+        raise TypeError(f"group_ntt takes a [48, {n}] batch, got "
+                        f"{tuple(pts.shape)}")
+    rows = 3 * NLIMBS
+    x = pts.index_select(1, plan.on(pts.device)[0])
+    for s, tw in enumerate(plan.exponents(pts.device), start=1):
+        half = 1 << (s - 1)
+        xr = x.view(rows, n >> s, 2 * half)
+        lo = xr[:, :, :half].reshape(rows, -1)
+        hi = xr[:, :, half:].reshape(rows, -1)
+        top, bot = scalar_mul_ladder_flat(df, hi, tw, 255, lo=lo)
+        x = torch.cat([top.view(rows, -1, half), bot.view(rows, -1, half)],
+                      dim=2).view(rows, n)
+    return x

@@ -1,11 +1,13 @@
 """Kernels B2-B6 on Pasta point batches -- the masked mixed add (B2), the
 masked and unmasked complete adds (B3, B4), the doubling and the masked
 doubling (B5, B6) -- the bucket-run kernel that runs B2's whole round loop
-of an affine-base commit in one launch, and the GLV ladder of the IPA fold
-(B5 and B3 fused over 130 steps), with their plain PyTorch versions.
+of an affine-base commit in one launch, the GLV ladder of the IPA fold
+(B5 and B3 fused over 130 steps) and the per-lane scalar-multiplication
+ladder of the SRS's group NTT, with their plain PyTorch versions.
 
-Replaces halo2_tpu/ops/pallas_point.py and the ladder's fori_loop in
-halo2_tpu/ops/ipa_device.py. A point batch is one int32
+Replaces halo2_tpu/ops/pallas_point.py, the ladder's fori_loop in
+halo2_tpu/ops/ipa_device.py and the one of batch_scalar_mul in
+halo2_tpu/curves/device.py. A point batch is one int32
 [48, L] tensor, lanes last: rows 0-15 X, 16-31 Y, 32-47 Z (16-bit
 Montgomery digits), homogeneous projective (x = X/Z, y = Y/Z), identity
 (0 : R : 0). An affine batch is [32, L] with the identity coded as
@@ -24,11 +26,12 @@ import functools
 import numpy as np
 import torch
 
-from .field_kernels import (NLIMBS, fmul_plain, fadd_plain, fsub_plain,
-                            _dispatch)
+from .field_kernels import (NLIMBS, fmul_plain, fadd_plain, fsub,
+                            fsub_plain, _dispatch)
 
 LAUNCHES = {"padd_masked": 0, "pmixed_masked": 0, "pmixed_bucket_runs": 0,
-            "padd": 0, "pdouble": 0, "pdouble_masked": 0, "glv_ladder": 0}
+            "padd": 0, "pdouble": 0, "pdouble_masked": 0, "glv_ladder": 0,
+            "scalar_mul_ladder": 0}
 
 # where B3 reads its second operand (SrcMode in csrc/point_kernels.cu)
 _SRC_LANE, _SRC_ROLL, _SRC_INDEX = 0, 1, 2
@@ -55,27 +58,35 @@ def _mul15_plain(df, a):
     return fsub_plain(df, x, a)
 
 
+def _each(op, df, *pairs):
+    """op over independent operand pairs in one plain call: the pairs
+    are stacked on a new leading axis (a plain call costs about the same
+    at 1 or 12 rows of a small batch, so a formula's independent products
+    and sums share one)."""
+    a = torch.stack(torch.broadcast_tensors(*(x for x, _ in pairs)))
+    b = torch.stack(torch.broadcast_tensors(*(y for _, y in pairs)))
+    return op(df, *torch.broadcast_tensors(a, b)).unbind(0)
+
+
 def rcb_add_plain(df, A, B):
     """RCB Alg 7 on ([L, 16],) * 3 coordinate triples."""
     X1, Y1, Z1 = A
     X2, Y2, Z2 = B
-    mul = lambda a, b: fmul_plain(df, a, b)
-    add = lambda a, b: fadd_plain(df, a, b)
-    sub = lambda a, b: fsub_plain(df, a, b)
-    t0 = mul(X1, X2)
-    t1 = mul(Y1, Y2)
-    t2 = mul(Z1, Z2)
-    t3 = sub(mul(add(X1, Y1), add(X2, Y2)), add(t0, t1))
-    t4 = sub(mul(add(Y1, Z1), add(Y2, Z2)), add(t1, t2))
-    xz = sub(mul(add(X1, Z1), add(X2, Z2)), add(t0, t2))
-    s0 = add(add(t0, t0), t0)
-    b3z = _mul15_plain(df, t2)
-    z3 = add(t1, b3z)
-    s1 = sub(t1, b3z)
-    y3 = _mul15_plain(df, xz)
-    X3 = sub(mul(t3, s1), mul(t4, y3))
-    Y3 = add(mul(y3, s0), mul(s1, z3))
-    Z3 = add(mul(z3, t4), mul(s0, t3))
+    s1, s2, s3, s4, s5, s6 = _each(fadd_plain, df, (X1, Y1), (X2, Y2),
+                                   (Y1, Z1), (Y2, Z2), (X1, Z1), (X2, Z2))
+    t0, t1, t2, m3, m4, m5 = _each(fmul_plain, df, (X1, X2), (Y1, Y2),
+                                   (Z1, Z2), (s1, s2), (s3, s4), (s5, s6))
+    a01, a12, a02, s0 = _each(fadd_plain, df, (t0, t1), (t1, t2), (t0, t2),
+                              (t0, t0))
+    t3, t4, xz = _each(fsub_plain, df, (m3, a01), (m4, a12), (m5, a02))
+    s0 = fadd_plain(df, s0, t0)
+    b3z, y3 = _mul15_plain(df, torch.stack([t2, xz])).unbind(0)
+    z3 = fadd_plain(df, t1, b3z)
+    s1 = fsub_plain(df, t1, b3z)
+    u1, v1, u2, v2, u3, v3 = _each(fmul_plain, df, (t3, s1), (t4, y3),
+                                   (y3, s0), (s1, z3), (z3, t4), (s0, t3))
+    X3 = fsub_plain(df, u1, v1)
+    Y3, Z3 = _each(fadd_plain, df, (u2, v2), (u3, v3))
     return X3, Y3, Z3
 
 
@@ -83,25 +94,17 @@ def rcb_double_plain(df, A):
     """RCB Alg 9 on a ([L, 16],) * 3 coordinate triple (the reference's
     _rcb_double_arrays, pallas_point.py:400)."""
     X, Y, Z = A
-    mul = lambda a, b: fmul_plain(df, a, b)
-    add = lambda a, b: fadd_plain(df, a, b)
-    sub = lambda a, b: fsub_plain(df, a, b)
-    t0 = mul(Y, Y)
-    z3 = add(t0, t0)
-    z3 = add(z3, z3)
-    z3 = add(z3, z3)
-    t1 = mul(Y, Z)
-    t2 = _mul15_plain(df, mul(Z, Z))
-    X3 = mul(t2, z3)
-    Y3 = add(t0, t2)
-    Z3 = mul(t1, z3)
-    t1 = add(t2, t2)
-    t2 = add(t1, t2)
-    t0 = sub(t0, t2)
-    Y3 = add(mul(t0, Y3), X3)
-    t1 = mul(X, Y)
-    X3 = mul(t0, t1)
-    X3 = add(X3, X3)
+    t0, t1, zz, xy = _each(fmul_plain, df, (Y, Y), (Y, Z), (Z, Z), (X, Y))
+    z3 = fadd_plain(df, t0, t0)
+    z3 = fadd_plain(df, z3, z3)
+    z3 = fadd_plain(df, z3, z3)                  # 8 Y^2
+    t2 = _mul15_plain(df, zz)                    # b3 Z^2
+    X3, Z3 = _each(fmul_plain, df, (t2, z3), (t1, z3))
+    Y3 = fadd_plain(df, t0, t2)
+    t1 = fadd_plain(df, t2, t2)
+    t0 = fsub_plain(df, t0, fadd_plain(df, t1, t2))
+    u, v = _each(fmul_plain, df, (t0, Y3), (t0, xy))
+    Y3, X3 = _each(fadd_plain, df, (u, X3), (v, v))
     return X3, Y3, Z3
 
 
@@ -154,6 +157,37 @@ def glv_ladder_plain(df, t1, t2, t12, bits1, bits2):
         if sel:
             acc = padd_masked_plain(df, acc, table[sel], on)
     return acc
+
+
+def scalar_bits(digits: torch.Tensor, nbits: int) -> torch.Tensor:
+    """[T, 16] canonical 16-bit digits -> [nbits, T] bool, bit nbits - 1
+    first."""
+    i = torch.arange(nbits - 1, -1, -1, device=digits.device)
+    d = digits.to(torch.int64)[:, i // 16]
+    return ((d >> (i % 16)) & 1).bool().T
+
+
+def scalar_mul_ladder_plain(df, pts, digits, nbits=256, lo=None):
+    """The ladder step by step (the reference's batch_scalar_mul): acc = O,
+    then per bit, most significant first, acc = 2 acc (RCB Alg 9) and,
+    where lane l's bit (of digits row l % T) is set, acc = acc + P (RCB
+    Alg 7). With lo: (lo + acc, lo - acc), the negation by pneg_flat (the
+    add/subtract kernel for a CUDA tensor)."""
+    L = pts.shape[1]
+    rows = torch.arange(L, device=pts.device) % digits.shape[0]
+    bits = scalar_bits(digits[rows], nbits)
+    P = _split2d(pts)
+    acc = _split2d(ident_col(df, pts.device)[:, None].expand(3 * NLIMBS, L))
+    for bit in bits:
+        acc = rcb_double_plain(df, acc)
+        if bool(bit.any()):
+            added = rcb_add_plain(df, acc, P)
+            acc = tuple(torch.where(bit[:, None], x, y)
+                        for x, y in zip(added, acc))
+    t = _join2d(*acc)
+    if lo is None:
+        return t
+    return padd_plain(df, lo, t), padd_plain(df, lo, pneg_flat(df, t))
 
 
 def pmixed_masked_plain(df, a, b_aff, mask, signs):
@@ -324,6 +358,67 @@ def glv_ladder_flat(df, t1: torch.Tensor, t2: torch.Tensor, t12: torch.Tensor,
     return _launch("glv_ladder", df, t1.contiguous(), t2.contiguous(),
                    t12.contiguous(), _pack_bits(bits1), _pack_bits(bits2),
                    len(bits1))
+
+
+def scalar_mul_ladder_flat(df, pts: torch.Tensor, digits: torch.Tensor,
+                           nbits: int = 256, lo=None):
+    """[s_l] pts[l] on a [48, L] batch (one launch of the scalar ladder on
+    CUDA), where s_l is row l % T of `digits`, int32 [T, 16] canonical
+    16-bit digits, and only its low nbits (1-256) bits count: acc = O, then
+    per bit, most significant first, acc = 2 acc (RCB Alg 9) and, where the
+    bit is set, acc = acc + pts[l] (RCB Alg 7). With lo [48, L], returns
+    the butterfly (lo + acc, lo - acc) from the same launch."""
+    L = pts.shape[1]
+    _check_batch(pts, 3 * NLIMBS, L, "pts")
+    if digits.dtype != torch.int32 or digits.dim() != 2 or \
+            digits.shape[1] != NLIMBS or digits.shape[0] == 0:
+        raise TypeError(f"digits: expected int32 [T, {NLIMBS}] with T >= 1, "
+                        f"got {digits.dtype} {tuple(digits.shape)}")
+    if not 1 <= nbits <= 256:
+        raise ValueError(f"nbits {nbits} is not in 1..256")
+    if lo is not None:
+        _check_batch(lo, 3 * NLIMBS, L, "lo")
+    if not _dispatch(pts):
+        return scalar_mul_ladder_plain(df, pts, digits, nbits, lo)
+    from . import cuda_build
+    pts, digits = pts.contiguous(), digits.contiguous()
+    lo = None if lo is None else lo.contiguous()
+    out = torch.empty_like(pts)
+    out2 = None if lo is None else torch.empty_like(pts)
+    if L:
+        rc = cuda_build.library("point_kernels").h2t_scalar_mul_ladder(
+            df.field_id, out.data_ptr(), _arg(out2), pts.data_ptr(),
+            digits.data_ptr(), _arg(lo), digits.shape[0], nbits, L,
+            cuda_build.stream_ptr(pts.device))
+        cuda_build.check(rc, "scalar_mul_ladder")
+        LAUNCHES["scalar_mul_ladder"] += 1
+    return out if lo is None else (out, out2)
+
+
+def scalar_mul_ladder_loop(df, pts: torch.Tensor, digits: torch.Tensor,
+                           nbits: int, ident=None) -> torch.Tensor:
+    """The loop the scalar ladder replaces, the reference's fori_loop step
+    by step: B5, B4, then a select on each lane's bit (digits [L, 16], one
+    row a lane), from `ident`, the identity batch on pts's lanes (made
+    here if None; a caller that captures the loop in a CUDA graph makes
+    it first, since the capture takes no host-to-device copy). On no
+    path: it holds the fused kernel to the kernels it fuses."""
+    acc = ident
+    if acc is None:
+        acc = ident_col(df, pts.device)[:, None].expand(
+            3 * NLIMBS, pts.shape[1]).contiguous()
+    for bit in scalar_bits(digits, nbits):
+        acc = pdouble_flat(df, acc)
+        acc = torch.where(bit[None, :], padd_flat(df, acc, pts), acc)
+    return acc
+
+
+def pneg_flat(df, a: torch.Tensor) -> torch.Tensor:
+    """-a on a [48, L] batch: Y negated as 0 - Y (0 stays 0), through the
+    add/subtract kernel for a CUDA tensor."""
+    Y = a[NLIMBS:2 * NLIMBS].T
+    negY = fsub(df, torch.zeros_like(Y), Y)
+    return torch.cat([a[:NLIMBS], negY.T, a[2 * NLIMBS:]], dim=0)
 
 
 def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,

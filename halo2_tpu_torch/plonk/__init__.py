@@ -17,6 +17,7 @@ _LAZY = {
     "NotEnoughRowsAvailable": "keygen",
     "create_proof": "prover",
     "verify_proof": "verifier", "SingleVerifier": "verifier",
+    "AccumulatorStrategy": "verifier", "BatchVerifier": "verifier",
     "VerificationError": "verifier",
 }
 

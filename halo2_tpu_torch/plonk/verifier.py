@@ -5,11 +5,16 @@ Port of halo2_tpu/plonk/verifier.py (halo2_proofs/src/plonk/verifier.rs:
 commits the instance columns on the Params device, replays the
 transcript, evaluates every constraint on host scalars, reconstructs the
 expected h(x) = (y-fold of expressions)/(x^n - 1), and defers everything
-into one host MSM."""
+into one MSM. Strategies: SingleVerifier, AccumulatorStrategy and
+BatchVerifier (halo2_tpu/plonk/verifier.py:230-301)."""
 from __future__ import annotations
+
+import random
 
 from ..poly.commitment import Params, MSMAccumulator, DEFAULT_BLIND
 from ..poly.multiopen import VerifierQuery, multiopen_verify_proof
+from ..transcript import TranscriptError, TranscriptRead
+from .error import Error
 from .keys import VerifyingKey
 from .evaluation import evaluate_expression_host
 from .permutation import permutation_verifier_expressions
@@ -22,7 +27,9 @@ class VerificationError(Exception):
 
 def verify_proof(params: Params, vk: VerifyingKey, strategy,
                  instances: list[list[list[int]]], transcript):
-    """plonk/verifier.rs:67-347. `strategy` is a SingleVerifier."""
+    """plonk/verifier.rs:67-347. `strategy` is a SingleVerifier, an
+    AccumulatorStrategy or any object whose process(f) takes the function
+    from an empty MSMAccumulator to the opening's Guard."""
     cs = vk.cs
     fs = params.curve.scalar
     df = params.scalar_df
@@ -201,7 +208,7 @@ def verify_proof(params: Params, vk: VerifyingKey, strategy,
 
 
 class SingleVerifier:
-    """verifier.rs:36-64: expand challenges, one final host MSM."""
+    """verifier.rs:36-64: expand challenges, one final MSM."""
 
     def __init__(self, params: Params):
         self.params = params
@@ -212,3 +219,62 @@ class SingleVerifier:
         if not msm.eval():
             raise VerificationError("ConstraintSystemFailure")
         return None
+
+
+class AccumulatorStrategy:
+    """Recursion-style strategy: G from the challenges by one MSM over g
+    (Guard.compute_g), then the Guard's use_g exit; returns the
+    Accumulator (commitment/verifier.rs:44-53)."""
+
+    def __init__(self, params: Params):
+        self.params = params
+
+    def process(self, f):
+        guard = f(self.params.empty_msm())
+        g = guard.compute_g()
+        msm, accumulator = guard.use_g(g)
+        if not msm.eval():
+            raise VerificationError("ConstraintSystemFailure")
+        return accumulator
+
+
+class _Collect:
+    """BatchVerifier's per-proof strategy: keeps the expanded MSM."""
+
+    def __init__(self, params: Params):
+        self.params = params
+        self.msm = None
+
+    def process(self, f):
+        self.msm = f(self.params.empty_msm()).use_challenges()
+
+
+class BatchVerifier:
+    """Batch verification: queue proofs, then scale each proof's MSM by a
+    random factor, merge them and evaluate one MSM
+    (plonk/verifier/batch.rs:44-124)."""
+
+    def __init__(self, params: Params):
+        self.params = params
+        self.items: list[tuple[list, bytes]] = []
+
+    def add_proof(self, instances: list[list[list[int]]],
+                  proof: bytes) -> None:
+        self.items.append((instances, proof))
+
+    def finalize(self, vk: VerifyingKey, rng=None) -> bool:
+        """True iff every queued proof verifies. A malformed or failing
+        proof fails the whole batch (batch.rs:95-117)."""
+        rng = rng or random.Random(0xBA7C4)
+        acc = self.params.empty_msm()
+        for instances, proof in self.items:
+            strategy = _Collect(self.params)
+            try:
+                verify_proof(self.params, vk, strategy, instances,
+                             TranscriptRead(self.params.curve, proof))
+            except (VerificationError, Error, TranscriptError):
+                return False
+            item = strategy.msm
+            item.scale(self.params.curve.scalar.rand(rng))
+            acc.add_msm(item)
+        return acc.eval()

@@ -14,10 +14,15 @@ then the folded state is handed once to the native host library
 (curves/native.py), which runs the small rounds. At the default, k <= 14
 opens are all native; 0 runs every round on the device.
 
-Setup (SRS generation, the g_lagrange group iNTT, decompression) and the
-verifier's final MSM run in the native library, as in the reference at
-these sizes; `Params.new` falls back to Python for the SRS where the
-library is absent, and shares the reference's `.srs_cache`.
+Setup: g comes from the native library's hash-to-curve (Python where the
+library is absent), as in the reference. On CUDA g_lagrange is a device
+group iNTT (ops/ntt.py::group_ntt, then the 1/n scale, both on the
+scalar-multiplication ladder; the reference's Params._build_lagrange); on
+the CPU it is the native library's group iNTT, else a host one.
+`Params.new` shares the reference's `.srs_cache`. The verifier's final
+MSM runs on the host (the native library) unless that library is absent
+and the MSM is large; `Guard.compute_g` is a device MSM through
+ops/msm.py, as the reference's.
 """
 from __future__ import annotations
 
@@ -30,14 +35,17 @@ import torch
 
 from ..device import resolve_device
 from ..fields.host import FieldSpec, batch_invert
-from ..fields.device import DeviceField, NLIMBS, from_mont
+from ..fields.device import (DeviceField, NLIMBS, digits_to_ints, from_mont,
+                             ints_to_digits)
 from ..curves.host import CurveSpec, Point
 from ..curves.sswu import hash_to_curve
 from ..curves import native
-from ..curves.device import normalize
+from ..curves.device import batch_scalar_mul, normalize
 from ..ops.field_kernels import fmul, fadd, fsub
 from ..ops.point_kernels import pack_affine, points_to_proj
 from ..ops import msm_pippenger as mp
+from ..ops.msm import msm
+from ..ops.ntt import group_ntt, make_plan
 from ..ops.ipa_device import ipa_device_lr, ipa_device_fold_lr
 from .utils import eval_poly, powers
 
@@ -50,6 +58,10 @@ COMMIT_GN_BUDGET = 1 << 26
 # IPA rounds with half > this run on the device, the rest in the native
 # host library (halo2_tpu/poly/commitment.py:654-656, accelerator default)
 NATIVE_IPA_THRESHOLD = 8192
+
+# without the native library, MSMAccumulator.eval runs an MSM of more
+# terms than this on the device (halo2_tpu/poly/commitment.py:581)
+DEVICE_EVAL_THRESHOLD = 4096
 
 # the reference's SRS cache, shared with it (same file format)
 _SRS_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -81,11 +93,38 @@ def _host_group_intt(curve: CurveSpec, g: list, omega_inv: int,
     return [curve.mul(pt, minv) for pt in x]
 
 
+def _device_group_intt(curve: CurveSpec, g_dev: torch.Tensor, omega_inv: int,
+                       minv: int) -> tuple:
+    """g_lagrange on the device of g_dev, the [48, n] batch of g (the
+    reference's Params._build_lagrange, halo2_tpu/poly/commitment.py:
+    115-122): the group NTT of g under omega_inv, each lane scaled by
+    minv = 1/n on the scalar ladder, then one batch normalize. Returns
+    (the affine host points, the [48, n] batch with Z = mont 1, identity
+    (0, mont 1, 0)) -- the batch equals points_to_proj of the host points
+    bit for bit."""
+    base_df = DeviceField(curve.base)
+    device = g_dev.device
+    plan = make_plan(DeviceField(curve.scalar), g_dev.shape[1], omega_inv)
+    pts = group_ntt(base_df, g_dev, plan)
+    scale = torch.from_numpy(ints_to_digits([minv])).to(device)
+    x, y, inf = normalize(base_df, batch_scalar_mul(base_df, pts, scale,
+                                                    nbits=255))
+    z = torch.where(inf[:, None], torch.zeros_like(x),
+                    base_df.scalar(1, device))
+    dev = torch.cat([x.T, y.T, z.T], dim=0).contiguous()
+    canon = from_mont(base_df, torch.stack([x, y])).cpu().numpy()
+    xs, ys = digits_to_ints(canon[0]), digits_to_ints(canon[1])
+    flags = inf.cpu().tolist()
+    host = [None if f else (xi, yi) for xi, yi, f in zip(xs, ys, flags)]
+    return host, dev
+
+
 class Params:
     """Transparent SRS for one curve and size 2^k, with its device copy."""
 
     def __init__(self, curve: CurveSpec, k: int, g: list[Point],
-                 g_lagrange: list[Point], w: Point, u: Point, device=None):
+                 g_lagrange: list[Point], w: Point, u: Point, device=None,
+                 g_dev=None, g_lagrange_dev=None):
         assert k < 32
         self.device = resolve_device(device)
         self.curve = curve
@@ -97,9 +136,13 @@ class Params:
         self.u = u
         self.scalar_df = DeviceField(curve.scalar)
         self.base_df = DeviceField(curve.base)
-        self.g_dev = points_to_proj(self.base_df, g, self.device)
-        self.g_lagrange_dev = points_to_proj(self.base_df, g_lagrange,
-                                             self.device)
+        # g_dev, g_lagrange_dev: points_to_proj of g and g_lagrange, where
+        # the caller already has them on the device
+        self.g_dev = (points_to_proj(self.base_df, g, self.device)
+                      if g_dev is None else g_dev)
+        self.g_lagrange_dev = (
+            points_to_proj(self.base_df, g_lagrange, self.device)
+            if g_lagrange_dev is None else g_lagrange_dev)
         self._packed = {}
 
     # ----------------- construction -----------------
@@ -107,9 +150,11 @@ class Params:
     def new(cls, curve: CurveSpec, k: int, device=None,
             use_cache: bool = True) -> "Params":
         """SRS via hash_to_curve("Halo2-Parameters") with messages
-        [0, i_le4] / [1] / [2] (commitment.rs:38-114): g and g_lagrange in
-        the native library, in Python (curves/sswu.py, a host group iNTT)
-        where it is absent. With use_cache, read from and written to
+        [0, i_le4] / [1] / [2] (commitment.rs:38-114): g in the native
+        library, in Python (curves/sswu.py) where it is absent; g_lagrange
+        on CUDA by the device group iNTT (_device_group_intt; a failed
+        build or launch raises), on the CPU in the native library, else a
+        host group iNTT. With use_cache, read from and written to
         .srs_cache/{curve}_{k}.params at the repository root, the
         reference's cache (halo2_tpu/poly/commitment.py:62-88)."""
         device = resolve_device(device)
@@ -133,10 +178,17 @@ class Params:
         omega = pow(fs.root_of_unity, 1 << (fs.s - k), fs.modulus)
         omega_inv = pow(omega, fs.modulus - 2, fs.modulus)
         minv = pow(n, fs.modulus - 2, fs.modulus)
-        g_lagrange = native.native_group_ntt(curve, g, omega_inv, minv)
-        if g_lagrange is False:
-            g_lagrange = _host_group_intt(curve, g, omega_inv, minv)
-        params = cls(curve, k, g, g_lagrange, w, u, device)
+        g_dev = g_lagrange_dev = None
+        if device.type == "cuda":
+            g_dev = points_to_proj(DeviceField(curve.base), g, device)
+            g_lagrange, g_lagrange_dev = _device_group_intt(
+                curve, g_dev, omega_inv, minv)
+        else:
+            g_lagrange = native.native_group_ntt(curve, g, omega_inv, minv)
+            if g_lagrange is False:
+                g_lagrange = _host_group_intt(curve, g, omega_inv, minv)
+        params = cls(curve, k, g, g_lagrange, w, u, device, g_dev,
+                     g_lagrange_dev)
         if use_cache:
             # a file of its own renamed into place: a reader in another
             # process or thread never sees half a file
@@ -313,8 +365,10 @@ class MSMAccumulator:
             self.u_scalar = self.u_scalar * factor % q
 
     def eval(self) -> bool:
-        """One host MSM over the flattened terms; True iff it is the
-        identity."""
+        """One MSM over the flattened terms; True iff it is the identity.
+        The host MSM (the native library), or, where that library is
+        absent and there are more than DEVICE_EVAL_THRESHOLD terms, one
+        device MSM (halo2_tpu/poly/commitment.py:577-584)."""
         scalars: list[int] = []
         bases: list[Point] = []
         for x in sorted(self.other):   # BTreeMap iteration order
@@ -332,6 +386,14 @@ class MSMAccumulator:
             bases.extend(self.params.g)
         if not scalars:
             return True
+        if (native._load() is None
+                and len(scalars) > DEVICE_EVAL_THRESHOLD):
+            params = self.params
+            digits = torch.from_numpy(ints_to_digits(
+                [v % self.fs.modulus for v in scalars])).to(params.device)
+            pts = points_to_proj(params.base_df, bases, params.device)
+            return msm(params.curve, digits, pts,
+                       packed=pack_affine(pts[:2 * NLIMBS])) is None
         return self.params.curve.msm(scalars, bases) is None
 
 
@@ -474,10 +536,14 @@ class Guard:
         return self.msm, Accumulator(g=g, u_packed=list(self.u))
 
     def compute_g(self) -> Point:
-        """G = <s, params.g> (host MSM)."""
+        """G = <s, params.g> through the MSM dispatch (ops/msm.py): a
+        device MSM above its host threshold, as the reference's
+        (halo2_tpu/poly/commitment.py:806-814)."""
         params = self.msm.params
         s = compute_s(self.msm.fs, self.u, 1)
-        return params.curve.msm(s, params.g)
+        digits = torch.from_numpy(ints_to_digits(s)).to(params.device)
+        return msm(params.curve, digits, params.g_dev,
+                   packed=params.packed_bases(False))
 
 
 class OpeningError(Exception):

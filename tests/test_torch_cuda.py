@@ -262,6 +262,65 @@ def test_bucket_runs_kernel_matches_plain_and_b2_loop(cuda, curve):
         assert torch.equal(got, want), st.dtype
 
 
+def _scalar_digits(curve, L, rng, cuda):
+    """[L, 16] random 256-bit scalars, the first four 0, 1, q - 1 and
+    2^256 - 1."""
+    q = curve.scalar.modulus
+    vals = [0, 1, q - 1, (1 << 256) - 1] + [
+        int.from_bytes(rng.bytes(32), "little") for _ in range(L - 4)]
+    return torch.from_numpy(ints_to_digits(vals)).to(cuda)
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_scalar_mul_ladder_matches_loop_and_plain(cuda, curve):
+    """The scalar-multiplication ladder, one launch a call: at 2^13 lanes
+    equal to the B5/B4/select loop (256 bits, one scalar a lane; 255 bits
+    from a table of 2^12 rows read by lane % T, with the fused
+    butterfly); at 256 lanes equal to its plain version."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(15)
+    for L in (1 << 13, 256):
+        pts = _card_points(curve, df, L, rng, cuda)
+        lo = _card_points(curve, df, L, rng, cuda)
+        digits = _scalar_digits(curve, L, rng, cuda)
+        table = digits[:L // 2]
+        before = pk.LAUNCHES["scalar_mul_ladder"]
+        got = pk.scalar_mul_ladder_flat(df, pts, digits, 256)
+        top, bot = pk.scalar_mul_ladder_flat(df, pts, table, 255, lo=lo)
+        assert pk.LAUNCHES["scalar_mul_ladder"] == before + 2
+        if L == 256:
+            assert torch.equal(got, pk.scalar_mul_ladder_plain(
+                df, pts, digits, 256))
+            want = pk.scalar_mul_ladder_plain(df, pts, table, 255, lo=lo)
+            assert torch.equal(top, want[0]) and torch.equal(bot, want[1])
+        else:
+            assert torch.equal(got, pk.scalar_mul_ladder_loop(df, pts, digits,
+                                                              256))
+            full = table[torch.arange(L, device=cuda) % (L // 2)]
+            t = pk.scalar_mul_ladder_loop(df, pts, full, 255)
+            assert torch.equal(top, pk.padd_flat(df, lo, t))
+            assert torch.equal(bot, pk.padd_flat(df, lo,
+                                                 pk.pneg_flat(df, t)))
+
+
+def test_params_new_on_the_card_matches_native(cuda):
+    """Params.new on CUDA builds g_lagrange by the device group iNTT (one
+    ladder launch a stage and one for the 1/n scale): the same bytes as
+    the CPU's, whose g_lagrange comes from the native library, and its
+    device batches of g and g_lagrange equal to points_to_proj of their
+    points."""
+    k = 10
+    before = pk.LAUNCHES["scalar_mul_ladder"]
+    params = Params.new(PALLAS, k, device=cuda, use_cache=False)
+    assert pk.LAUNCHES["scalar_mul_ladder"] == before + k + 1
+    assert params.write() == Params.new(PALLAS, k, device="cpu",
+                                        use_cache=False).write()
+    assert torch.equal(params.g_lagrange_dev, pk.points_to_proj(
+        FP_DEV, params.g_lagrange, cuda))
+    assert torch.equal(params.g_dev, pk.points_to_proj(FP_DEV, params.g,
+                                                       cuda))
+
+
 def test_msm_on_the_card_matches_host(cuda):
     n = 1024
     pts = native_srs_g(PALLAS, "torch-cuda-test", n)
