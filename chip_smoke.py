@@ -5,7 +5,7 @@ Phases, in this order (any failure exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from csrc/ (one nvcc per source, in
      parallel); registers and spills, and the SASS size of the bucket-run,
-     B2 and NTT kernels;
+     B2, B4, scalar-ladder and NTT kernels;
   3. kernel B1 (Montgomery multiply) and the field add/sub kernel against
      their plain PyTorch versions, bit-exact, 2^20 operands + edges, both
      fields;
@@ -28,17 +28,19 @@ Phases, in this order (any failure exits non-zero):
      with random masks and signs and identity-coded bases; B3's forms
      that read the second operand at a lane offset or by index with
      signs, timed beside B3 after torch.roll or a gather and a negation
-     (how the commits called it before); B4 (complete add), B5
-     (doubling) and B6 (masked doubling) likewise at 2^17 lanes (k=18's
-     first IPA fold) and 8,192 lanes (k=14's), with identity lanes, B4
-     lanes with a == b and a random B6 mask;
+     (how the commits called it before); B4 (complete add, one lane a
+     group of four threads), B5 (doubling) and B6 (masked doubling)
+     likewise at 2^17 lanes (k=18's first IPA fold) and 8,192 lanes
+     (k=14's), with identity lanes, B4 lanes with a == b and a random B6
+     mask;
   7b. [ladder] the fused GLV ladder kernel (one launch per IPA fold
      round) against the B5/B3 kernel loop it replaced at 2^13 and 2^17
      lanes and against its plain version at 256 lanes, both fields;
      device time per round beside its bound and the loop's time (its
      wall time, and its device time replayed from a CUDA graph);
   7c. [scalar-ladder] the per-lane scalar-multiplication ladder (one
-     launch per group-NTT stage, with the butterfly fused) against its
+     lane a group of four threads, one launch per group-NTT stage, with
+     the butterfly fused) against its
      plain version at 256 lanes and against the B5/B4/torch.where loop at
      2^13 and 2^17 lanes, both fields, edge scalars, identity lanes, one
      scalar a lane and a table read by lane % T; device time from a CUDA
@@ -74,7 +76,10 @@ Phases, in this order (any failure exits non-zero):
      prove, verify, a corrupted proof or a wrong instance rejected, the
      proof's sha256 against the JAX reference's (the golden file for
      plonk_api; zcash/halo2's own plonk_api proof verifies), launches per
-     kernel, and one profiled warm prove at each k;
+     kernel, and one profiled warm prove at each k; the warm k = REF_K
+     prove records the lane counts and row widths of B3's offset form;
+ 13a. [points] B3's offset form at those widths against its plain
+     version, device time beside its byte bound;
  13b. [srs] Params.new(use_cache=False) at k=14 and k=REF_K on the card:
      write() bytes equal to those with the native library's g_lagrange;
      native g, native group iNTT and the device group iNTT timed apart;
@@ -254,6 +259,7 @@ def phase_build():
     for name, key in (("point_kernels", "pmixed_bucket_runs"),
                       ("point_kernels", "pmixed_masked_kernel"),
                       ("point_kernels", "scalar_mul_ladder"),
+                      ("point_kernels", "padd_kernel"),
                       ("ntt_kernels", "ntt_")):
         for fn, count in sass_counts(cuda_build._so_path(name)).items():
             if key in fn:
@@ -448,6 +454,84 @@ def phase_b3_forms(results, params, A, mask, signs):
     log(f"[points] B3 operand forms mismatches {bad}")
     if bad:
         raise AssertionError(f"B3 operand forms: {bad} mismatches")
+
+
+class OffsetWidths:
+    """Within `with`, every call of B3's offset form by the MSM
+    (msm_pippenger.padd_masked_flat with width) is counted by its lane
+    count and row width: {(L, width): [calls, live lanes over the calls]}."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from halo2_tpu_torch.ops import msm_pippenger as mp
+        self.real = real = mp.padd_masked_flat
+
+        def recorded(df, a, b, mask, idx=None, sign=None, width=None,
+                     shift=0):
+            if width is not None:
+                ent = self.seen.setdefault((a.shape[1], width), [0, 0])
+                ent[0] += 1
+                ent[1] = ent[1] + mask.sum()      # no sync in the prove
+            return real(df, a, b, mask, idx, sign, width, shift)
+        mp.padd_masked_flat = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from halo2_tpu_torch.ops import msm_pippenger as mp
+        mp.padd_masked_flat = self.real
+
+
+def phase_b3_widths(results, params, widths):
+    """[points] B3's offset form at the widths the warm dev_lookup k=REF_K
+    prove launched it with (recorded by OffsetWidths): at each lane count
+    and row width, as the first suffix-sum round runs it (shift -1, every
+    lane live but the last of each row), on projective points, against
+    its plain version; device time by the profiler beside the byte bound
+    (a, its rolled copy and the output, as B3's other forms count
+    them). The points are B4 sums of two SRS points (_ladder_inputs)."""
+    import torch
+    from halo2_tpu_torch.ops import point_kernels as pk
+    df = params.base_df
+    gen = torch.Generator(device=params.device).manual_seed(18)
+    r = results["padd_masked"]
+    bad = 0
+    for (L, width), (calls, live_all) in sorted(widths.items()):
+        A, _ = _ladder_inputs(df, params.g_dev, L, gen, edge=False)
+        shift = -1
+        bidx = torch.arange(width, device=params.device)
+        mask = (bidx - shift < width).repeat(L // width)
+        fn = lambda: pk.padd_masked_flat(df, A, A, mask, width=width,
+                                         shift=shift)
+        got = fn()
+        # the plain version over whole rows of at most 2^16 lanes at a time
+        # (its temporaries at the scan's millions of lanes would not fit
+        # in the card's memory)
+        step = max(1, (1 << 16) // width) * width
+        for s in range(0, L, step):
+            a = A[:, s:s + step].contiguous()
+            bad += int((got[:, s:s + step] != pk.padd_masked_plain(
+                df, a, a, mask[s:s + step], width=width, shift=shift)
+                        ).any(dim=0).sum())
+        del got
+        ms = device_ms(fn, 20, "padd_masked_kernel")
+        live = int(mask.sum())
+        bd, by = bound_ms(L * (3 * 192 + 4), live * 12 * MONT_MULADDS)
+        r.update({f"ms_offset_L{L}_w{width}": ms,
+                  f"bound_ms_offset_L{L}_w{width}": bd,
+                  f"launches_offset_L{L}_w{width}": calls})
+        log(f"[points] padd_masked offset form at a k={REF_K} width, L={L} "
+            f"rows of {width} (shift {shift}, {live} live lanes): {ms:.5f} ms"
+            f" on the device (bound {bd:.5f} ms by {by}); {calls} launches "
+            f"in the warm dev_lookup k={REF_K} prove, "
+            f"{int(live_all) / calls:.0f}"
+            f" live lanes a launch on average")
+    r["mismatches"] += bad
+    log(f"[points] B3 offset form at k={REF_K} widths: {bad} mismatches")
+    if bad:
+        raise AssertionError(f"B3 offset form at k={REF_K}: {bad} "
+                             f"mismatches")
 
 
 def b2_round_loop(df, aff, gidx, valid, sig, acc):
@@ -1270,10 +1354,11 @@ def phase_layout(results):
 
 
 def _lookup_run(tag, params, circuit, instances, seed, curve,
-                ref_hash=None, golden=None, profile=False):
+                ref_hash=None, golden=None, profile=False, widths=None):
     """keygen, a cold and a warm prove (equal bytes), verify, a corrupted
     proof rejected, the proof's sha256 against `ref_hash` or the golden
-    file's; returns (vk, proof)."""
+    file's; returns (vk, proof). With `widths` (an OffsetWidths), the warm
+    prove runs inside it."""
     import torch
     from halo2_tpu_torch.plonk import prover as pv
     from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
@@ -1298,7 +1383,11 @@ def _lookup_run(tag, params, circuit, instances, seed, curve,
         before = launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        proofs.append(prove())
+        if label == "warm" and widths is not None:
+            with widths:
+                proofs.append(prove())
+        else:
+            proofs.append(prove())
         torch.cuda.synchronize()
         log(f"[lookup] {tag}: create_proof {label} "
             f"{time.perf_counter() - t:.3f}s, {len(proofs[-1])} bytes, "
@@ -1349,10 +1438,12 @@ def phase_lookup(results, params_k, params_ref_k):
     from halo2_tpu_torch.poly.polynomial import Rotation
     from halo2_tpu_torch.transcript import TranscriptRead
     reset_counts()
+    widths = OffsetWidths()
     for k, params in ((K, params_k), (REF_K, params_ref_k)):
         _lookup_run(f"dev_lookup k={k}", params, DevLookupCircuit(), [[]],
                     PROOF_SEED, PALLAS,
-                    ref_hash=REF_SHA256["dev-lookup", k], profile=True)
+                    ref_hash=REF_SHA256["dev-lookup", k], profile=True,
+                    widths=widths if k == REF_K else None)
     launches = launch_counts()
     log(f"[lookup] launches over the dev_lookup proves {launches}")
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
@@ -1388,6 +1479,7 @@ def phase_lookup(results, params_k, params_ref_k):
     torch.cuda.synchronize()
     log("[lookup] plonk_api: zcash/halo2's proof verifies, a wrong "
         "instance is rejected")
+    return widths.seen
 
 
 def _ladder_inputs(df, pts, L, gen, edge=True):
@@ -1820,8 +1912,9 @@ def main() -> int:
     run_phase(phase_verify, results, *state)
     params_ref_k = run_phase(phase_reference_k)
     run_phase(phase_bucket, results, state[0], params_ref_k)
-    run_phase(phase_lookup, results, state[0], params_ref_k)
+    widths = run_phase(phase_lookup, results, state[0], params_ref_k)
     del params_ref_k
+    run_phase(phase_b3_widths, results, state[0], widths)
     run_phase(phase_srs, results)
     kernels = [{"name": name, "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "path": paths[name],
@@ -1834,7 +1927,8 @@ def main() -> int:
                 "shape": r["shape"],
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
-                     "graph_ms", "profiler_ms", "srs_", "verify_"))}}
+                     "graph_ms", "profiler_ms", "srs_", "verify_",
+                     "launches_offset_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -50,10 +50,12 @@
 //
 // Layout: a point batch is [48, L] int32 (rows 0-15 X, 16-31 Y, 32-47 Z
 // as 16-bit Montgomery digits, lanes last); an affine batch is [32, L].
-// One thread per lane: neighbouring threads read neighbouring words of
-// each row, so every load and store coalesces (B3's index form gathers).
-// The formulas are written straight-line with all coordinates in
-// registers (8 x 32-bit limbs each).
+// One thread per lane (B2, B3, B5, B6, the GLV ladder, the bucket-run
+// kernel) or one lane a group of four threads (B4, the scalar ladder; see
+// the last note): neighbouring lanes read neighbouring words of each row,
+// so every load and store coalesces (B3's index form gathers). The
+// formulas are written straight-line with the coordinates in registers
+// (8 x 32-bit limbs each).
 //
 // What bounds them on an H100, and what the design does about it:
 // - By the roofline B3 moves 2 x 192 + 4 bytes in and 192 out per lane
@@ -113,36 +115,60 @@
 //   3,600 products a lane for a random 255-bit scalar, against a 192-byte
 //   read and write and a 64-byte scalar. As a loop of jnp ops it would be
 //   3 x nbits launches, each re-reading and re-writing the accumulator;
-//   one launch keeps it in registers, stages P in shared memory (24 limbs
-//   a thread, as the GLV ladder stages its table) and calls the product
-//   (the instruction-fetch finding above). Unlike the GLV ladder, each
-//   lane reads its own scalar: row l % T of a [T, 16] digit table (T = L
-//   for one scalar a lane; T = half for a group-NTT stage, whose lanes
-//   share the stage's half twiddles, so no n/2-row copy is written). So
-//   lanes of one warp hold different bits. The add is a branch, not an
-//   always-computed add and a select: a warp runs the add once whenever
-//   any of its lanes has the bit set, which a masked add would also pay,
-//   and skips it when none has (a group NTT's first stage and its 1/n
-//   scale, where every lane holds the same scalar); the select would be
-//   24 more moves a step. So with random scalars every step costs a
-//   doubling and an add: 3.99 ms at 2^13 lanes and 21.8 ms at 2^17 for a
-//   fused 255-bit stage (NVIDIA H100 80GB HBM3, 700 W; PERF.md), 20x and
-//   6.9x the bound. The fused butterfly adds two complete adds (24
-//   products) and saves the two B4 launches and the negation of a stage.
-// - Block size (B3 and the ladder): `nvcc -Xptxas -v` reports 106, 122
+//   one launch keeps it in registers, stages P in shared memory and calls
+//   the product (the instruction-fetch finding above). Unlike the GLV
+//   ladder, each lane reads its own scalar: row l % T of a [T, 16] digit
+//   table (T = L for one scalar a lane; T = half for a group-NTT stage,
+//   whose lanes share the stage's half twiddles, so no n/2-row copy is
+//   written). So lanes of one warp hold different bits, and with random
+//   scalars a warp runs the add on nearly every step. The fused butterfly
+//   adds two complete adds (24 products) and saves the two B4 launches and
+//   the negation of a stage.
+// - Block size (B3 and the GLV ladder): `nvcc -Xptxas -v` reports 106, 122
 //   and 124 registers for B3's lane, offset and index forms and 96 (with
 //   a 672-byte stack frame) for the ladder, no spills. A 128-thread block
 //   then holds 12-16K of an SM's 64K registers (and the ladder's 36 KB of
 //   shared memory), so every block of B3's 26,624 lanes or the ladder's
 //   8,192 is resident at once, and what the block size decides is how
-//   evenly the lanes spread over the 132 SMs. (The scalar-multiplication
-//   ladder takes 168 registers and a 672-byte frame: at most 12 warps a
-//   SM, so its 2^17-lane stages run in waves.) spread_threads picks, from
-//   32, 64 and 128 threads, the size that puts the fewest lanes on the
+//   evenly the lanes spread over the 132 SMs. spread_threads picks, from
+//   32, 64 and 128 threads, the size that puts the fewest threads on the
 //   busiest SM (B3 at 26,624 lanes: 32, at most 224 a SM against 256;
 //   the ladder at 8,192 lanes: 64, one block on each of 128 SMs, where
 //   128 threads would fill only 64 SMs). For the ladder with inlined
 //   products, 32, 64 and 128 measured the same (ladder_variants.py).
+// - B4 and the scalar ladder, one thread a lane, ran a chain of dependent
+//   products at too few warps to hide it: B4 12 inlined products in
+//   fixed 128-thread blocks (8,192 lanes filled 64 of the 132 SMs with
+//   four warps each: 0.01289 ms against a 0.00141 ms byte bound); the
+//   scalar ladder about 5,100 called products at 2^13 lanes (two warps a
+//   SM: 4.02 ms against 0.197) and, at 168 registers, at most 12 warps a
+//   SM at 2^17 (21.9 ms against 3.15; NVIDIA H100 80GB HBM3, 700 W;
+//   PERF.md). RCB's formulas leave parallelism unused: Alg 7's 12
+//   products fall into two stages of 6 independent ones, with only adds
+//   and two mul15 between them, Alg 9's 8 into two stages of 4. So a group
+//   of four threads serves a lane (coop_add, coop_double): Alg 7 runs in
+//   four product rounds on three ranks, Alg 9 in two on four, the
+//   results exchanged by shuffles within the group, and the card holds
+//   four times the warps at the same lane count. The price is the sums,
+//   which every rank runs on its own values (15 field adds an add, 10 a
+//   doubling, against 21 and 11 on one thread), the selects and shuffles
+//   around them, and rank 3's idle add: more issued instructions a lane,
+//   where the lanes already fill the card. B4 launches L x 4 threads in
+//   blocks from spread_threads, so 8,192 lanes reach every SM; the ladder
+//   stages P once a group (25 words, not 24 a thread). wgmma, TMA and
+//   clusters fit none of this: 8 x 32-bit limb products are IMAD work, and
+//   each lane reads its operands once.
+// - Measured beside the one-thread forms in one process
+//   (redesign_variants.py; NVIDIA H100 80GB HBM3, 700 W; PERF.md): B4
+//   0.0083 ms at 8,192 lanes against 0.0141, the ladder 2.12 ms a 2^13-
+//   lane stage against 4.03, from 112 and 168 registers to 79 and 122.
+//   Where the lanes fill the card the group loses: B4 0.0817 ms at 2^17
+//   against 0.0721, the ladder 28.6 ms a 2^17-lane stage against 22.0,
+//   since the card is then bound by issued instructions and the group
+//   issues about 1.5x as many a lane. The add as an always-computed add
+//   and a select measured the same as the branch; the ladder's products
+//   inlined (13,832 SASS instructions against 8,576) ran 1.2-1.7x slower;
+//   the sums on rank 0 alone, their results shuffled out, 8-23% slower.
 #include "field.cuh"
 
 using namespace h2t;
@@ -275,6 +301,137 @@ __device__ __forceinline__ void rcb_double(Pt& o, const Pt& a) {
   add<F>(o.x, v, v);
 }
 
+// ---------------------------------------------------------------------------
+// Cooperative forms (B4 and the scalar-multiplication ladder): a group of
+// kGroup consecutive threads of a warp serves one lane. Rank r (thread
+// index % kGroup) holds coordinate c(r) = {X, Y, Z, X}[r] of a point, 8
+// limbs; rank 3 repeats rank 0's part of the add, so it always holds X.
+// Each stage's independent products are dealt out over the ranks and the
+// results exchanged with __shfl_sync over the group's four lanes. For rank
+// r, nibble r of each map names the rank a shuffle reads. The sums between
+// stages run on every rank, each on its own values, and pick their
+// operands by rank with selects, so the group never diverges. Every value
+// is a canonical field element and every product the same mont_mul on the
+// same operands as rcb_add / rcb_double, so the results are theirs bit for
+// bit (tests/test_torch_coop_point.py runs this schedule on the CPU).
+static constexpr int kGroup = 4;
+// c(r) + 1 (mod 3): the rank that holds the next coordinate
+static constexpr uint32_t kNext = 0x1021;
+// Alg 7, stage 2: round 1's first and second operands, round 2's first
+static constexpr uint32_t kAddOpA1 = 0x1121;
+static constexpr uint32_t kAddOpB1 = 0x2102;
+static constexpr uint32_t kAddOpA2 = 0x1011;
+// Alg 9: stage 1's operands, and where each rank's result coordinate lies
+static constexpr uint32_t kDblOpA = 0x0211;
+static constexpr uint32_t kDblOpB = 0x1221;
+static constexpr uint32_t kDblOut = 0x3103;
+
+__device__ __forceinline__ int nib(uint32_t map, int r) {
+  return (int)((map >> (4 * r)) & 15u);
+}
+
+// the four lanes of the calling thread's group
+__device__ __forceinline__ unsigned group_mask() {
+  return 0xFu << (threadIdx.x & 31u & ~(unsigned)(kGroup - 1));
+}
+
+// o = v of rank src of the group, limb by limb (o may alias v)
+__device__ __forceinline__ void shfl8(uint32_t o[8], const uint32_t v[8],
+                                      int src, unsigned gm) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) o[i] = __shfl_sync(gm, v[i], src, kGroup);
+}
+
+// o = {v0, v1, v2}[q]
+__device__ __forceinline__ void select3(uint32_t o[8], int q,
+                                        const uint32_t v0[8],
+                                        const uint32_t v1[8],
+                                        const uint32_t v2[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) o[i] = q == 0 ? v0[i] : q == 1 ? v1[i] : v2[i];
+}
+
+// RCB15 Alg 7 over a group: a0 and b0 hold coordinate c(r) of A and B, a1
+// and b1 coordinate c(r) + 1 (mod 3); o gets coordinate c(r) of A + B.
+// Two stages of two product rounds (ranks 0-2 busy, rank 3 repeating rank
+// 0), the dependent chain 4 products instead of 12. o may alias a0.
+template <int F, bool CALL>
+__device__ __forceinline__ void coop_add(uint32_t o[8], const uint32_t a0[8],
+                                         const uint32_t a1[8],
+                                         const uint32_t b0[8],
+                                         const uint32_t b1[8], int r,
+                                         unsigned gm) {
+  const int q = r == 3 ? 0 : r;
+  uint32_t t[8], m[8], u[8], v[8];
+  // stage 1: t0, t1, t2 = A_q B_q and (A_q + A_q+1)(B_q + B_q+1) at rank q
+  pmul<F, CALL>(t, a0, b0);
+  add<F>(u, a0, a1);
+  add<F>(v, b0, b1);
+  pmul<F, CALL>(m, u, v);
+  uint32_t tn[8], d[8], g3[8], f[8], z[8], s[8];
+  shfl8(tn, t, nib(kNext, r), gm);  // t1, t2, t0 at ranks 0, 1, 2
+  sub<F>(d, m, t);
+  sub<F>(d, d, tn);                 // t3, t4, xz at ranks 0, 1, 2
+  select(u, q == 0, t, tn);         // t0 at ranks 0 and 2
+  add<F>(g3, u, u);
+  add<F>(g3, g3, u);                // s0 = 3 t0 at ranks 0 and 2
+  select(u, q == 2, d, tn);
+  mul15<F>(f, u);                   // b3z = 15 t2 at 1, y3 = 15 xz at 2
+  add<F>(z, t, f);                  // z3 = t1 + b3z at 1
+  sub<F>(s, t, f);                  // s1 = t1 - b3z at 1
+  // stage 2, round 1: t4 y3, y3 s0, t4 z3 at ranks 0, 1, 2
+  select(u, q == 2, f, d);
+  shfl8(u, u, nib(kAddOpA1, r), gm);
+  select3(v, q, g3, z, f);
+  shfl8(v, v, nib(kAddOpB1, r), gm);
+  pmul<F, CALL>(m, u, v);
+  // round 2: s1 t3, s1 z3, t3 s0 (the second operand is the rank's own)
+  select(u, q == 1, s, d);
+  shfl8(u, u, nib(kAddOpA2, r), gm);
+  select3(v, q, d, z, g3);
+  pmul<F, CALL>(t, u, v);
+  // X3 = s1 t3 - t4 y3, Y3 = y3 s0 + s1 z3, Z3 = z3 t4 + s0 t3
+  sub<F>(u, t, m);
+  add<F>(v, m, t);
+  select(o, q == 0, u, v);
+}
+
+// RCB15 Alg 9 over a group: c holds coordinate c(r) of A; o gets coordinate
+// c(r) of 2A. Two stages of one product round each (every rank busy), the
+// dependent chain 2 products instead of 8. o may alias c.
+template <int F, bool CALL>
+__device__ __forceinline__ void coop_double(uint32_t o[8], const uint32_t c[8],
+                                            int r, unsigned gm) {
+  uint32_t a[8], b[8], p[8], e[8], f[8];
+  shfl8(a, c, nib(kDblOpA, r), gm);
+  shfl8(b, c, nib(kDblOpB, r), gm);
+  pmul<F, CALL>(p, a, b);           // Y^2, YZ, Z^2, XY at ranks 0-3
+  add<F>(e, p, p);
+  add<F>(e, e, e);
+  add<F>(e, e, e);                  // z3 = 8 Y^2 at rank 0
+  add<F>(f, e, e);
+  sub<F>(f, f, p);                  // t2 = 15 Z^2 (b3 Z^2) at rank 2
+  uint32_t t0[8], z3[8], t2[8];
+  shfl8(t0, p, 0, gm);
+  shfl8(z3, e, 0, gm);
+  shfl8(t2, f, 2, gm);
+  add<F>(f, t0, t2);                // y3
+  add<F>(e, t2, t2);
+  add<F>(e, e, t2);
+  sub<F>(t0, t0, e);                // Y^2 - 3 b3 Z^2
+  // stage 2: t0 y3, t1 z3 (= Z3), t2 z3, t0 xy at ranks 0-3
+  select(a, r == 2, t2, t0);
+  select(a, r == 1, p, a);
+  select(b, r == 0, f, z3);
+  select(b, r == 3, p, b);
+  pmul<F, CALL>(e, a, b);
+  shfl8(f, e, 2, gm);
+  select(f, r == 0, f, e);
+  add<F>(f, e, f);                  // Y3 at rank 0, X3 = 2 t0 xy at rank 3
+  select(f, r == 1, e, f);          // Z3 at rank 1
+  shfl8(o, f, nib(kDblOut, r), gm);
+}
+
 __device__ __forceinline__ void load_pt(Pt& p, const int32_t* src,
                                         size_t stride) {
   load_rows(p.x, src, stride);
@@ -308,6 +465,8 @@ enum SrcMode { SRC_LANE = 0, SRC_ROLL = 1, SRC_INDEX = 2 };
 
 // the largest block of every kernel here
 static const int kMaxThreads = 128;
+// the most lanes a cooperative kernel takes (its thread index is 32-bit)
+static const long long kMaxGroupLanes = (1LL << 32) / 4 - kMaxThreads;
 
 // B3: out[l] = mask[l] ? a[l] + src[j(l)] : a[l]. SRC_LANE: j = l;
 // SRC_ROLL: j = the lane `shift` (0 <= shift < width) places before l
@@ -422,10 +581,13 @@ glv_ladder_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ t1,
 // scalar_mul_ladder: acc = O; for s = nbits - 1 down to 0: acc = 2 acc,
 // then acc = acc + P where bit s of the lane's scalar is set. Lane l reads
 // P = pts[l] and its scalar from row l % T of `digits` (16 canonical
-// 16-bit digits, int32). P lives in dynamic shared memory as
-// [24 limbs][blockDim.x]: each thread reads only its own column. With lo,
-// out = lo + acc and out2 = lo - acc (the group NTT's butterfly), else
-// out = acc.
+// 16-bit digits, int32). With lo, out = lo + acc and out2 = lo - acc (the
+// group NTT's butterfly), else out = acc. One lane a group of kGroup
+// threads (coop_double, coop_add): rank r keeps coordinate c(r) of acc in
+// registers; P is staged once a group in dynamic shared memory, 25 words a
+// group (24 limbs and a pad, so that the ranks' reads of coordinates 0-2
+// of the warp's eight groups fall in 24 distinct banks). The group's bit
+// is the same on all its ranks, so the add is a branch of the group.
 template <int F>
 __global__ void __launch_bounds__(kMaxThreads)
 scalar_mul_ladder_kernel(int32_t* __restrict__ out,
@@ -435,27 +597,24 @@ scalar_mul_ladder_kernel(int32_t* __restrict__ out,
                          const int32_t* __restrict__ lo, uint32_t T,
                          uint32_t nbits, uint32_t L) {
   extern __shared__ uint32_t tab[];
-  const uint32_t tid = threadIdx.x, bd = blockDim.x;
-  const uint32_t l = blockIdx.x * bd + tid;
-  if (l >= L) return;
-  {
-    Pt q;
-    load_pt(q, pts + l, L);
+  const uint32_t g = threadIdx.x / kGroup;
+  const uint32_t l = blockIdx.x * (blockDim.x / kGroup) + g;
+  if (l >= L) return;  // whole groups: kGroup divides the block
+  const int r = threadIdx.x % kGroup;
+  const unsigned gm = group_mask();
+  const int c = r == 3 ? 0 : r, cn = nib(kNext, r);
+  const size_t row = (size_t)16 * c * L + l;
+  uint32_t* P = tab + 25 * g;
+  uint32_t acc[8], a1[8], b0[8], b1[8];
+  load_rows(acc, pts + row, L);
+  if (r < 3) {
 #pragma unroll
-    for (int i = 0; i < 8; i++) {
-      tab[i * bd + tid] = q.x[i];
-      tab[(8 + i) * bd + tid] = q.y[i];
-      tab[(16 + i) * bd + tid] = q.z[i];
-    }
+    for (int i = 0; i < 8; i++) P[8 * r + i] = acc[i];
   }
+  __syncwarp(gm);
+#pragma unroll
+  for (int i = 0; i < 8; i++) acc[i] = c == 1 ? Field<F>::one(i) : 0u;
   const int32_t* d = digits + (size_t)(l % T) * 16;
-  Pt acc, r;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    acc.x[i] = 0;
-    acc.y[i] = Field<F>::one(i);
-    acc.z[i] = 0;
-  }
   uint32_t word = 0;
 #pragma unroll 1
   for (int s = (int)nbits - 1; s >= 0; s--) {
@@ -464,31 +623,30 @@ scalar_mul_ladder_kernel(int32_t* __restrict__ out,
       word = ((uint32_t)d[2 * w] & 0xFFFFu) |
              (((uint32_t)d[2 * w + 1] & 0xFFFFu) << 16);
     }
-    rcb_double<F, true>(r, acc);
-    if (((word >> (s & 31)) & 1u) == 0) {
-      acc = r;
-      continue;
-    }
-    Pt q;
+    coop_double<F, true>(acc, acc, r, gm);
+    if (((word >> (s & 31)) & 1u) == 0) continue;
+    shfl8(a1, acc, cn, gm);
 #pragma unroll
     for (int i = 0; i < 8; i++) {
-      q.x[i] = tab[i * bd + tid];
-      q.y[i] = tab[(8 + i) * bd + tid];
-      q.z[i] = tab[(16 + i) * bd + tid];
+      b0[i] = P[8 * c + i];
+      b1[i] = P[8 * cn + i];
     }
-    rcb_add<F, true>(acc, r, q);
+    coop_add<F, true>(acc, acc, a1, b0, b1, r, gm);
   }
   if (lo == nullptr) {
-    store_pt(out + l, L, acc);
+    if (r < 3) store_rows(out + row, L, acc);
     return;
   }
-  Pt a;
-  load_pt(a, lo + l, L);
-  rcb_add<F, true>(r, a, acc);
-  store_pt(out + l, L, r);
-  neg_in_place<F>(acc.y);
-  rcb_add<F, true>(r, a, acc);
-  store_pt(out2 + l, L, r);
+  uint32_t a0[8], o[8];
+  load_rows(a0, lo + row, L);
+  shfl8(a1, a0, cn, gm);
+  shfl8(b1, acc, cn, gm);
+  coop_add<F, true>(o, a0, a1, acc, b1, r, gm);
+  if (r < 3) store_rows(out + row, L, o);
+  if (c == 1) neg_in_place<F>(acc);  // -acc: Y as p - Y, 0 kept
+  shfl8(b1, acc, cn, gm);
+  coop_add<F, true>(o, a0, a1, acc, b1, r, gm);
+  if (r < 3) store_rows(out2 + row, L, o);
 }
 
 template <int F>
@@ -576,17 +734,25 @@ pmixed_bucket_runs_kernel(int32_t* __restrict__ out,
   store_pt(out + l, L, acc);
 }
 
+// B4: out = a + b, one lane a group of kGroup threads (coop_add, the
+// products inlined): rank r reads coordinate c(r) of a and b and takes the
+// next one from its neighbour; ranks 0-2 write coordinates X, Y, Z.
 template <int F>
-__global__ void padd_kernel(int32_t* __restrict__ out,
-                            const int32_t* __restrict__ a,
-                            const int32_t* __restrict__ b, uint32_t L) {
-  uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  Pt p, q, r;
-  load_pt(p, a + l, L);
-  load_pt(q, b + l, L);
-  rcb_add<F>(r, p, q);
-  store_pt(out + l, L, r);
+__global__ void __launch_bounds__(kMaxThreads)
+padd_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
+            const int32_t* __restrict__ b, uint32_t L) {
+  const uint32_t l = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (l >= L) return;  // whole groups: kGroup divides the block
+  const int r = threadIdx.x % kGroup;
+  const unsigned gm = group_mask();
+  const size_t row = (size_t)16 * (r == 3 ? 0 : r) * L + l;
+  uint32_t a0[8], a1[8], b0[8], b1[8], o[8];
+  load_rows(a0, a + row, L);
+  load_rows(b0, b + row, L);
+  shfl8(a1, a0, nib(kNext, r), gm);
+  shfl8(b1, b0, nib(kNext, r), gm);
+  coop_add<F, false>(o, a0, a1, b0, b1, r, gm);
+  if (r < 3) store_rows(out + row, L, o);
 }
 
 template <int F>
@@ -642,9 +808,10 @@ static int sm_count() {
   return sms;
 }
 
-// The block size of 32, 64 or 128 threads that puts the fewest lanes on
-// the busiest SM when L lanes are dealt out in blocks; ties go to the
-// larger block.
+// The block size of 32, 64 or 128 threads that puts the fewest threads on
+// the busiest SM when L threads (a lane each, or kGroup a lane for the
+// cooperative kernels, so a group never straddles a block) are dealt out
+// in blocks; ties go to the larger block.
 static int spread_threads(long long L) {
   const long long sms = sm_count();
   int best = kMaxThreads;
@@ -721,9 +888,11 @@ extern "C" int h2t_scalar_mul_ladder(int field, void* out, void* out2,
   if (L <= 0) return 0;
   if (T <= 0 || nbits < 1 || nbits > 256 || (lo == nullptr) != (out2 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = spread_threads(L);
-  dim3 grid((unsigned)((L + threads - 1) / threads));
-  const size_t shmem = (size_t)24 * sizeof(uint32_t) * threads;
+  if (L > kMaxGroupLanes) return (int)cudaErrorInvalidValue;
+  const long long n = L * kGroup;
+  const int threads = spread_threads(n);
+  dim3 grid((unsigned)((n + threads - 1) / threads));
+  const size_t shmem = (size_t)25 * sizeof(uint32_t) * (threads / kGroup);
   auto kern = field ? scalar_mul_ladder_kernel<1> : scalar_mul_ladder_kernel<0>;
   kern<<<grid, threads, shmem, (cudaStream_t)stream>>>(
       (int32_t*)out, (int32_t*)out2, (const int32_t*)pts,
@@ -761,11 +930,18 @@ extern "C" int h2t_pmixed_bucket_runs(int field, void* out,
   return (int)cudaGetLastError();
 }
 
+// L x kGroup threads in blocks of spread_threads(L x kGroup)
 extern "C" int h2t_padd(int field, void* out, const void* a, const void* b,
                         long long L, void* stream) {
-  return launch_lanes(field, padd_kernel<0>, padd_kernel<1>, L, stream,
-                      (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
-                      (uint32_t)L);
+  if (L <= 0) return 0;
+  if (L > kMaxGroupLanes) return (int)cudaErrorInvalidValue;
+  const long long n = L * kGroup;
+  const int threads = spread_threads(n);
+  dim3 grid((unsigned)((n + threads - 1) / threads));
+  auto kern = field ? padd_kernel<1> : padd_kernel<0>;
+  kern<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)a, (const int32_t*)b, (uint32_t)L);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int h2t_pdouble(int field, void* out, const void* a, long long L,

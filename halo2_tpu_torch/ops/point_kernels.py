@@ -16,7 +16,8 @@ complete formulas for a = 0, b3 = 15 (eprint 2015/1060, Alg 7, 8 and 9).
 
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches csrc/point_kernels.cu or raises. `LAUNCHES` counts
-kernel launches.
+kernel launches. B4 and the scalar ladder run one lane on a group of four
+threads; their results are the same as one thread's, bit for bit.
 """
 from __future__ import annotations
 
@@ -476,7 +477,8 @@ def pmixed_bucket_runs(df, bases: torch.Tensor, members: torch.Tensor,
 
 
 def padd_flat(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Complete add a + b on [48, L] batches (kernel B4 on CUDA)."""
+    """Complete add a + b on [48, L] batches (kernel B4 on CUDA, one lane
+    a group of four threads)."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     _check_batch(b, 3 * NLIMBS, L, "b")

@@ -303,6 +303,71 @@ def test_scalar_mul_ladder_matches_loop_and_plain(cuda, curve):
                                                  pk.pneg_flat(df, t)))
 
 
+GROUP_EDGES = (1, 31, 33, 8191, 8192)
+
+
+def _edge_points(curve, df, L, rng, cuda):
+    """[48, L] points with Z != 1 and an identity lane (lane L // 3)."""
+    pts = pk.points_to_proj(df, native_srs_g(curve, "torch-cuda-test", 1024),
+                            cuda)
+    pick = lambda: torch.from_numpy(rng.integers(0, 1024, L)).to(cuda)
+    g = pk.padd_flat(df, pts[:, pick()], pts[:, pick()])
+    g[:, L // 3] = pk.ident_col(df, cuda)
+    return g
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_padd_kernel_at_group_and_block_edges(cuda, curve):
+    """B4 (one lane a group of four threads) equals padd_plain at lane
+    counts that end part way through a warp or a block: 1, 31, 33, 8,191
+    and 8,192 lanes, with identity lanes and a == b lanes, one launch a
+    call."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(21)
+    for L in GROUP_EDGES:
+        a = _edge_points(curve, df, L, rng, cuda)
+        b = _edge_points(curve, df, L, rng, cuda)
+        b[:, L // 2:L // 2 + 5] = a[:, L // 2:L // 2 + 5]
+        b[:, -1] = pk.ident_col(df, cuda)
+        before = pk.LAUNCHES["padd"]
+        got = pk.padd_flat(df, a, b)
+        assert pk.LAUNCHES["padd"] == before + 1
+        assert torch.equal(got.cpu(), pk.padd_plain(df, a.cpu(), b.cpu())), L
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_scalar_mul_ladder_at_group_and_block_edges(cuda, curve):
+    """The scalar ladder (one lane a group of four threads) at 1, 31, 33,
+    8,191 and 8,192 lanes, with the scalars 0, 1, q - 1 and 2^256 - 1 and
+    identity lanes, without and with the fused butterfly (a table of half
+    the lanes): equal to its plain version up to 33 lanes (at one lane,
+    each edge scalar in turn) and to the B5/B4/select loop above."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(22)
+    for L in GROUP_EDGES:
+        pts = _edge_points(curve, df, L, rng, cuda)
+        lo = _edge_points(curve, df, L, rng, cuda)
+        digits = _scalar_digits(curve, max(L, 4), rng, cuda)
+        for d in (digits[i:i + 1] for i in range(4)) if L == 1 else (digits,):
+            table = d[:max(L // 2, 1)]
+            before = pk.LAUNCHES["scalar_mul_ladder"]
+            got = pk.scalar_mul_ladder_flat(df, pts, d, 256)
+            top, bot = pk.scalar_mul_ladder_flat(df, pts, table, 255, lo=lo)
+            assert pk.LAUNCHES["scalar_mul_ladder"] == before + 2
+            if L <= 33:
+                assert torch.equal(got, pk.scalar_mul_ladder_plain(
+                    df, pts, d, 256)), L
+                want = pk.scalar_mul_ladder_plain(df, pts, table, 255, lo=lo)
+            else:
+                assert torch.equal(got, pk.scalar_mul_ladder_loop(
+                    df, pts, d, 256)), L
+                full = table[torch.arange(L, device=cuda) % table.shape[0]]
+                t = pk.scalar_mul_ladder_loop(df, pts, full, 255)
+                want = (pk.padd_flat(df, lo, t),
+                        pk.padd_flat(df, lo, pk.pneg_flat(df, t)))
+            assert torch.equal(top, want[0]) and torch.equal(bot, want[1]), L
+
+
 def test_params_new_on_the_card_matches_native(cuda):
     """Params.new on CUDA builds g_lagrange by the device group iNTT (one
     ladder launch a stage and one for the 1/n scale): the same bytes as
