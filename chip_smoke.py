@@ -60,6 +60,17 @@ Phases, in this order (any failure exits non-zero):
      native MSM), BatchVerifier (a pair of k=14 proofs accepted, a
      corrupted proof and a wrong instance rejected) and the device branch
      of MSMAccumulator.eval against the host one;
+ 11c. [v1] BenchCircuit at k=14 laid out by the V1 floor planner:
+     keygen, a cold and a warm prove, verify, a wrong public input
+     rejected, the proof's sha256 against the JAX reference's (recorded
+     with reference_proof_hash.py --planner v1); V1's host planning
+     time on lines of its own; every main-path kernel launched;
+ 11d. [mock] MockProver on BenchCircuit at k=14 and k=REF_K and on
+     dev_lookup at k=14: the host verify() and the gate check on the
+     card (verify_vectorized, B1 and the add/subtract) find nothing; a
+     changed advice cell gives the same gate failures on both, field by
+     field; a wrong instance gives the reference's failure kinds; the
+     k=REF_K per-row zero flags equal the plain versions' on the CPU;
  12. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
      reference was run at, at the default IPA schedule (four device
      rounds, then native; cold, then warm), with every round native and
@@ -117,6 +128,9 @@ REF_SHA256 = {
         "6b3b2e64470bc5b3673cd81897e6431e8f062e5071385553a8b62ff4b1bce9e0",
     ("dev-lookup", 18):
         "bc9eede3360704f004a40ac2d2c5be8f190a2dc4d2fbd5c4d87a73b6faff9d28",
+    # BenchCircuit under the V1 floor planner (--planner v1)
+    ("bench-v1", 14):
+        "78347be96697241f5853b05e4914ab92002cd3c6492d6fc717f57325de88586f",
 }
 REF_K = 18
 # kernels of the main path (the default IPA schedule at k=14 runs every
@@ -1024,10 +1038,11 @@ def reset_counts() -> None:
             d[key] = 0
 
 
-def profile_call(tag, fn):
-    """fn() (one warm prove) under torch.profiler: device time by kernel
-    and the busy share of the wall time. Reports "not measured" where the
-    profiler sees no device activity."""
+def profile_call(tag, fn, what="warm prove"):
+    """fn() (one warm prove, or the call `what` names) under
+    torch.profiler: device time by kernel and the busy share of the wall
+    time. Reports "not measured" where the profiler sees no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -1049,10 +1064,10 @@ def profile_call(tag, fn):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
-        log(f"[{tag}] warm prove {wall:.3f}s; device time not measured "
+        log(f"[{tag}] {what} {wall:.3f}s; device time not measured "
             f"(the profiler saw no device activity)")
         return
-    log(f"[{tag}] warm prove {wall:.3f}s wall, device busy {busy:.4f}s "
+    log(f"[{tag}] {what} {wall:.3f}s wall, device busy {busy:.4f}s "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for dev_us, count, key in rows[:12]:
         log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
@@ -1826,6 +1841,246 @@ def phase_verify(results, params, pk_, circuit, out):
     if not launches["pmixed_bucket_runs"]:
         raise AssertionError("no device MSM ran on the verify path")
 
+class v1_timer:
+    """Within the block, the host time of the V1 floor planner: each
+    synthesize_v1 call (measurement pass, first fit and assignment pass;
+    or the assignment pass alone when a plan is replayed) and each
+    slot_in_biggest_advice_first call (the first fit alone), in seconds
+    (a measurement hook around circuit/floor_planner_v1.py)."""
+
+    def __enter__(self):
+        from halo2_tpu_torch.circuit import floor_planner_v1 as v1
+        self.synth, self.slot_in = [], []
+        self.orig = (v1.synthesize_v1, v1.slot_in_biggest_advice_first)
+
+        def hook(fn, into, label):
+            def timed_call(*args, **kw):
+                t = time.perf_counter()
+                ret = fn(*args, **kw)
+                into.append((label(kw), time.perf_counter() - t))
+                return ret
+            return timed_call
+
+        v1.synthesize_v1 = hook(
+            self.orig[0], self.synth,
+            lambda kw: "replay" if kw.get("plan") is not None else "plan")
+        v1.slot_in_biggest_advice_first = hook(self.orig[1], self.slot_in,
+                                               lambda kw: "first fit")
+        return self
+
+    def __exit__(self, *exc):
+        from halo2_tpu_torch.circuit import floor_planner_v1 as v1
+        v1.synthesize_v1, v1.slot_in_biggest_advice_first = self.orig
+        return False
+
+    def take(self) -> str:
+        text = ", ".join(f"{label} {sec:.2f}s"
+                         for label, sec in self.synth + self.slot_in)
+        self.synth.clear()
+        self.slot_in.clear()
+        return text or "none"
+
+
+def phase_v1(results, params):
+    """[v1] BenchCircuit at k=14 laid out by the V1 floor planner: keygen,
+    a cold prove (which plans the layout again) and a warm one (which
+    replays pk._synth_plan['v1']), verify, a wrong public input rejected,
+    and the proof's sha256 against the JAX reference's. V1's planning is
+    host time and is printed on lines of its own. Counts set to 0 just
+    before and read just after; every kernel of the main path must
+    launch."""
+    import torch
+    from halo2_tpu_torch.bench_circuit import (bench_circuit_class,
+                                               regions_for_k, expected_output,
+                                               SEED_A, PROOF_SEED)
+    from halo2_tpu_torch.circuit import Circuit, Value
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
+    from halo2_tpu_torch.plonk.verifier import (verify_proof, SingleVerifier,
+                                                VerificationError)
+    from halo2_tpu_torch.poly.polynomial import Rotation
+    from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
+    fs = PALLAS.scalar
+    regions = regions_for_k(K)
+    out = expected_output(fs, SEED_A, regions)
+    circuit = bench_circuit_class(Circuit, Value, Rotation, fs, "v1")(
+        SEED_A, regions)
+    reset_counts()                        # the V1 path's count starts
+    with v1_timer() as planner:
+        t = time.perf_counter()
+        vk = keygen_vk(params, circuit)
+        pk_ = keygen_pk(params, vk, circuit)
+        torch.cuda.synchronize()
+        log(f"[v1] k={K} regions={regions}: keygen "
+            f"{time.perf_counter() - t:.2f}s")
+        log(f"[v1] host planning in keygen: {planner.take()}")
+        proofs = []
+        for label in ("cold", "warm"):
+            before = launch_counts()
+            tw = TranscriptWrite(PALLAS)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pv.create_proof(params, pk_, [circuit], [[[out]]],
+                            random.Random(PROOF_SEED), tw)
+            torch.cuda.synchronize()
+            proofs.append(tw.finalize())
+            log(f"[v1] create_proof {label}: "
+                f"{time.perf_counter() - t:.3f}s, {len(proofs[-1])} bytes, "
+                f"launches {diff_counts(before)}")
+            log(f"[v1] host planning in the {label} prove: {planner.take()}")
+            log(f"[v1] {label} phases " + json.dumps(
+                {name: round(sec, 4) for name, sec in pv.LAST_PHASES}))
+    launches = launch_counts()
+    log(f"[v1] launches in keygen and the two proves {launches}")
+    for name in MAIN_PATH_KERNELS:
+        results[name]["v1_launches"] = launches[name]
+    verify_proof(params, vk, SingleVerifier(params), [[[out]]],
+                 TranscriptRead(PALLAS, proofs[1]))
+    try:
+        verify_proof(params, vk, SingleVerifier(params), [[[out + 1]]],
+                     TranscriptRead(PALLAS, proofs[1]))
+    except VerificationError:
+        log("[v1] proof verified; a wrong public input rejected")
+    else:
+        raise AssertionError("[v1] a wrong public input was accepted")
+    digest = hashlib.sha256(proofs[1]).hexdigest()
+    log(f"[v1] proof sha256 {digest}")
+    if proofs[0] != proofs[1] or digest != REF_SHA256["bench-v1", K]:
+        raise AssertionError(f"V1 proof hash {digest} != JAX reference "
+                             f"{REF_SHA256['bench-v1', K]}")
+    log("[v1] proof bytes equal the JAX reference's")
+    idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels of the V1 path not launched: {idle}")
+
+
+def _failures(errors) -> list:
+    """(kind, location) of each failure, for the log and the checks."""
+    out = []
+    for e in errors:
+        where = getattr(e, "location", None)
+        if where is None:
+            col = getattr(e, "column", None)
+            where = (f"{col.column_type}[{col.index}] row "
+                     f"{getattr(e, 'row', '?')}"
+                     if col is not None else "")
+        out.append((type(e).__name__, str(where)))
+    return out
+
+
+def phase_mock(results):
+    """[mock] MockProver on BenchCircuit at k=14 and k=REF_K and on
+    dev_lookup at k=14: the host verify() and the gate check on the card
+    (verify_vectorized, kernel B1 and the field add/subtract) both find
+    nothing; then one advice cell is changed after run, and the card's
+    gate failures must equal the host checker's gate stream, field by
+    field (gate, constraint, location, cell values); a wrong instance
+    gives the reference's failure kinds; at k=REF_K the card's per-row
+    zero flags equal the plain versions' on the CPU, bit for bit. Counts
+    set to 0 just before and read just after."""
+    import dataclasses
+    import torch
+    from halo2_tpu_torch.bench_circuit import (BenchCircuit, DevLookupCircuit,
+                                               regions_for_k, expected_output,
+                                               SEED_A)
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.dev import MockProver
+    fs = PALLAS.scalar
+    cuda = torch.device("cuda")
+    reset_counts()                        # the mock prover's count starts
+    cases = []
+    for k in (K, REF_K):
+        regions = regions_for_k(k)
+        cases.append((f"bench k={k}", k, BenchCircuit(SEED_A, regions),
+                      [[expected_output(fs, SEED_A, regions)]], regions))
+    cases.append((f"dev_lookup k={K}", K, DevLookupCircuit(), [], None))
+    for tag, k, circuit, instance, regions in cases:
+        t = time.perf_counter()
+        prover = MockProver.run(k, circuit, instance)
+        t_run = time.perf_counter() - t
+        t = time.perf_counter()
+        host = prover.verify()
+        t_verify = time.perf_counter() - t
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = prover.verify_vectorized()
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+        diff = diff_counts(before)
+        log(f"[mock] {tag}: run {t_run:.3f}s, verify {t_verify:.3f}s, "
+            f"verify_vectorized on the card {t_card:.3f}s (B1 "
+            f"{diff['fmul']} launches, add/subtract {diff['faddsub']}, "
+            f"{len(prover.cs.gates)} gates); failures {len(host)}, "
+            f"{len(card)}")
+        if host or card:
+            raise AssertionError(f"[mock] {tag}: the satisfied witness "
+                                 f"fails: {host[:3]} {card[:3]}")
+        if k == REF_K:
+            for name in ("fmul", "faddsub"):
+                results[name]["mock_launches"] = diff[name]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            flags = [ok.cpu() for *_, ok in prover.gate_zero_flags(cuda)]
+            torch.cuda.synchronize()
+            t_flags = time.perf_counter() - t
+            t = time.perf_counter()
+            plain = [ok for *_, ok in prover.gate_zero_flags("cpu")]
+            t_plain = time.perf_counter() - t
+            same = all(torch.equal(a, b) for a, b in zip(flags, plain))
+            log(f"[mock] {tag}: per-row zero flags of {len(flags)} "
+                f"constraints over 2^{k} rows, card {t_flags:.3f}s, plain "
+                f"versions on the CPU {t_plain:.3f}s: bit-equal {same}")
+            if not same or not flags:
+                raise AssertionError(f"[mock] {tag}: the card's zero flags "
+                                     f"differ from the plain versions'")
+            profile_call("mock", prover.verify_vectorized,
+                         what=f"verify_vectorized at k={k}")
+        # one advice cell changed at a fixed row after run (out of
+        # dev_lookup's table, off BenchCircuit's gate and copy)
+        row = 1001
+        cells = prover.advice[0]
+        cells[row] = (cells[row] + 1000) % fs.modulus
+        t = time.perf_counter()
+        host = prover.verify()
+        t_verify = time.perf_counter() - t
+        gates = prover.verify(streams=("gates",))
+        t = time.perf_counter()
+        card = prover.verify_vectorized()
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+        log(f"[mock] {tag}: advice[0][{row}] changed: verify {t_verify:.3f}s "
+            f"{_failures(host)}; card {t_card:.3f}s {_failures(card)}")
+        same = ([(type(e).__name__, dataclasses.astuple(e)) for e in card]
+                == [(type(e).__name__, dataclasses.astuple(e))
+                    for e in gates])
+        if not same or not host:
+            raise AssertionError(f"[mock] {tag}: the card's gate failures "
+                                 f"{card[:3]} != the host's {gates[:3]}")
+        if regions is not None and not card:
+            raise AssertionError(f"[mock] {tag}: the changed cell broke no "
+                                 f"gate on the card")
+        if regions is not None and k == K:
+            # a wrong instance: the reference's MockProver reports the
+            # copy of the last output row and of instance row 0
+            bad = MockProver.run(k, circuit,
+                                 [[(instance[0][0] + 1) % fs.modulus]])
+            kinds = _failures(bad.verify())
+            want = [("PermutationFailure", f"advice[0] row {2 * regions - 1}"),
+                    ("PermutationFailure", "instance[0] row 0")]
+            log(f"[mock] {tag}: wrong instance: {kinds}; card "
+                f"{_failures(bad.verify_vectorized())}")
+            if kinds != want or bad.verify_vectorized():
+                raise AssertionError(f"[mock] {tag}: wrong instance gives "
+                                     f"{kinds}, want {want}")
+        del prover
+    launches = launch_counts()
+    log(f"[mock] launches {launches}")
+    if not launches["fmul"] or not launches["faddsub"]:
+        raise AssertionError("the mock prover's gate check launched no B1 "
+                             "or add/subtract kernel")
+
 
 def run_phase(phase, *args):
     t = time.perf_counter()
@@ -1910,6 +2165,8 @@ def main() -> int:
     run_phase(phase_profile, *state)
     run_phase(phase_ipa, results, *state)
     run_phase(phase_verify, results, *state)
+    run_phase(phase_v1, results, state[0])
+    run_phase(phase_mock, results)
     params_ref_k = run_phase(phase_reference_k)
     run_phase(phase_bucket, results, state[0], params_ref_k)
     widths = run_phase(phase_lookup, results, state[0], params_ref_k)
@@ -1927,7 +2184,8 @@ def main() -> int:
                 "shape": r["shape"],
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
-                     "graph_ms", "profiler_ms", "srs_", "verify_",
+                     "graph_ms", "profiler_ms", "srs_", "verify_", "v1_",
+                     "mock_",
                      "launches_offset_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

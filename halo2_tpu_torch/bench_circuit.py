@@ -17,7 +17,8 @@ gate, a single-column lookup and equality on 13 columns.
 
 Each `*_class` function builds the class against a circuit API (the
 port's by default), so the same circuit can be handed to the reference
-prover.
+prover. `bench_circuit_class` also takes the floor planner ("simple" or
+"v1"), so the same BenchCircuit can be laid out by V1.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ def expected_output(fs, a: int, regions: int) -> int:
     return a * pow(3, regions, fs.modulus) % fs.modulus
 
 
-def bench_circuit_class(circuit_base, value_cls, rotation_cls, fs):
+def bench_circuit_class(circuit_base, value_cls, rotation_cls, fs,
+                        floor_planner: str = "simple"):
     class BenchCircuit(circuit_base):
         def __init__(self, a=None, regions: int = 16):
             self.a = a
@@ -91,6 +93,7 @@ def bench_circuit_class(circuit_base, value_cls, rotation_cls, fs):
                     cur = fs.mul(cur, 3)
             layouter.constrain_instance(out.cell, config["i"], 0)
 
+    BenchCircuit.floor_planner = floor_planner
     return BenchCircuit
 
 

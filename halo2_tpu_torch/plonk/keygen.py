@@ -140,6 +140,16 @@ def _synthesize(circuit: Circuit, config, assembly, constants):
     synthesize_circuit(assembly, circuit, config, constants)
 
 
+def _witness_free(circuit: Circuit) -> Circuit:
+    """circuit.without_witnesses(), propagating the dev.tfp tracing
+    marker so keygen synthesis is traced too."""
+    wf = circuit.without_witnesses()
+    events = getattr(circuit, "_tfp_events", None)
+    if events is not None:
+        wf._tfp_events = events
+    return wf
+
+
 def _fixed_ints(fs, cs, assembly):
     """Compress the selectors into fixed columns; evaluate every fixed
     column to host ints."""
@@ -158,7 +168,7 @@ def keygen_vk(params: Params, circuit: Circuit) -> VerifyingKey:
     if params.n < cs.minimum_rows():
         raise NotEnoughRowsAvailable(params.k)
     assembly = Assembly(cs, params, fs)
-    _synthesize(circuit.without_witnesses(), config, assembly, cs.constants)
+    _synthesize(_witness_free(circuit), config, assembly, cs.constants)
     cs, fixed_ints = _fixed_ints(fs, cs, assembly)
     permutation_vk = build_vk(params, domain, assembly.permutation)
     fixed_values = [df.upload_values(col, params.device)
@@ -193,7 +203,7 @@ def keygen_pk(params: Params, vk: VerifyingKey,
         cs, _ = compress_selectors(cs, assembly.selectors)
     else:
         assembly = Assembly(cs, params, fs)
-        _synthesize(circuit.without_witnesses(), config, assembly,
+        _synthesize(_witness_free(circuit), config, assembly,
                     cs.constants)
         cs, fixed_ints = _fixed_ints(fs, cs, assembly)
         fixed_values = [df.upload_values(col, dev) for col in fixed_ints]

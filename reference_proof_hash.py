@@ -12,6 +12,11 @@ root:
     JAX_PLATFORMS=cpu python reference_proof_hash.py --circuit bench --k 14
     JAX_PLATFORMS=cpu python reference_proof_hash.py \
         --circuit dev-lookup --k 14
+    JAX_PLATFORMS=cpu python reference_proof_hash.py \
+        --circuit bench --planner v1 --k 14
+
+`--planner v1` lays BenchCircuit out with the V1 floor planner (the
+default is the simple planner); it applies to `--circuit bench` only.
 """
 from __future__ import annotations
 
@@ -32,7 +37,11 @@ def main() -> None:
     ap.add_argument("--circuit", choices=("bench", "dev-lookup"),
                     default="bench")
     ap.add_argument("--k", type=int, default=14)
+    ap.add_argument("--planner", choices=("simple", "v1"),
+                    default="simple")
     args = ap.parse_args()
+    if args.planner != "simple" and args.circuit != "bench":
+        ap.error("--planner applies to --circuit bench only")
     # commit on the reference's exact host MSM: the group elements, hence
     # the proof bytes, are the same as through its device Pippenger. The
     # reference reads this when halo2_tpu.ops.msm is first imported.
@@ -48,10 +57,10 @@ def main() -> None:
     fs = PALLAS.scalar
     if args.circuit == "bench":
         regions = regions_for_k(args.k)
-        circuit = bench_circuit_class(Circuit, Value, Rotation, fs)(
-            SEED_A, regions)
+        circuit = bench_circuit_class(Circuit, Value, Rotation, fs,
+                                      args.planner)(SEED_A, regions)
         instances = [[[expected_output(fs, SEED_A, regions)]]]
-        what = f"regions={regions}"
+        what = f"regions={regions} planner={args.planner}"
     else:
         circuit = dev_lookup_circuit_class(Circuit, Value, Rotation, fs)()
         instances = [[]]

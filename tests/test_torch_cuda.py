@@ -438,3 +438,30 @@ def test_lookup_proof_on_the_card_equals_the_cpu_proof(cuda):
         verify_proof(params, vk, SingleVerifier(params), [[]],
                      TranscriptRead(PALLAS, proofs[-1]))
     assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("tamper", [False, True], ids=["satisfied",
+                                                      "tampered"])
+def test_mock_prover_gate_check_on_the_card(cuda, tamper):
+    """MockProver.verify_vectorized on the card at 2^12 rows gives the
+    host checker's gate failures, and per-row flags equal to the plain
+    versions' on the CPU."""
+    from halo2_tpu_torch.bench_circuit import regions_for_k
+    from halo2_tpu_torch.dev import MockProver
+
+    k = 12
+    regions = regions_for_k(k)
+    prover = MockProver.run(k, BenchCircuit(5, regions),
+                            [[expected_output(PALLAS.scalar, 5, regions)]])
+    if tamper:
+        col = prover.advice[0]
+        for row in (1, 2048, 4089):
+            col[row] = (col[row] + 1) % PALLAS.scalar.modulus
+    before = fk.LAUNCHES["fmul"]
+    errors = prover.verify_vectorized(device=cuda)
+    assert fk.LAUNCHES["fmul"] > before
+    assert errors == prover.verify(streams=("gates",))
+    assert bool(errors) == tamper
+    flags = [ok for *_, ok in prover.gate_zero_flags(cuda)]
+    plain = [ok for *_, ok in prover.gate_zero_flags("cpu")]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(flags, plain))
