@@ -71,6 +71,26 @@ Phases, in this order (any failure exits non-zero):
      changed advice cell gives the same gate failures on both, field by
      field; a wrong instance gives the reference's failure kinds; the
      k=REF_K per-row zero flags equal the plain versions' on the CPU;
+     the gate check's device time (the kernel calls of its field-kernel
+     launches replayed from a CUDA graph) beside its wall time;
+ 11e. [gadgets] zcash/halo2's fifteen golden gadget circuits
+     (halo2_tpu_torch/gadget_circuits.py) at K = 11: Params.new(VESTA,
+     11) on the card; keygen_vk of each, its pinned text equal to
+     tests/golden/vk_*.rdata, each golden proof verified, one corrupted
+     proof rejected; for ecc_chip, sinsemilla_chip, merkle_chip and
+     lookup_range_check keygen_pk, a cold and a warm prove (launches
+     per kernel and phases of the warm one), the proof's sha256 against
+     the JAX reference's (recorded with reference_proof_hash.py
+     --circuit ecc|sinsemilla|merkle|lookup-range-check, and --circuit
+     bench --transcript poseidon --k 14), verified; the fixed-base tables and the
+     Sinsemilla S table timed apart as host work; the first call of
+     each kernel at each shape the path gave it (B1, add/subtract, B3,
+     the bucket-run kernel, B7, the scalar ladder), recorded with its
+     operands, against its plain version; BenchCircuit at k=14 proved
+     with the Poseidon transcript against the JAX hash; the ecc_chip
+     mock prover's gate check on the card equal to the host checker's
+     (device time as in [mock]), for the good witness and one changed
+     cell, and its per-row zero flags equal to the plain versions';
  12. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
      reference was run at, at the default IPA schedule (four device
      rounds, then native; cold, then warm), with every round native and
@@ -106,6 +126,7 @@ Run from the repository root: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import random
@@ -114,11 +135,12 @@ import sys
 import time
 
 K = 14
-# sha256 of the JAX reference's proof at 2^k rows over PALLAS Params, rng
-# seed PROOF_SEED, keyed by (circuit, k): BenchCircuit at witness SEED_A
-# and halo2's dev_lookup circuit (python reference_proof_hash.py
-# --circuit C --k k, on a CPU); REF_K is the largest k those runs were
-# made at
+# sha256 of the JAX reference's proof at 2^k rows, rng seed PROOF_SEED,
+# keyed by (circuit, k): BenchCircuit at witness SEED_A and halo2's
+# dev_lookup circuit over PALLAS Params (python reference_proof_hash.py
+# --circuit C --k k, on a CPU), the golden gadget circuits over VESTA
+# (--circuit ecc|sinsemilla|merkle|lookup-range-check); REF_K is the
+# largest k those runs were made at
 REF_SHA256 = {
     ("bench", 14):
         "d74239f9d0320f99b2fc80c89ab5df1ad8a8d2588dc7541eb6017078e986a12f",
@@ -131,6 +153,20 @@ REF_SHA256 = {
     # BenchCircuit under the V1 floor planner (--planner v1)
     ("bench-v1", 14):
         "78347be96697241f5853b05e4914ab92002cd3c6492d6fc717f57325de88586f",
+    # BenchCircuit with the Poseidon transcript (--transcript poseidon)
+    ("bench-poseidon", 14):
+        "a0fd6b87fc45a143f76ad36ebbe746c4631934114980ef786b191bde1708a2a9",
+    # the golden gadget circuits of halo2_tpu_torch/gadget_circuits.py at
+    # K = 11 over VESTA Params (--circuit ecc|sinsemilla|merkle|
+    # lookup-range-check)
+    ("ecc_chip", 11):
+        "7a5ee67c0e60d0ac0ba3c23e933c6977496df92d85e25372e2e5d33b6935ac95",
+    ("sinsemilla_chip", 11):
+        "d40c8ce930d0af7a5ba112c9baf8bdd161a1eea421efdd0d4c7dde0c6b0632c7",
+    ("merkle_chip", 11):
+        "52d2f96561bd478b19f7626b14958c1e2e6339405338fd271bd93f65d28ff79e",
+    ("lookup_range_check", 11):
+        "536d53abde630e4ec5c638ca6ed8572776d87fe295af3cdae9594474e3cff0ab",
 }
 REF_K = 18
 # kernels of the main path (the default IPA schedule at k=14 runs every
@@ -1979,15 +2015,12 @@ def phase_mock(results):
     gives the reference's failure kinds; at k=REF_K the card's per-row
     zero flags equal the plain versions' on the CPU, bit for bit. Counts
     set to 0 just before and read just after."""
-    import dataclasses
-    import torch
     from halo2_tpu_torch.bench_circuit import (BenchCircuit, DevLookupCircuit,
                                                regions_for_k, expected_output,
                                                SEED_A)
     from halo2_tpu_torch.curves.host import PALLAS
     from halo2_tpu_torch.dev import MockProver
     fs = PALLAS.scalar
-    cuda = torch.device("cuda")
     reset_counts()                        # the mock prover's count starts
     cases = []
     for k in (K, REF_K):
@@ -2003,38 +2036,19 @@ def phase_mock(results):
         host = prover.verify()
         t_verify = time.perf_counter() - t
         before = launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        card = prover.verify_vectorized()
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t
-        diff = diff_counts(before)
         log(f"[mock] {tag}: run {t_run:.3f}s, verify {t_verify:.3f}s, "
-            f"verify_vectorized on the card {t_card:.3f}s (B1 "
-            f"{diff['fmul']} launches, add/subtract {diff['faddsub']}, "
-            f"{len(prover.cs.gates)} gates); failures {len(host)}, "
-            f"{len(card)}")
+            f"{len(prover.cs.gates)} gates; failures {len(host)}")
+        card = _gate_check(f"mock {tag}", prover)
+        diff = diff_counts(before)
+        log(f"[mock] {tag}: B1 {diff['fmul']} launches, add/subtract "
+            f"{diff['faddsub']}")
         if host or card:
             raise AssertionError(f"[mock] {tag}: the satisfied witness "
                                  f"fails: {host[:3]} {card[:3]}")
         if k == REF_K:
             for name in ("fmul", "faddsub"):
                 results[name]["mock_launches"] = diff[name]
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            flags = [ok.cpu() for *_, ok in prover.gate_zero_flags(cuda)]
-            torch.cuda.synchronize()
-            t_flags = time.perf_counter() - t
-            t = time.perf_counter()
-            plain = [ok for *_, ok in prover.gate_zero_flags("cpu")]
-            t_plain = time.perf_counter() - t
-            same = all(torch.equal(a, b) for a, b in zip(flags, plain))
-            log(f"[mock] {tag}: per-row zero flags of {len(flags)} "
-                f"constraints over 2^{k} rows, card {t_flags:.3f}s, plain "
-                f"versions on the CPU {t_plain:.3f}s: bit-equal {same}")
-            if not same or not flags:
-                raise AssertionError(f"[mock] {tag}: the card's zero flags "
-                                     f"differ from the plain versions'")
+            _flags_check(f"mock {tag}", prover)
             profile_call("mock", prover.verify_vectorized,
                          what=f"verify_vectorized at k={k}")
         # one advice cell changed at a fixed row after run (out of
@@ -2044,20 +2058,12 @@ def phase_mock(results):
         cells[row] = (cells[row] + 1000) % fs.modulus
         t = time.perf_counter()
         host = prover.verify()
-        t_verify = time.perf_counter() - t
-        gates = prover.verify(streams=("gates",))
-        t = time.perf_counter()
-        card = prover.verify_vectorized()
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t
-        log(f"[mock] {tag}: advice[0][{row}] changed: verify {t_verify:.3f}s "
-            f"{_failures(host)}; card {t_card:.3f}s {_failures(card)}")
-        same = ([(type(e).__name__, dataclasses.astuple(e)) for e in card]
-                == [(type(e).__name__, dataclasses.astuple(e))
-                    for e in gates])
-        if not same or not host:
-            raise AssertionError(f"[mock] {tag}: the card's gate failures "
-                                 f"{card[:3]} != the host's {gates[:3]}")
+        log(f"[mock] {tag}: advice[0][{row}] changed: verify "
+            f"{time.perf_counter() - t:.3f}s {_failures(host)}")
+        card = _gate_check(f"mock {tag}", prover)
+        if not host:
+            raise AssertionError(f"[mock] {tag}: the changed cell broke "
+                                 f"nothing on the host")
         if regions is not None and not card:
             raise AssertionError(f"[mock] {tag}: the changed cell broke no "
                                  f"gate on the card")
@@ -2080,6 +2086,451 @@ def phase_mock(results):
     if not launches["fmul"] or not launches["faddsub"]:
         raise AssertionError("the mock prover's gate check launched no B1 "
                              "or add/subtract kernel")
+
+
+class field_launches:
+    """Within the block, the arguments of every launch of the field
+    kernels (B1, the add/subtract): a measurement hook around
+    ops/field_kernels.py's _launch. `graph_ms()` replays the kernel calls
+    alone from a CUDA graph: their device time without the host's gaps
+    and without the operand copies and output allocation of _launch,
+    which are made before the capture (the replay is not counted)."""
+
+    def __enter__(self):
+        from halo2_tpu_torch.ops import field_kernels as fk
+        self.calls = []
+        self.orig = orig = fk._launch
+
+        def recording(*args):
+            self.calls.append(args)
+            return orig(*args)
+
+        fk._launch = recording
+        return self
+
+    def __exit__(self, *exc):
+        from halo2_tpu_torch.ops import field_kernels as fk
+        fk._launch = self.orig
+        return False
+
+    def graph_ms(self, reps: int = 10) -> float:
+        import math
+        import torch
+        from halo2_tpu_torch.ops import cuda_build
+        from halo2_tpu_torch.ops import field_kernels as fk
+        lib = cuda_build.library("field_kernels")
+        kernels = []
+        for fn_name, _, df, a, b, *extra in self.calls:
+            batch = tuple(torch.broadcast_shapes(a.shape[:-1],
+                                                 b.shape[:-1]))
+            n = math.prod(batch)
+            if n:
+                out = torch.empty(batch + (fk.NLIMBS,), dtype=torch.int32,
+                                  device=a.device)
+                (a_, ap), (b_, bp) = fk._fit(a, batch), fk._fit(b, batch)
+                kernels.append((getattr(lib, fn_name), df.field_id, extra,
+                                out, a_, b_, n, ap, bp))
+
+        def replay():
+            for fn, fid, extra, out, a_, b_, n, ap, bp in kernels:
+                cuda_build.check(fn(fid, *extra, out.data_ptr(),
+                                    a_.data_ptr(), b_.data_ptr(), n, ap, bp,
+                                    cuda_build.stream_ptr(out.device)),
+                                 "field kernel replay")
+        return graph_ms(replay, reps)
+
+    def summary(self) -> str:
+        return (f"{len(self.calls)} field-kernel launches, device time "
+                f"{self.graph_ms():.4f} ms replayed from a CUDA graph")
+
+
+class path_calls:
+    """Within each `with` block, the first call of every kernel wrapper
+    for each signature (its tensors' shapes and dtypes, its other
+    arguments but B3's roll distance, a value like its operands'), with
+    the operands and the result cloned, so that
+    `check()` can hold the kernels against their plain versions at the
+    shapes a path gave them, on the path's own data. The wrappers are
+    patched where the path's modules call them; each call launches as
+    before, once."""
+
+    def __init__(self):
+        self.calls = {}
+
+    @staticmethod
+    def _sites():
+        from halo2_tpu_torch.curves import device as curves_device
+        from halo2_tpu_torch.ops import field_kernels as fk
+        from halo2_tpu_torch.ops import msm_pippenger as mp
+        from halo2_tpu_torch.ops import ntt
+        from halo2_tpu_torch.poly import domain
+        return (("field", fk, "_launch"), ("ntt", domain, "ntt_many"),
+                ("ntt", ntt, "ntt_many"),
+                ("scalar_mul_ladder", ntt, "scalar_mul_ladder_flat"),
+                ("scalar_mul_ladder", curves_device,
+                 "scalar_mul_ladder_flat"),
+                ("pmixed_bucket_runs", mp, "pmixed_bucket_runs"),
+                ("padd_masked", mp, "padd_masked_flat"))
+
+    def __enter__(self):
+        self.saved = []
+        for kernel, module, attr in self._sites():
+            orig = getattr(module, attr)
+            self.saved.append((module, attr, orig))
+            setattr(module, attr, self._recording(kernel, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, orig in reversed(self.saved):
+            setattr(module, attr, orig)
+        return False
+
+    def _recording(self, kernel, orig):
+        import torch
+
+        def sig(v):
+            if isinstance(v, torch.Tensor):
+                return tuple(v.shape), v.dtype
+            if v is None or isinstance(v, (int, str)):
+                return v
+            return (type(v).__name__, getattr(v, "field_id", None),
+                    getattr(v, "n", None))
+
+        def clone(v, memo):
+            if isinstance(v, torch.Tensor):
+                if id(v) not in memo:     # an operand given twice, once
+                    memo[id(v)] = v.clone()
+                return memo[id(v)]
+            if isinstance(v, tuple):
+                return tuple(clone(x, memo) for x in v)
+            return v
+
+        def recording(*args, **kw):
+            out = orig(*args, **kw)
+            key = (kernel, tuple(map(sig, args)),
+                   tuple((k, sig(v)) for k, v in sorted(kw.items())
+                         if k != "shift"))
+            if key not in self.calls:
+                memo = {}
+                self.calls[key] = (clone(args, memo),
+                                   {k: clone(v, memo) for k, v in kw.items()},
+                                   clone(out, {}))
+            return out
+        return recording
+
+    def check(self, tag, results):
+        """Every recorded call's result against its plain version on the
+        same inputs, bit for bit. The ladder's calls of one field, bit
+        count and form go to the plain version as one batch, each lane
+        with its own table row: the plain ladder walks the bits a launch
+        at a time, seconds a call whatever its width. Mismatches and the
+        largest error join each kernel's in `results`."""
+        import inspect
+        import torch
+        from halo2_tpu_torch.ops import field_kernels as fk
+        from halo2_tpu_torch.ops import ntt
+        from halo2_tpu_torch.ops import point_kernels as pk
+
+        def field_plain(fn_name, counter, df, a, b, *extra):
+            if fn_name == "h2t_fmul":
+                return fk.fmul_plain(df, a, b)
+            return (fk.fsub_plain if extra[0] else fk.fadd_plain)(df, a, b)
+
+        plain = {"field": field_plain, "ntt": ntt.ntt_many_plain,
+                 "pmixed_bucket_runs": pk.pmixed_bucket_runs_plain,
+                 "padd_masked": pk.padd_masked_plain}
+        def nbytes(v):
+            if isinstance(v, torch.Tensor):
+                return v.numel() * v.element_size()
+            if isinstance(v, (tuple, dict)):
+                return sum(map(nbytes, v.values() if isinstance(v, dict)
+                               else v))
+            return 0
+
+        log(f"[{tag}] {len(self.calls)} kernel calls recorded, "
+            f"{nbytes(tuple(self.calls.values())) / 2**30:.3f} GiB")
+        pairs, ladders = [], {}
+        for (kernel, *_), (args, kw, got) in self.calls.items():
+            if kernel == "scalar_mul_ladder":
+                a = inspect.signature(pk.scalar_mul_ladder_flat).bind(
+                    *args, **kw)
+                a.apply_defaults()
+                a = a.arguments
+                key = (a["df"].field_id, a["nbits"], a["lo"] is not None)
+                ladders.setdefault(key, (a["df"], []))[1].append((a, got))
+                continue
+            name = args[1] if kernel == "field" else kernel
+            pairs.append((name, lambda f=plain[kernel], a=args, k=kw:
+                          f(*a, **k), got))
+        for (_, nbits, fused), (df, group) in ladders.items():
+            def merged(group=group, df=df, nbits=nbits, fused=fused):
+                lanes = [torch.arange(a["pts"].shape[1], device=a["pts"]
+                                      .device) % a["digits"].shape[0]
+                         for a, _ in group]
+                return pk.scalar_mul_ladder_plain(
+                    df, torch.cat([a["pts"] for a, _ in group], 1),
+                    torch.cat([a["digits"][r] for (a, _), r
+                               in zip(group, lanes)]), nbits,
+                    torch.cat([a["lo"] for a, _ in group], 1)
+                    if fused else None)
+            got = (tuple(torch.cat(g, 1) for g in zip(*(g for _, g in group)))
+                   if fused else torch.cat([g for _, g in group], 1))
+            pairs.append(("scalar_mul_ladder", merged, got))
+        self.calls.clear()
+        report = {}
+        while pairs:
+            name, fn, got = pairs.pop(0)
+            t = time.perf_counter()
+            want = fn()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            bad = sum(int((g != w).sum()) if g.shape == w.shape else g.numel()
+                      for g, w in zip(got, want))
+            err = max([0] + [max_abs(g, w) for g, w in zip(got, want)
+                             if g.shape == w.shape and g.numel()])
+            n, mism, s = report.get(name, (0, 0, 0.0))
+            report[name] = (n + 1, mism + bad, s + time.perf_counter() - t)
+            r = results[name]
+            r[f"{tag}_plain_checks"] = n + 1
+            r[f"{tag}_mismatches"] = mism + bad
+            r[f"{tag}_max_abs_err"] = max(r.get(f"{tag}_max_abs_err", 0),
+                                          err)
+        for name, (n, mism, s) in report.items():
+            log(f"[{tag}] {name}: {n} checks against the plain version at "
+                f"the path's shapes, {mism} mismatching words, plain "
+                f"{s:.3f}s")
+        bad = {name: m for name, (_, m, _) in report.items() if m}
+        if bad:
+            raise AssertionError(f"[{tag}] kernels differ from their plain "
+                                 f"versions at the path's shapes: {bad}")
+
+
+def _flags_check(tag, prover):
+    """The card's per-row zero flags of every constraint against the
+    plain versions' on the CPU, bit for bit, with both times."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flags = [ok.cpu() for *_, ok in prover.gate_zero_flags("cuda")]
+    torch.cuda.synchronize()
+    t_flags = time.perf_counter() - t
+    t = time.perf_counter()
+    plain = [ok for *_, ok in prover.gate_zero_flags("cpu")]
+    t_plain = time.perf_counter() - t
+    same = len(flags) == len(plain) and all(
+        torch.equal(a, b) for a, b in zip(flags, plain))
+    log(f"[{tag}] per-row zero flags of {len(flags)} constraints over "
+        f"{prover.n} rows, card {t_flags:.3f}s, plain versions on the CPU "
+        f"{t_plain:.3f}s: bit-equal {same}")
+    if not same or not flags:
+        raise AssertionError(f"[{tag}] the card's zero flags differ from "
+                             f"the plain versions'")
+
+
+def _gate_check(tag, prover):
+    """The card's gate check (verify_vectorized) against the host
+    checker's gate stream, field by field; wall time beside the device
+    time of its field-kernel launches. Returns the failures."""
+    import dataclasses
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with field_launches() as ev:
+        card = prover.verify_vectorized()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    gates = prover.verify(streams=("gates",))
+    log(f"[{tag}] gate check on the card {wall:.4f}s wall, "
+        f"{ev.summary()}; failures {_failures(card)}")
+    if ([(type(e).__name__, dataclasses.astuple(e)) for e in card]
+            != [(type(e).__name__, dataclasses.astuple(e)) for e in gates]):
+        raise AssertionError(f"[{tag}] the card's gate failures {card[:3]} "
+                             f"!= the host's {gates[:3]}")
+    return card
+
+
+def phase_gadgets(results, main_state):
+    """[gadgets] the golden gadget circuits at K = 11 over VESTA Params
+    made once on the card: every key equal to zcash/halo2's pinned text
+    and every golden proof verified, a corrupted one rejected; four of
+    them proved (cold, warm) against the JAX hashes. Counts set to 0
+    just before Params.new and read after the last prove; every kernel
+    of the path must launch. The first call of each kernel at each shape
+    (Params.new, the keygens, the cold proves) is recorded and held
+    against its plain version after the counts are read. Then
+    BenchCircuit k=14 with the Poseidon transcript (the main path's keys)
+    and the ecc_chip gate check, its per-row zero flags against the plain
+    versions' on the CPU."""
+    import os
+    import torch
+    from halo2_tpu_torch import gadget_circuits as gc
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    from halo2_tpu_torch.curves.host import PALLAS, VESTA
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields.host import FP
+    from halo2_tpu_torch.gadgets.ecc.constants import fixed_base_constants
+    from halo2_tpu_torch.gadgets.sinsemilla.primitive import sinsemilla_s
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
+    from halo2_tpu_torch.plonk.verifier import (verify_proof, SingleVerifier,
+                                                VerificationError)
+    from halo2_tpu_torch.poly.commitment import Params
+    from halo2_tpu_torch.transcript import (TranscriptWrite, TranscriptRead,
+                                            PoseidonTranscriptWrite,
+                                            PoseidonTranscriptRead)
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+
+    def read(name, mode="r"):
+        with open(os.path.join(golden, name), mode) as fh:
+            return fh.read()
+
+    ns = gc.port_namespace()
+    # host work the circuits need before any synthesis: the fixed-base
+    # tables (read from the repository's .fixed_base_cache) and the
+    # 1,024-point S table (hash-to-curve), both cached for the process
+    t = time.perf_counter()
+    for base, nw in ((ns.PALLAS.generator, ns.NUM_WINDOWS),
+                     (ns.PALLAS.generator, ns.NUM_WINDOWS_SHORT),
+                     (ns.COMMIT_DOMAIN.R, ns.NUM_WINDOWS)):
+        fixed_base_constants(base, nw)
+    t_tables = time.perf_counter() - t
+    t = time.perf_counter()
+    s_table = [sinsemilla_s(j) for j in range(1024)]
+    log(f"[gadgets] host tables: fixed-base constants {t_tables:.3f}s, "
+        f"Sinsemilla S ({len(s_table)} points) "
+        f"{time.perf_counter() - t:.3f}s")
+
+    shapes = path_calls()
+    reset_counts()                        # the gadgets path's count starts
+    t = time.perf_counter()
+    with shapes:
+        params = Params.new(VESTA, gc.K, use_cache=False)
+    torch.cuda.synchronize()
+    log(f"[gadgets] Params.new(VESTA, {gc.K}) {time.perf_counter() - t:.3f}s,"
+        f" launches {launch_counts()}")
+    vks = {}
+    for name in gc.GOLDEN:
+        circuit = gc.golden_circuit(ns, name)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with shapes:
+            vk = vks[name] = keygen_vk(params, circuit)
+        torch.cuda.synchronize()
+        t_key = time.perf_counter() - t
+        if vk.pinned_text() + "\n" != read(f"vk_{name}.rdata"):
+            raise AssertionError(f"[gadgets] {name}: the pinned key differs "
+                                 f"from tests/golden/vk_{name}.rdata")
+        t = time.perf_counter()
+        verify_proof(params, vk, SingleVerifier(params), [[]],
+                     TranscriptRead(VESTA, read(f"proof_{name}.bin", "rb")))
+        log(f"[gadgets] {name}: degree {vk.cs.degree()}, extended k "
+            f"{vk.domain.extended_k}: keygen_vk {t_key:.3f}s equals the "
+            f"golden key; golden proof verified in "
+            f"{time.perf_counter() - t:.3f}s")
+    bad = bytearray(read("proof_ecc_chip.bin", "rb"))
+    bad[-64] ^= 1                          # the IPA's scalar c, off by one
+    try:
+        verify_proof(params, vks["ecc_chip"], SingleVerifier(params), [[]],
+                     TranscriptRead(VESTA, bytes(bad)))
+    except VerificationError:
+        log("[gadgets] corrupted ecc_chip proof rejected")
+    else:
+        raise AssertionError("[gadgets] a corrupted golden proof was "
+                             "accepted")
+    for name in gc.PROVED:
+        circuit = gc.golden_circuit(ns, name)
+        t = time.perf_counter()
+        with shapes:
+            pk_ = keygen_pk(params, vks[name], circuit)
+        torch.cuda.synchronize()
+        log(f"[gadgets] {name}: keygen_pk {time.perf_counter() - t:.3f}s")
+        proofs = []
+        for label in ("cold", "warm"):
+            before = launch_counts()
+            tw = TranscriptWrite(VESTA)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with shapes if label == "cold" else contextlib.nullcontext():
+                pv.create_proof(params, pk_, [circuit], [[]],
+                                random.Random(PROOF_SEED), tw)
+            torch.cuda.synchronize()
+            proofs.append(tw.finalize())
+            log(f"[gadgets] {name}: create_proof {label} "
+                f"{time.perf_counter() - t:.3f}s, {len(proofs[-1])} bytes, "
+                f"launches {diff_counts(before)}")
+        log(f"[gadgets] {name}: warm phases " + json.dumps(
+            {phase: round(sec, 4) for phase, sec in pv.LAST_PHASES}))
+        t = time.perf_counter()
+        verify_proof(params, vks[name], SingleVerifier(params), [[]],
+                     TranscriptRead(VESTA, proofs[1]))
+        digest = hashlib.sha256(proofs[1]).hexdigest()
+        log(f"[gadgets] {name}: verify_proof {time.perf_counter() - t:.3f}s "
+            f"(accepted); proof sha256 {digest}")
+        if proofs[0] != proofs[1] or digest != REF_SHA256[name, gc.K]:
+            raise AssertionError(f"[gadgets] {name}: proof hash {digest} != "
+                                 f"JAX reference {REF_SHA256[name, gc.K]}")
+    launches = launch_counts()
+    log(f"[gadgets] launches in Params.new, {len(gc.GOLDEN)} keygen_vk, "
+        f"{len(gc.PROVED)} keygen_pk and {2 * len(gc.PROVED)} proves "
+        f"{launches}")
+    path = MAIN_PATH_KERNELS + ("scalar_mul_ladder",)
+    for name in path:
+        results[name]["gadgets_launches"] = launches[name]
+    idle = [k for k in path if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels of the gadgets path not launched: "
+                             f"{idle}")
+    log(f"[gadgets] {len(gc.GOLDEN)} keys equal the golden keys and their "
+        f"golden proofs verified; {len(gc.PROVED)} proofs equal the JAX "
+        f"reference's")
+    shapes.check("gadgets", results)
+    del params, vks
+
+    # BenchCircuit k=14 with the Poseidon transcript, on the main path's keys
+    main_params, main_pk, circuit, out = main_state
+    proofs = []
+    for label in ("cold", "warm"):
+        tw = PoseidonTranscriptWrite(PALLAS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pv.create_proof(main_params, main_pk, [circuit], [[[out]]],
+                        random.Random(PROOF_SEED), tw)
+        torch.cuda.synchronize()
+        proofs.append(tw.finalize())
+        log(f"[gadgets] bench k={K} Poseidon transcript: create_proof "
+            f"{label} {time.perf_counter() - t:.3f}s")
+    verify_proof(main_params, main_pk.vk, SingleVerifier(main_params),
+                 [[[out]]], PoseidonTranscriptRead(PALLAS, proofs[1]))
+    digest = hashlib.sha256(proofs[1]).hexdigest()
+    log(f"[gadgets] bench k={K} Poseidon transcript: verified; proof sha256 "
+        f"{digest}")
+    if proofs[0] != proofs[1] or digest != REF_SHA256["bench-poseidon", K]:
+        raise AssertionError(f"Poseidon-transcript proof hash {digest} != "
+                             f"JAX reference "
+                             f"{REF_SHA256['bench-poseidon', K]}")
+
+    # the ecc_chip mock prover: the card's gate check against the host's
+    t = time.perf_counter()
+    prover = MockProver.run(gc.K, gc.golden_circuit(ns, "ecc_chip"), [],
+                            fs=FP)
+    t_run = time.perf_counter() - t
+    t = time.perf_counter()
+    host = prover.verify()
+    log(f"[gadgets] ecc_chip MockProver: run {t_run:.3f}s, verify "
+        f"{time.perf_counter() - t:.3f}s, {len(prover.cs.gates)} gates; "
+        f"failures {len(host)}")
+    if host or _gate_check("gadgets ecc_chip", prover):
+        raise AssertionError("[gadgets] the satisfied ecc_chip witness fails")
+    _flags_check("gadgets ecc_chip", prover)
+    # one advice cell changed: the first assigned cell of column 0
+    cells = prover.advice[0]
+    row = next(r for r, v in enumerate(cells) if isinstance(v, int) and v)
+    cells[row] = (cells[row] + 1) % FP.modulus
+    if not _gate_check("gadgets ecc_chip", prover):
+        raise AssertionError(f"[gadgets] changing advice[0][{row}] broke no "
+                             f"gate on the card")
 
 
 def run_phase(phase, *args):
@@ -2167,6 +2618,7 @@ def main() -> int:
     run_phase(phase_verify, results, *state)
     run_phase(phase_v1, results, state[0])
     run_phase(phase_mock, results)
+    run_phase(phase_gadgets, results, state)
     params_ref_k = run_phase(phase_reference_k)
     run_phase(phase_bucket, results, state[0], params_ref_k)
     widths = run_phase(phase_lookup, results, state[0], params_ref_k)
@@ -2185,7 +2637,7 @@ def main() -> int:
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
                      "graph_ms", "profiler_ms", "srs_", "verify_", "v1_",
-                     "mock_",
+                     "mock_", "gadgets_",
                      "launches_offset_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

@@ -15,7 +15,11 @@ def synthesize_circuit(cs_assignment, circuit, config, constants,
     the floor-plan layout across synthesis runs of the same circuit
     shape — repeat proofs skip the measurement pass entirely. Layout
     depends only on the shape, never on witness values (the contract
-    V1's dual-pass relies on, v1.rs:60-141). V1's legacy region order
+    V1's dual-pass relies on, v1.rs:60-141). A simple-planner layout in
+    which a region's closure raised (and the circuit caught it, as the
+    ECC tests do when they witness the identity as a non-identity point)
+    is not cached: such a region takes no rows, and a replay could not
+    tell it from the next one. V1's legacy region order
     is the circuit class's `legacy_pdqsort` attribute (default False)."""
     events = getattr(circuit, "_tfp_events", None)
     if events is not None:
@@ -35,5 +39,6 @@ def synthesize_circuit(cs_assignment, circuit, config, constants,
         plan = plan_cache.get("simple") if plan_cache is not None else None
         layouter = SingleChipLayouter(cs_assignment, constants, plan=plan)
         circuit.synthesize(config, layouter)
-        if plan_cache is not None and plan is None:
+        if (plan_cache is not None and plan is None
+                and layouter.recorded.replayable):
             plan_cache["simple"] = layouter.recorded

@@ -10,8 +10,11 @@ collected columns are batch-packed to device arrays afterwards. The
 placement algorithm is reproduced exactly because layout is
 consensus-relevant (it changes the vk).
 
-Copied unchanged from halo2_tpu/circuit/layouter.py: the port keeps its own copy of every
-host module it needs and imports nothing of halo2_tpu.
+Copied from halo2_tpu/circuit/layouter.py: the port keeps its own copy of every
+host module it needs and imports nothing of halo2_tpu. One difference: a
+SimplePlan records whether a region's closure raised while it was
+measured (`replayable`), and synthesize_circuit does not replay such a
+layout; the reference replays it and breaks on the next proof.
 """
 from __future__ import annotations
 
@@ -440,11 +443,15 @@ class SimplePlan:
     v1.rs:60-141), so a plan recorded once (e.g. at keygen) lets every
     later proof of the same circuit skip the measurement pass."""
 
-    __slots__ = ("starts", "const_starts")
+    __slots__ = ("starts", "const_starts", "replayable")
 
     def __init__(self):
         self.starts: list[int] = []
         self.const_starts: list[int] = []
+        # False once a region's closure raised while measured: such a
+        # region takes no index and no rows, but a replay would give it
+        # the next region's and keep what it assigned before raising
+        self.replayable = True
 
 
 class SingleChipLayouter(Layouter):
@@ -471,7 +478,11 @@ class SingleChipLayouter(Layouter):
         else:
             # measurement pass
             shape = RegionShape(region_index)
-            assignment(Region(shape))
+            try:
+                assignment(Region(shape))
+            except Exception:
+                self.recorded.replayable = False
+                raise
 
             # layout: first free row across all used columns
             region_start = 0

@@ -5,6 +5,7 @@ JAX, so this file imports none and runs without tests/conftest.py:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import os
 import random
 
 import numpy as np
@@ -465,3 +466,22 @@ def test_mock_prover_gate_check_on_the_card(cuda, tamper):
     flags = [ok for *_, ok in prover.gate_zero_flags(cuda)]
     plain = [ok for *_, ok in prover.gate_zero_flags("cpu")]
     assert all(torch.equal(a.cpu(), b) for a, b in zip(flags, plain))
+
+
+def test_golden_gadget_key_built_on_the_card(cuda):
+    """keygen_vk of a golden gadget circuit at K = 11 on the card (its
+    fixed and permutation commitments through the bucket-run kernel)
+    equals zcash/halo2's pinned key, and its golden proof verifies."""
+    from halo2_tpu_torch import gadget_circuits as gc
+    name = "lookup_range_check"
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    params = Params.new(VESTA, gc.K, device=cuda, use_cache=False)
+    before = dict(pk.LAUNCHES)
+    vk = keygen_vk(params, gc.golden_circuit(gc.port_namespace(), name))
+    assert pk.LAUNCHES["pmixed_bucket_runs"] > before["pmixed_bucket_runs"]
+    with open(os.path.join(golden, f"vk_{name}.rdata")) as fh:
+        assert vk.pinned_text() + "\n" == fh.read()
+    with open(os.path.join(golden, f"proof_{name}.bin"), "rb") as fh:
+        proof = fh.read()
+    verify_proof(params, vk, SingleVerifier(params), [[]],
+                 TranscriptRead(VESTA, proof))

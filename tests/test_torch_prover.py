@@ -319,6 +319,19 @@ _ISOLATED = textwrap.dedent("""
     create_proof(params, pk, [circuit], [[[out]]], random.Random(1), tw)
     verify_proof(params, vk, SingleVerifier(params), [[[out]]],
                  TranscriptRead(PALLAS, tw.finalize()))
+
+    # the gadgets: a golden circuit satisfied under the mock prover, and a
+    # Poseidon transcript
+    import halo2_tpu_torch.gadgets
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields.host import FP
+    from halo2_tpu_torch.gadget_circuits import port_namespace, golden_circuit
+    from halo2_tpu_torch.transcript import PoseidonTranscriptWrite
+    ns = port_namespace()
+    MockProver.run(11, golden_circuit(ns, "short_range_check_case1"), [],
+                   fs=FP).assert_satisfied()
+    PoseidonTranscriptWrite(PALLAS).squeeze_challenge()
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "halo2_tpu")]
     assert not bad, bad
@@ -327,8 +340,9 @@ _ISOLATED = textwrap.dedent("""
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """Every module of the port imports, and a K = 4 proof is made and
-    verified on the CPU, with jax and halo2_tpu unimportable."""
+    """Every module of the port imports, a K = 4 proof is made and
+    verified on the CPU, and a golden gadget circuit (gadget_circuits.py)
+    passes the mock prover, with jax and halo2_tpu unimportable."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO,
                          env=env, capture_output=True, text=True,
