@@ -6,6 +6,11 @@ Phases, in this order (any failure exits non-zero):
   2. build every CUDA kernel from csrc/ (one nvcc per source, in
      parallel); registers and spills, and the SASS size of the bucket-run,
      B2, B4, scalar-ladder and NTT kernels;
+  2b. [peak] the card's rate of 32-bit integer multiply-adds (independent
+     IMAD, IMAD.HI and IMAD.WIDE chains, an FFMA chain as the control,
+     csrc/peak_kernels.cu), which sets MULADD_PER_S, the "operations"
+     bound of every kernel; the SM clock, the chains' SASS and B1's
+     multiply-adds a product;
   3. kernel B1 (Montgomery multiply) and the field add/sub kernel against
      their plain PyTorch versions, bit-exact, 2^20 operands + edges, both
      fields;
@@ -91,6 +96,22 @@ Phases, in this order (any failure exits non-zero):
      mock prover's gate check on the card equal to the host checker's
      (device time as in [mock]), for the good witness and one changed
      cell, and its per-row zero flags equal to the plain versions';
+ 11f. [sha256] SHA-256 (halo2_tpu_torch/sha256_circuits.py): the
+     bit-decomposition chip's CompressCircuit at K = 14 through the
+     card's gate check, its per-row zero flags against the plain
+     versions', a wrong output word reported by the card and a wrong
+     instance by the permutation stream; Table16's two-block circuit at
+     K = 17 through the card's gate check, its kernel calls held against
+     the plain versions on lane slices; halo2's bench circuit (Table16,
+     31 words, k = 17): Params.new uncached, the keygens, a cold prove
+     with the debug checks on and a warm prove, launches per prover
+     phase (the `h terms build` count), card memory, SingleVerifier and
+     BatchVerifier, a corrupted proof rejected, every kernel of the path
+     (B1, add/subtract, B3 in its three forms, B4, the bucket-run
+     kernel, B7, the GLV and scalar ladders) held against its plain
+     version at the path's shapes on its own data, a profiled warm
+     prove, and the proof's sha256 against the JAX reference's
+     (reference_proof_hash.py --circuit sha256);
  12. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
      reference was run at, at the default IPA schedule (four device
      rounds, then native; cold, then warm), with every round native and
@@ -129,6 +150,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import random
 import subprocess
 import sys
@@ -139,8 +161,9 @@ K = 14
 # keyed by (circuit, k): BenchCircuit at witness SEED_A and halo2's
 # dev_lookup circuit over PALLAS Params (python reference_proof_hash.py
 # --circuit C --k k, on a CPU), the golden gadget circuits over VESTA
-# (--circuit ecc|sinsemilla|merkle|lookup-range-check); REF_K is the
-# largest k those runs were made at
+# (--circuit ecc|sinsemilla|merkle|lookup-range-check), halo2's SHA-256
+# bench circuit over PALLAS (--circuit sha256); REF_K is the largest k
+# the BenchCircuit runs were made at
 REF_SHA256 = {
     ("bench", 14):
         "d74239f9d0320f99b2fc80c89ab5df1ad8a8d2588dc7541eb6017078e986a12f",
@@ -167,6 +190,10 @@ REF_SHA256 = {
         "52d2f96561bd478b19f7626b14958c1e2e6339405338fd271bd93f65d28ff79e",
     ("lookup_range_check", 11):
         "536d53abde630e4ec5c638ca6ed8572776d87fe295af3cdae9594474e3cff0ab",
+    # halo2_tpu_torch/sha256_circuits.py's bench circuit (Table16, 31
+    # words) at k = 17 over PALLAS Params (--circuit sha256)
+    ("sha256", 17):
+        "445f4716ce0f07bda8da7d50b95dfab50527c1b66bc1e8602fdb2e4a8d9f0629",
 }
 REF_K = 18
 # kernels of the main path (the default IPA schedule at k=14 runs every
@@ -178,9 +205,12 @@ MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_bucket_runs", "padd_masked",
 
 # the card's peaks (H100 SXM at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-# 67 TFLOP/s of 32-bit non-tensor work = 33.5e12 multiply-adds/s; each
-# 32x32->64 product counts as two 32-bit multiply-adds (low and high word)
-MULADD_PER_S = 33.5e12
+# 32-bit integer multiply-adds: 64 results a clock an SM (the IMAD pipe
+# runs at half the float rate) x 132 SMs x 1.98 GHz = 16.7e12/s, as
+# [peak] measures (1.6728e13 IMAD results/s on an H100 80GB HBM3 at
+# 700 W; IMAD.WIDE 1.2874e13 32-bit words/s, IMAD.HI 7.7605e12); each
+# 32x32->64 product counts as two (low and high word)
+MULADD_PER_S = 16.7e12
 MONT_MULADDS = 2 * 112      # 64 products for a*b + 48 for the reduction
 
 
@@ -2152,15 +2182,24 @@ class path_calls:
     `check()` can hold the kernels against their plain versions at the
     shapes a path gave them, on the path's own data. The wrappers are
     patched where the path's modules call them; each call launches as
-    before, once."""
+    before, once. Given `slice_lanes`, a call wider than twice that is
+    recorded on a slice whose lanes depend only on their own operands (and
+    the shared ones): the first and last `slice_lanes` lanes of B1, the
+    add/subtract, B3 (its offset form by whole rows), B4 and both ladders,
+    the first and last window rows of the bucket-run kernel, the first and
+    last columns of B7. Without it (the default) every call is recorded
+    whole."""
 
-    def __init__(self):
+    def __init__(self, slice_lanes=None):
         self.calls = {}
+        self.slice = slice_lanes
+        self.sliced = 0
 
     @staticmethod
     def _sites():
         from halo2_tpu_torch.curves import device as curves_device
         from halo2_tpu_torch.ops import field_kernels as fk
+        from halo2_tpu_torch.ops import ipa_device
         from halo2_tpu_torch.ops import msm_pippenger as mp
         from halo2_tpu_torch.ops import ntt
         from halo2_tpu_torch.poly import domain
@@ -2170,7 +2209,14 @@ class path_calls:
                 ("scalar_mul_ladder", curves_device,
                  "scalar_mul_ladder_flat"),
                 ("pmixed_bucket_runs", mp, "pmixed_bucket_runs"),
-                ("padd_masked", mp, "padd_masked_flat"))
+                # B3's lane, offset and index forms (the IPA's projective
+                # commits take the index form)
+                ("padd_masked", mp, "padd_masked_flat"),
+                ("padd", mp, "padd_flat"), ("padd", curves_device,
+                                            "padd_flat"),
+                # the device IPA fold rounds: the GLV ladder and B4
+                ("glv_ladder", ipa_device, "glv_ladder_flat"),
+                ("padd", ipa_device, "padd_flat"))
 
     def __enter__(self):
         self.saved = []
@@ -2185,8 +2231,94 @@ class path_calls:
             setattr(module, attr, orig)
         return False
 
-    def _recording(self, kernel, orig):
+    def _ends(self, L):
+        """The first and last `slice` of L lanes (None: all of them)."""
         import torch
+        if L <= 2 * self.slice:
+            return None
+        return torch.cat([torch.arange(self.slice),
+                          torch.arange(L - self.slice, L)])
+
+    def _sliced(self, kernel, a, out):
+        """(arguments, result) of a call on the slice of its lanes that
+        check() holds (see the class): views, cloned by the caller."""
+        import torch
+        from halo2_tpu_torch.ops import field_kernels as fk
+        if self.slice is None:
+            return a, out
+        memo = {}
+
+        def take(t, dim, sel):
+            if t is None:
+                return None
+            key = (id(t), dim)
+            if key not in memo:
+                memo[key] = t.index_select(dim, sel.to(t.device))
+            return memo[key]
+
+        if kernel == "field":
+            fn_name, counter, df, x, y, *extra = a
+            batch = tuple(torch.broadcast_shapes(x.shape[:-1], y.shape[:-1]))
+            sel = self._ends(math.prod(batch))
+            if sel is None:
+                return a, out
+            (x_, xp), (y_, yp) = fk._fit(x, batch), fk._fit(y, batch)
+            sel = sel.to(out.device)
+            return ((fn_name, counter, df,
+                     x_.reshape(-1, fk.NLIMBS)[sel % xp],
+                     y_.reshape(-1, fk.NLIMBS)[sel % yp], *extra),
+                    out.reshape(-1, fk.NLIMBS)[sel])
+        a = dict(a)
+        if kernel == "ntt":
+            m = a["x"].shape[0]
+            if m <= 2:
+                return a, out
+            sel = torch.tensor([0, m - 1])
+            a["x"] = take(a["x"], 0, sel)
+            return a, take(out, 0, sel)
+        if kernel == "pmixed_bucket_runs":
+            G, BL = a["members"].shape[0], a["BL"]
+            if G <= 2:
+                return a, out
+            L = G * BL
+            sel = torch.cat([torch.arange(BL), torch.arange(L - BL, L)])
+            a["members"] = take(a["members"], 0, torch.tensor([0, G - 1]))
+            for name in ("starts", "counts"):
+                a[name] = take(a[name], 0, sel)
+            return a, take(out, 1, sel)
+        lanes = {"padd": ("a", "b"), "glv_ladder": ("t1", "t2", "t12"),
+                 "padd_masked": ("a",), "scalar_mul_ladder": ("pts", "lo")}
+        first = lanes[kernel][0]
+        L = a[first].shape[1]
+        sel = self._ends(L)
+        if kernel == "padd_masked":
+            width = a.get("width")
+            if width is not None:
+                rows = L // width
+                sel = (None if rows <= 2 else torch.cat(
+                    [torch.arange(width), torch.arange(L - width, L)]))
+            if sel is None:
+                return a, out
+            if a.get("idx") is None:
+                a["b"] = take(a["b"], 1, sel)      # b[j(l)] in l's row
+            for name in ("mask", "idx", "sign"):
+                if a.get(name) is not None:
+                    a[name] = take(a[name], 0, sel)
+        if sel is None:
+            return a, out
+        for name in lanes[kernel]:
+            a[name] = take(a.get(name), 1, sel)
+        if kernel == "scalar_mul_ladder":
+            # lane j of the slice reads row j of its own digit rows
+            a["digits"] = take(a["digits"], 0, sel % a["digits"].shape[0])
+        if isinstance(out, tuple):
+            return a, tuple(take(o, 1, sel) for o in out)
+        return a, take(out, 1, sel)
+
+    def _recording(self, kernel, orig):
+        import inspect
+        import torch
+        params = inspect.signature(orig)
 
         def sig(v):
             if isinstance(v, torch.Tensor):
@@ -2211,10 +2343,18 @@ class path_calls:
                    tuple((k, sig(v)) for k, v in sorted(kw.items())
                          if k != "shift"))
             if key not in self.calls:
+                if kernel == "field":
+                    a, got = self._sliced(kernel, args, out)
+                    k = {}
+                else:
+                    bound = params.bind(*args, **kw)
+                    k, got = self._sliced(kernel, bound.arguments, out)
+                    a = ()
+                self.sliced += got is not out
                 memo = {}
-                self.calls[key] = (clone(args, memo),
-                                   {k: clone(v, memo) for k, v in kw.items()},
-                                   clone(out, {}))
+                self.calls[key] = (clone(a, memo),
+                                   {n: clone(v, memo) for n, v in k.items()},
+                                   clone(got, {}))
             return out
         return recording
 
@@ -2238,7 +2378,8 @@ class path_calls:
 
         plain = {"field": field_plain, "ntt": ntt.ntt_many_plain,
                  "pmixed_bucket_runs": pk.pmixed_bucket_runs_plain,
-                 "padd_masked": pk.padd_masked_plain}
+                 "padd_masked": pk.padd_masked_plain,
+                 "padd": pk.padd_plain, "glv_ladder": pk.glv_ladder_plain}
         def nbytes(v):
             if isinstance(v, torch.Tensor):
                 return v.numel() * v.element_size()
@@ -2248,7 +2389,12 @@ class path_calls:
             return 0
 
         log(f"[{tag}] {len(self.calls)} kernel calls recorded, "
-            f"{nbytes(tuple(self.calls.values())) / 2**30:.3f} GiB")
+            f"{nbytes(tuple(self.calls.values())) / 2**30:.3f} GiB; "
+            + ("every one whole" if self.slice is None else
+               f"{self.sliced} of them on a slice of their lanes (the first "
+               f"and last {self.slice}; B3's offset form, the bucket-run "
+               f"kernel and B7 their first and last rows or columns)"))
+        self.sliced = 0
         pairs, ladders = [], {}
         for (kernel, *_), (args, kw, got) in self.calls.items():
             if kernel == "scalar_mul_ladder":
@@ -2533,6 +2679,340 @@ def phase_gadgets(results, main_state):
                              f"gate on the card")
 
 
+def sass_opcodes(so: str, key: str) -> dict:
+    """Opcode counts (IMAD.WIDE.U32, IMAD.HI.U32, ...) in the SASS of each
+    function of the built library at `so` whose name holds `key`
+    (cuobjdump beside nvcc; {} where it is missing)."""
+    import os
+    import re
+    from collections import Counter
+    from halo2_tpu_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), Counter()) \
+                if key in m.group(1) else None
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,6}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                      line)
+        if cur is not None and m:
+            cur[m.group(1)] += 1
+    return counts
+
+
+def phase_peak():
+    """[peak] The card's rate of 32-bit integer multiply-adds, which sets
+    the "operations" bound (MULADD_PER_S): independent chains of IMAD,
+    IMAD.HI and IMAD.WIDE (a 64-bit result, two 32-bit words) on every
+    SM, timed with CUDA events, beside an FFMA chain as the control (its
+    rate is the card's published 32-bit float rate over two); the SM
+    clock and the SASS of the chains, and B1's multiply-add count per
+    product from its SASS. Fails when the integer rate exceeds the bound's
+    constant by more than 10%: the bound would then not be one."""
+    import torch
+    from halo2_tpu_torch.ops import cuda_build
+    lib = cuda_build.library("peak_kernels")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chains = lib.h2t_peak_chains()
+    blocks, threads, iters = 8 * sms, 256, 1 << 14
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    stream = cuda_build.stream_ptr(out.device)
+
+    def clock(what):
+        smi = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={what}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        return smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
+
+    rates = {}
+    for mode, name, words in ((0, "IMAD", 1), (1, "IMAD.HI", 1),
+                              (2, "IMAD.WIDE", 2), (3, "FFMA", 1)):
+        def launch(mode=mode):
+            cuda_build.check(lib.h2t_peak(mode, out.data_ptr(), iters,
+                                          0x9E3779B1, 12345, blocks, threads,
+                                          stream), "peak")
+        ms = timed(launch, 20)
+        ops = blocks * threads * iters * chains
+        rates[name] = ops * words / (ms * 1e-3)
+        log(f"[peak] {name}: {ops} instructions in {ms:.4f} ms, "
+            f"{rates[name]:.4e} 32-bit results/s "
+            f"({rates[name] / sms / 1e9:.2f} per SM per ns)")
+    log(f"[peak] SM clock under load {clock('clocks.sm')}, max "
+        f"{clock('clocks.max.sm')}; {sms} SMs")
+    for fn, ops in sass_opcodes(cuda_build._so_path("peak_kernels"),
+                                "peak").items():
+        top = {k: v for k, v in ops.items() if k.startswith(("IMAD", "FFMA"))}
+        log(f"[peak] SASS {fn}: {top}")
+    for fn, ops in sass_opcodes(cuda_build._so_path("field_kernels"),
+                                "fmul_kernel").items():
+        imad = {k: v for k, v in ops.items() if k.startswith("IMAD")}
+        log(f"[peak] SASS {fn}: {sum(imad.values())} instructions on the "
+            f"IMAD pipe a product, moves and carries among them {imad} "
+            f"(the bound counts {MONT_MULADDS} multiply-add words)")
+    best = max(rates[n] for n in ("IMAD", "IMAD.HI", "IMAD.WIDE"))
+    log(f"[peak] integer multiply-adds {best:.4e}/s against MULADD_PER_S "
+        f"{MULADD_PER_S:.4e} ({best / MULADD_PER_S:.3f}); FFMA "
+        f"{rates['FFMA']:.4e}/s ({2 * rates['FFMA'] / 1e12:.1f} TFLOP/s)")
+    if best > 1.1 * MULADD_PER_S:
+        raise AssertionError(f"the card's integer multiply-add rate "
+                             f"{best:.4e}/s exceeds MULADD_PER_S")
+
+
+class phase_launches:
+    """Within the block, the launches of each kernel in each prover phase
+    and the phase's peak of allocated card memory: a measurement hook
+    around PhaseTimer.lap (which drains the card at every lap). The
+    block's value is the list of (phase, {kernel: launches}, peak GiB)."""
+
+    def __enter__(self):
+        import torch
+        from halo2_tpu_torch.plonk import prover as pv
+        self.orig = orig = pv.PhaseTimer.lap
+        phases, last = [], [launch_counts()]
+        torch.cuda.reset_peak_memory_stats()
+
+        def lap(timer, name):
+            orig(timer, name)
+            now = launch_counts()
+            phases.append((name, {k: v - last[0][k] for k, v in now.items()
+                                  if v != last[0][k]},
+                           torch.cuda.max_memory_allocated() / 2**30))
+            torch.cuda.reset_peak_memory_stats()
+            last[0] = now
+
+        pv.PhaseTimer.lap = lap
+        return phases
+
+    def __exit__(self, *exc):
+        from halo2_tpu_torch.plonk import prover as pv
+        pv.PhaseTimer.lap = self.orig
+        return False
+
+
+def _instance_partner(prover, row: int):
+    """(column, row) of the advice cell copied to instance row `row`: the
+    next advice cell on the instance cell's permutation cycle."""
+    perm = prover.permutation
+    c = next(i for i, col in enumerate(perm.columns)
+             if col.column_type == "instance")
+    r = row
+    for _ in range(perm.n * len(perm.columns)):
+        c, r = int(perm.map_col[c, r]), int(perm.map_row[c, r])
+        if perm.columns[c].column_type == "advice":
+            return perm.columns[c], r
+    raise AssertionError(f"instance row {row} is copied from no advice cell")
+
+
+def phase_sha256(results):
+    """[sha256] SHA-256 (halo2_tpu_torch/sha256_circuits.py). The circuit
+    writer's check on the card: the bit-decomposition chip's
+    CompressCircuit at K = 14 (the digest of "abc", against compress_host)
+    through verify_vectorized, its per-row zero flags against the plain
+    versions' on the CPU, a wrong output word (its advice cell) reported
+    by the card and a wrong instance by the permutation stream; Table16's
+    two-block circuit at K = 17 through verify_vectorized, its field
+    kernels' calls held against the plain versions on lane slices
+    (path_calls; the plain flags of 20 degree-9 gates over 2^17 rows would
+    take minutes). Then halo2's bench circuit (Table16, 31 words, k = 17,
+    PALLAS): Params.new uncached, keygen_vk and keygen_pk, a cold prove
+    with the debug checks on (sanity=True) and a warm one, the launches
+    of each prover phase, card memory, SingleVerifier and BatchVerifier,
+    a corrupted proof rejected, the proof's sha256 against the JAX
+    reference's (reference_proof_hash.py --circuit sha256) and the cold
+    and warm bytes equal; the first call of every kernel at each shape of
+    Params.new, the keygens and the cold prove held against its plain
+    version (path_calls); a profiled warm prove. Counts set to 0 just
+    before each path and read just after."""
+    import torch
+    from halo2_tpu_torch import sha256_circuits as sc
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.gadgets.sha256 import IV, compress_host, sha256_host
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
+    from halo2_tpu_torch.plonk.verifier import (verify_proof, SingleVerifier,
+                                                BatchVerifier,
+                                                VerificationError)
+    from halo2_tpu_torch.poly.commitment import Params
+    from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
+    ns = sc.port_namespace()
+
+    # the bit-decomposition chip at K = 14
+    want = compress_host(list(IV), sc.ABC_BLOCK)
+    if b"".join(w.to_bytes(4, "big") for w in want) != sha256_host(b"abc"):
+        raise AssertionError("compress_host of the 'abc' block is not FIPS")
+    reset_counts()                        # the mock prover's count starts
+    t = time.perf_counter()
+    prover = MockProver.run(sc.K_COMPRESS, ns.classes.Compress(sc.ABC_BLOCK),
+                            [want], fs=ns.FQ)
+    t_run = time.perf_counter() - t
+    t = time.perf_counter()
+    perm = prover.verify(streams=("permutation",))
+    log(f"[sha256] CompressCircuit K={sc.K_COMPRESS}: MockProver.run "
+        f"{t_run:.3f}s, {len(prover.cs.gates)} gates, degree "
+        f"{prover.cs.degree()}; permutation stream "
+        f"{time.perf_counter() - t:.3f}s, failures {len(perm)}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with field_launches() as ev:
+        card = prover.verify_vectorized()
+        torch.cuda.synchronize()
+    log(f"[sha256] CompressCircuit gate check on the card "
+        f"{time.perf_counter() - t:.4f}s wall, {ev.summary()}; failures "
+        f"{_failures(card)}")
+    del ev
+    if perm or card:
+        raise AssertionError(f"[sha256] the chip's compression of 'abc' "
+                             f"fails: {perm[:3]} {card[:3]}")
+    _flags_check("sha256 compress", prover)
+    col, row = _instance_partner(prover, 0)
+    prover.advice[col.index][row] ^= 1    # a wrong output word
+    bad = prover.verify_vectorized()
+    log(f"[sha256] output word 0 (advice[{col.index}][{row}]) off by one: "
+        f"the card reports {len(bad)} failures {_failures(bad)[:3]}")
+    if not bad:
+        raise AssertionError("[sha256] a wrong output word passed the card's "
+                             "gate check")
+    wrong = MockProver.run(sc.K_COMPRESS, ns.classes.Compress(sc.ABC_BLOCK),
+                           [[want[0] ^ 1] + want[1:]], fs=ns.FQ)
+    kinds = _failures(wrong.verify(streams=("permutation",)))
+    log(f"[sha256] wrong instance word: permutation stream {kinds}")
+    if not kinds:
+        raise AssertionError("[sha256] a wrong instance word was accepted")
+    del prover, wrong
+
+    # Table16's two-block circuit at K = 17
+    circuit = sc.table16_circuit(ns, "two_block")
+    t = time.perf_counter()
+    prover = MockProver.run(sc.K_TABLE16, circuit, [])
+    t_run = time.perf_counter() - t
+    digest_ok = circuit.digest_out == sc.chained_rounds(
+        sc.table16_words("two_block"))
+    calls = path_calls(slice_lanes=1024)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with calls, field_launches() as ev:
+        card = prover.verify_vectorized()
+        torch.cuda.synchronize()
+    log(f"[sha256] Table16 two blocks, K={sc.K_TABLE16}: MockProver.run "
+        f"{t_run:.3f}s, {len(prover.cs.gates)} gates, degree "
+        f"{prover.cs.degree()}, digest equals the raw rounds' {digest_ok}; "
+        f"gate check on the card {time.perf_counter() - t:.4f}s wall, "
+        f"{ev.summary()}; failures {_failures(card)}")
+    launches = launch_counts()
+    log(f"[sha256] mock prover launches {launches}")
+    if card or not digest_ok:
+        raise AssertionError(f"[sha256] Table16 two blocks fails: "
+                             f"{card[:3]}, digest {digest_ok}")
+    if not launches["fmul"] or not launches["faddsub"]:
+        raise AssertionError("[sha256] the gate check launched no B1 or "
+                             "add/subtract kernel")
+    calls.check("sha256_mock", results)
+    del prover, circuit, calls, ev        # ev holds every launch's operands
+
+    # the bench circuit, proved
+    circuit = sc.table16_circuit(ns, "bench")
+    shapes = path_calls(slice_lanes=1024)
+    reset_counts()                        # the SHA-256 path's count starts
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with shapes:
+        params = Params.new(PALLAS, sc.K_TABLE16, use_cache=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with shapes:
+        vk = keygen_vk(params, circuit)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with shapes:
+        pk_ = keygen_pk(params, vk, circuit)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"[sha256] bench k={sc.K_TABLE16}: Params.new(use_cache=False) "
+        f"{t1 - t:.3f}s, keygen_vk {t2 - t1:.3f}s, keygen_pk {t3 - t2:.3f}s;"
+        f" {vk.cs.num_advice_columns} advice columns, degree "
+        f"{vk.cs.degree()}, extended k {vk.domain.extended_k}; launches "
+        f"{launch_counts()}")
+    proofs, peak = [], 0.0
+    for label in ("cold", "warm"):
+        before = launch_counts()
+        tw = TranscriptWrite(PALLAS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with (shapes if label == "cold" else contextlib.nullcontext()), \
+                phase_launches() as per_phase:
+            pv.create_proof(params, pk_, [circuit], [[]],
+                            random.Random(PROOF_SEED), tw,
+                            sanity=label == "cold")
+        torch.cuda.synchronize()
+        proofs.append(tw.finalize())
+        peak = max([peak] + [gib for *_, gib in per_phase])
+        log(f"[sha256] create_proof {label}"
+            f"{' (debug checks on)' if label == 'cold' else ''}: "
+            f"{time.perf_counter() - t:.3f}s, {len(proofs[-1])} bytes, "
+            f"launches {diff_counts(before)}")
+    log(f"[sha256] card memory: max allocated {peak:.3f} GiB over the two "
+        f"proves (each phase's peak beside its launches)")
+    log("[sha256] warm phases " + json.dumps(
+        {name: round(sec, 4) for name, sec in pv.LAST_PHASES}))
+    for name, counts, gib in per_phase:
+        log(f"[sha256] warm {name}: launches {counts}, peak {gib:.3f} GiB")
+    h_build = next(c for name, c, _ in per_phase if name == "h terms build")
+    log(f"[sha256] h terms build: {h_build.get('fmul', 0)} B1 and "
+        f"{h_build.get('faddsub', 0)} add/subtract launches")
+    t = time.perf_counter()
+    verify_proof(params, vk, SingleVerifier(params), [[]],
+                 TranscriptRead(PALLAS, proofs[1]))
+    t_single = time.perf_counter() - t
+    bv = BatchVerifier(params)
+    bv.add_proof([[]], proofs[1])
+    t = time.perf_counter()
+    batch = bv.finalize(vk)
+    log(f"[sha256] SingleVerifier {t_single:.3f}s (accepted), BatchVerifier "
+        f"{time.perf_counter() - t:.3f}s: {batch}")
+    if batch is not True:
+        raise AssertionError("[sha256] BatchVerifier rejected the proof")
+    corrupted = bytearray(proofs[1])
+    corrupted[-64] ^= 1                   # the IPA's scalar c, off by one
+    try:
+        verify_proof(params, vk, SingleVerifier(params), [[]],
+                     TranscriptRead(PALLAS, bytes(corrupted)))
+    except VerificationError:
+        log("[sha256] corrupted proof rejected")
+    else:
+        raise AssertionError("[sha256] a corrupted proof was accepted")
+    digest = hashlib.sha256(proofs[1]).hexdigest()
+    log(f"[sha256] proof sha256 {digest}")
+    if proofs[0] != proofs[1]:
+        raise AssertionError("[sha256] cold and warm proofs differ")
+    launches = launch_counts()
+    path = MAIN_PATH_KERNELS + ("padd", "glv_ladder", "scalar_mul_ladder")
+    for name in path:
+        results[name]["sha256_launches"] = launches[name]
+    log(f"[sha256] launches in Params.new, the keygens, the two proves and "
+        f"the verifiers {launches}")
+    idle = [k for k in path if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels of the SHA-256 path not launched: "
+                             f"{idle}")
+    shapes.check("sha256", results)
+    del shapes
+    profile_call("sha256", lambda: pv.create_proof(
+        params, pk_, [circuit], [[]], random.Random(PROOF_SEED),
+        TranscriptWrite(PALLAS)))
+    if digest != REF_SHA256["sha256", sc.K_TABLE16]:
+        raise AssertionError(f"[sha256] proof hash {digest} != JAX reference "
+                             f"{REF_SHA256['sha256', sc.K_TABLE16]}")
+    log("[sha256] proof bytes equal the JAX reference's")
+
+
 def run_phase(phase, *args):
     t = time.perf_counter()
     ret = phase(*args)
@@ -2602,6 +3082,7 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_card()
     run_phase(phase_build)
+    run_phase(phase_peak)
     run_phase(phase_field, results)
     run_phase(phase_ntt, results)
     run_phase(phase_layout, results)
@@ -2619,6 +3100,7 @@ def main() -> int:
     run_phase(phase_v1, results, state[0])
     run_phase(phase_mock, results)
     run_phase(phase_gadgets, results, state)
+    run_phase(phase_sha256, results)
     params_ref_k = run_phase(phase_reference_k)
     run_phase(phase_bucket, results, state[0], params_ref_k)
     widths = run_phase(phase_lookup, results, state[0], params_ref_k)
@@ -2637,7 +3119,7 @@ def main() -> int:
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
                      "graph_ms", "profiler_ms", "srs_", "verify_", "v1_",
-                     "mock_", "gadgets_",
+                     "mock_", "gadgets_", "sha256_",
                      "launches_offset_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

@@ -16,10 +16,12 @@
 // Bound on an H100: per element B1 moves 192 bytes (two operands read, one
 // result written: 57 ps at 3.35 TB/s) and does 112 32x32->64 products (64
 // for a*b, 48 for the reduction, which skips the three zero limbs of p),
-// i.e. 224 32-bit multiply-adds: 6.7 ps at the 33.5e12 multiply-adds/s of
-// the card's 67 TFLOP/s 32-bit rate. So by that count B1 is bytes-bound at
-// full width; the integer multiplier runs at half the float rate on Hopper,
-// which brings the two bounds within a factor of a few. The design keeps
+// i.e. 224 32-bit multiply-adds: 13.4 ps at the card's 16.7e12 integer
+// multiply-adds/s (64 a clock an SM, half the float rate; chip_smoke.py
+// [peak] measures it). So by that count B1 is bytes-bound at full width;
+// its SASS puts about 250 instructions a product on the IMAD pipe (moves
+// and carries among them), which brings the two bounds within a factor of
+// a few. The design keeps
 // every limb in registers, reads each operand exactly once with 16-byte
 // vector loads, and indexes a broadcast operand (a scalar, a twiddle row)
 // modulo its period instead of materialising it.

@@ -38,7 +38,7 @@
 // Bound on an H100: one read and one write of 64 B per element (128 m n
 // bytes: 0.040 ms at m = 1, n = 2^20 at 3.35 TB/s) against (n/2) log n
 // Montgomery products per column of 224 32-bit multiply-adds each
-// (0.070 ms at 33.5e12/s): arithmetic bounds it at 2^20. Two passes move
+// (0.141 ms at 16.7e12/s): arithmetic bounds it at 2^20. Two passes move
 // 256 m n bytes of column traffic, where the stagewise form this kernel
 // replaced (a tile kernel for the first ten stages, then one launch per
 // stage: 1 + log n - 10 launches) moved 128 m n (1 + log n - 10). At

@@ -60,7 +60,7 @@
 // What bounds them on an H100, and what the design does about it:
 // - By the roofline B3 moves 2 x 192 + 4 bytes in and 192 out per lane
 //   (580 B, 173 ps at 3.35 TB/s) against 12 Montgomery products of 224
-//   32-bit multiply-adds (80 ps at 33.5e12 multiply-adds/s); B2 moves
+//   32-bit multiply-adds (161 ps at 16.7e12 multiply-adds/s); B2 moves
 //   520 B for 11 products, B4 576 B for 12, B5 384 B for 8 (53 ps), B6
 //   388 B for 8 on its live lanes. In practice each thread runs a chain
 //   of dependent products at low occupancy (26,624 lanes are 832 warps,

@@ -23,11 +23,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 
-# library name -> its .cu source; every source includes field.cuh
+# library name -> its .cu source; every kernel source includes field.cuh
+# (peak_kernels.cu, the integer multiply-add microbenchmark, does not)
 SOURCES = {
     "field_kernels": "field_kernels.cu",
     "point_kernels": "point_kernels.cu",
     "ntt_kernels": "ntt_kernels.cu",
+    "peak_kernels": "peak_kernels.cu",
 }
 _HEADERS = ("field.cuh",)
 
@@ -56,6 +58,10 @@ _ARGTYPES = {
         "h2t_pdouble_masked": [_I, _P, _P, _P, _LL, _P],
         "h2t_glv_ladder": [_I, _P, _P, _P, _P, _U32P, _U32P, _I, _LL, _P],
         "h2t_scalar_mul_ladder": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _P],
+    },
+    "peak_kernels": {
+        "h2t_peak": [_I, _P, _I, ctypes.c_uint, ctypes.c_uint, _I, _I, _P],
+        "h2t_peak_chains": [],
     },
 }
 

@@ -68,9 +68,10 @@ def _compress(df, theta_m, arrays):
 
 def lookup_commit_permuted(argument: LookupArgument, cs: ConstraintSystem,
                            params, domain, theta: int, advice, fixed,
-                           instance, rng, transcript) -> Permuted:
+                           instance, rng, transcript,
+                           sanity: bool = False) -> Permuted:
     """prover.rs:76-243. advice/fixed/instance: lists of [n, 16] Lagrange
-    tensors."""
+    tensors. `sanity`: check the permuted pair (permute_expression_pair)."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -86,7 +87,7 @@ def lookup_commit_permuted(argument: LookupArgument, cs: ConstraintSystem,
     compressed_input = compressed(argument.input_expressions)
     compressed_table = compressed(argument.table_expressions)
     permuted_input, permuted_table = permute_expression_pair(
-        cs, params, rng, compressed_input, compressed_table)
+        cs, params, rng, compressed_input, compressed_table, sanity=sanity)
 
     pi_blind = fs.rand(rng)
     pt_blind = fs.rand(rng)
@@ -198,12 +199,41 @@ def permute_pair_oracle(df: DeviceField, input_mont, table_mont):
                  for rks in (in_ranks, perm_tab_ranks))
 
 
+def check_permuted_pair(pi_body: torch.Tensor, pt_body: torch.Tensor
+                        ) -> None:
+    """The debug check of a permuted pair (lookup/prover.rs:628-641, the
+    reference's HALO2_TPU_SANITY check, halo2_tpu/plonk/lookup.py:282-289):
+    every usable row has A'[i] == S'[i] or A'[i] == A'[i-1]. Montgomery
+    digits are canonical, so equal digits are equal values; one bool is
+    read back."""
+    eq_ts = (pi_body == pt_body).all(dim=-1)
+    eq_prev = torch.zeros_like(eq_ts)
+    eq_prev[1:] = (pi_body[1:] == pi_body[:-1]).all(dim=-1)
+    if not bool((eq_ts | eq_prev).all()):
+        raise AssertionError("permuted pair violates A'==S' or A'==A'_prev")
+
+
+def check_lookup_product(df, z: torch.Tensor, usable: int) -> None:
+    """The debug check of a lookup product (lookup/prover.rs:339-376, the
+    reference's halo2_tpu/plonk/lookup.py:372-380): Z starts at 1 and
+    closes to 1 at the last usable row boundary. Two rows are read
+    back."""
+    ends = df.from_mont_np(z[[0, usable]])
+    if int(ends[0]) != 1:
+        raise AssertionError("lookup z[0] != 1")
+    if int(ends[1]) != 1:
+        raise AssertionError(
+            "lookup grand product does not telescope (z[u] != 1)")
+
+
 def permute_expression_pair(cs: ConstraintSystem, params, rng,
                             input_values: torch.Tensor,
-                            table_values: torch.Tensor):
+                            table_values: torch.Tensor,
+                            sanity: bool = False):
     """prover.rs:563-647: the permuted pair of the usable rows, then the
     blinding rows -- `blinding_factors + 1` input blinds, then as many
-    table blinds, each through fs.rand (the reference's draw order)."""
+    table blinds, each through fs.rand (the reference's draw order).
+    `sanity`: check_permuted_pair on the usable rows."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -213,6 +243,8 @@ def permute_expression_pair(cs: ConstraintSystem, params, rng,
         df, input_values[:usable], table_values[:usable])
     if not bool(ok):
         raise ValueError(NOT_CONTAINED)
+    if sanity:
+        check_permuted_pair(pi_body, pt_body)
     dev = input_values.device
     pi_blinds = [fs.rand(rng) for _ in range(blinding_factors + 1)]
     pt_blinds = [fs.rand(rng) for _ in range(blinding_factors + 1)]
@@ -221,11 +253,12 @@ def permute_expression_pair(cs: ConstraintSystem, params, rng,
 
 
 def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
-                          domain, beta: int, gamma: int, rng, transcript
-                          ) -> CommittedLookup:
+                          domain, beta: int, gamma: int, rng, transcript,
+                          sanity: bool = False) -> CommittedLookup:
     """prover.rs:253-392: Z = the exclusive running product of
     (A_c + beta)(S_c + gamma) / ((A' + beta)(S' + gamma)), then
-    `blinding_factors` blinds and the product blind."""
+    `blinding_factors` blinds and the product blind. `sanity`:
+    check_lookup_product."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -242,6 +275,8 @@ def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
     blinds = [fs.rand(rng) for _ in range(blinding_factors)]
     z = torch.cat([df.scalar(1, dev)[None], incl[:n - blinding_factors - 1],
                    df.upload_values(blinds, dev)], dim=0)
+    if sanity:
+        check_lookup_product(df, z, n - (blinding_factors + 1))
     product_blind = fs.rand(rng)
     (commitment,) = params.commit_many([z], [product_blind], lagrange=True)
     (z_poly,), (z_coset,) = domain.lagrange_to_coeff_extended_many([z])

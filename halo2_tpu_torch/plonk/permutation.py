@@ -149,12 +149,14 @@ def _z_chunk(df: DeviceField, vals, sigs, beta_m, gamma_m, lastz_m,
 def permutation_commit(cs: ConstraintSystem, params, domain,
                        pkey: PermutationProvingKey,
                        advice, fixed, instance,
-                       beta: int, gamma: int, rng, transcript
-                       ) -> list[CommittedSet]:
+                       beta: int, gamma: int, rng, transcript,
+                       sanity: bool = False) -> list[CommittedSet]:
     """prover.rs:47-194. advice/fixed/instance: lists of [n, 16] Lagrange
     tensors. One z per chunk (serial through last_z); the commitments and
     transforms of all chunks are then batched, and the points written in
-    order."""
+    order. With `sanity`, the grand product over all chunks must
+    telescope back to 1 (the reference's HALO2_TPU_SANITY check,
+    halo2_tpu/plonk/permutation.py:339-345)."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -195,6 +197,10 @@ def permutation_commit(cs: ConstraintSystem, params, domain,
         z_arrays.append(z)
         blinds_out.append(fs.rand(rng))
 
+    if sanity and columns:
+        # sigma is a bijection on the usable rows, so the product chained
+        # over every chunk, last_z after the last one, is 1
+        check_permutation_product(last_z)
     commitments = params.commit_many(z_arrays, blinds_out, lagrange=True)
     z_polys, z_cosets = domain.lagrange_to_coeff_extended_many(z_arrays)
     sets: list[CommittedSet] = []
@@ -204,6 +210,14 @@ def permutation_commit(cs: ConstraintSystem, params, domain,
         sets.append(CommittedSet(z_lagrange=z, z_poly=zp, z_coset=zc,
                                  blind=blind))
     return sets
+
+
+def check_permutation_product(last_z: int) -> None:
+    """The debug check of a permutation argument: its grand product
+    telescopes (last_z == 1)."""
+    if last_z != 1:
+        raise AssertionError(
+            "permutation grand product does not telescope (last_z != 1)")
 
 
 def permutation_h_terms(cs: ConstraintSystem, domain, pkey,

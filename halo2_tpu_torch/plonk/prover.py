@@ -167,11 +167,16 @@ def _gates_h_fold(pk, cs, df, rot_scale: int, y_m, h_acc, advice_c,
 
 def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
                  instances: list[list[list[int]]], rng, transcript,
-                 native_ipa_threshold: int = NATIVE_IPA_THRESHOLD) -> None:
+                 native_ipa_threshold: int = NATIVE_IPA_THRESHOLD,
+                 sanity: bool = False) -> None:
     """prover.rs:35-725. `instances[i][j]` is the j-th instance column of
     the i-th circuit instance. IPA rounds with half > native_ipa_threshold
     run on the device, the rest in the native host library
-    (poly/commitment.py::ipa_create_proof); the proof is the same."""
+    (poly/commitment.py::ipa_create_proof); the proof is the same.
+    `sanity` runs the reference's debug checks (its HALO2_TPU_SANITY):
+    each permuted lookup pair is well formed, each lookup product and the
+    permutation product telescope; a failed check raises AssertionError.
+    The proof is the same with them on."""
     if len(circuits) != len(instances):
         raise ValueError("circuits/instances length mismatch")
     cs = pk.vk.cs
@@ -241,7 +246,8 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     lookups_permuted = [
         [lookup_commit_permuted(argument, cs, params, domain, theta,
                                 adv_s["values"], pk.fixed_values,
-                                inst_s["values"], rng, transcript)
+                                inst_s["values"], rng, transcript,
+                                sanity=sanity)
          for argument in cs.lookups]
         for inst_s, adv_s in zip(instance_singles, advice_singles)]
     prof.lap("lookup permuted")
@@ -254,13 +260,13 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
         permutations_committed.append(permutation_commit(
             cs, params, domain, pk.permutation,
             adv_s["values"], pk.fixed_values, inst_s["values"],
-            beta, gamma, rng, transcript))
+            beta, gamma, rng, transcript, sanity=sanity))
     prof.lap("permutation z")
 
     # ---- lookups: product commitments ----
     lookups_committed = [
         [lookup_commit_product(permuted, cs, params, domain, beta, gamma,
-                               rng, transcript)
+                               rng, transcript, sanity=sanity)
          for permuted in per_instance]
         for per_instance in lookups_permuted]
     prof.lap("lookup products")

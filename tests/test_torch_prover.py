@@ -332,6 +332,16 @@ _ISOLATED = textwrap.dedent("""
                    fs=FP).assert_satisfied()
     PoseidonTranscriptWrite(PALLAS).squeeze_challenge()
 
+    # SHA-256: the bit-decomposition chip's compression of "abc" copied
+    # to its instance (sha256_circuits.py)
+    from halo2_tpu_torch import sha256_circuits as sc
+    from halo2_tpu_torch.gadgets.sha256 import IV, compress_host
+    ns = sc.port_namespace()
+    want = compress_host(list(IV), sc.ABC_BLOCK)
+    assert MockProver.run(sc.K_COMPRESS, ns.classes.Compress(sc.ABC_BLOCK),
+                          [want], fs=ns.FQ).verify(
+        streams=("permutation",)) == []
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "halo2_tpu")]
     assert not bad, bad
@@ -341,8 +351,9 @@ _ISOLATED = textwrap.dedent("""
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of the port imports, a K = 4 proof is made and
-    verified on the CPU, and a golden gadget circuit (gadget_circuits.py)
-    passes the mock prover, with jax and halo2_tpu unimportable."""
+    verified on the CPU, a golden gadget circuit (gadget_circuits.py)
+    passes the mock prover and the SHA-256 chip's compression is copied
+    to its instance, with jax and halo2_tpu unimportable."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO,
                          env=env, capture_output=True, text=True,
