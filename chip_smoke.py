@@ -136,6 +136,18 @@ Phases, in this order (any failure exits non-zero):
      write() bytes equal to those with the native library's g_lagrange;
      native g, native group iNTT and the device group iNTT timed apart;
      one ladder launch a stage and one for the 1/n scale;
+ 13c. [mesh] the multi-device layer (halo2_tpu_torch/parallel/) at
+     k = 14: a world of one rank over NCCL in this process (BenchCircuit
+     proved cold and warm under ProverMesh against the JAX hash, both
+     verifiers, the sharded commit, NTT and scan counted, every kernel
+     call of the path held against its plain version; the process group
+     destroyed after), then worlds of 2 and 4 spawned ranks sharing the
+     card over gloo (parallel/launch.py::run_ranks; each rank's cold and
+     warm proofs against the JAX hash, a sharded 2^16 NTT and a sharded
+     k = 14 commit against the single-device ones, its kernel calls
+     against their plain versions on lane slices, its warm prove time
+     and the bytes it staged through host memory; dev_lookup at k = 14
+     in the world of 2 against its JAX hash);
  14. a `kernels` JSON line: launches on the path that runs each kernel
      (main, ipa or srs), mismatches, each kernel's device time per launch
      (torch.profiler; from a CUDA graph for B7 and the bucket-run kernel,
@@ -203,15 +215,12 @@ REF_K = 18
 MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_bucket_runs", "padd_masked",
                      "ntt")
 
-# the card's peaks (H100 SXM at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-# 32-bit integer multiply-adds: 64 results a clock an SM (the IMAD pipe
-# runs at half the float rate) x 132 SMs x 1.98 GHz = 16.7e12/s, as
-# [peak] measures (1.6728e13 IMAD results/s on an H100 80GB HBM3 at
-# 700 W; IMAD.WIDE 1.2874e13 32-bit words/s, IMAD.HI 7.7605e12); each
-# 32x32->64 product counts as two (low and high word)
-MULADD_PER_S = 16.7e12
-MONT_MULADDS = 2 * 112      # 64 products for a*b + 48 for the reduction
+# the card's peaks (H100 SXM at 700 W: HBM bytes and 32-bit integer
+# multiply-adds a second), the multiply-adds of one Montgomery product and
+# bound_ms(nbytes, muladds), the least time of a kernel's work: from
+# halo2_tpu_torch/parallel/profiling.py, bound by main() once the package
+# imports (this file alone must start and fail without it)
+HBM_BYTES_PER_S = MULADD_PER_S = MONT_MULADDS = bound_ms = None
 
 
 def log(msg: str) -> None:
@@ -280,12 +289,6 @@ def device_ms(fn, reps: int, kernel, per_call: bool = False) -> float:
 def max_abs(got, want) -> int:
     """Largest digit difference (0 when bit-exact)."""
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
-
-
-def bound_ms(nbytes: float, muladds: float):
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = muladds / MULADD_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def phase_card():
@@ -2202,9 +2205,10 @@ class path_calls:
         from halo2_tpu_torch.ops import ipa_device
         from halo2_tpu_torch.ops import msm_pippenger as mp
         from halo2_tpu_torch.ops import ntt
+        from halo2_tpu_torch.parallel import mesh
         from halo2_tpu_torch.poly import domain
         return (("field", fk, "_launch"), ("ntt", domain, "ntt_many"),
-                ("ntt", ntt, "ntt_many"),
+                ("ntt", ntt, "ntt_many"), ("ntt", mesh, "ntt_many"),
                 ("scalar_mul_ladder", ntt, "scalar_mul_ladder_flat"),
                 ("scalar_mul_ladder", curves_device,
                  "scalar_mul_ladder_flat"),
@@ -3013,6 +3017,158 @@ def phase_sha256(results):
     log("[sha256] proof bytes equal the JAX reference's")
 
 
+# [mesh]: the spawned worlds share the one card over gloo; each rank
+# proves BenchCircuit at k = K cold and warm, holds a 2^16-column sharded
+# NTT and a k = K sharded commit to their single-device results, and the
+# world of 2 also proves dev_lookup at k = K
+MESH_WORLDS = (2, 4)
+MESH_TIMEOUT_S = 240
+
+
+def _mesh_tasks(world: int) -> list:
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    tasks = [("bench", "prove", dict(circuit="bench", k=K, seed=PROOF_SEED,
+                                     reps=2)),
+             ("ntt", "ntt", dict(log_n=16, seed=1)),
+             ("commit", "commit", dict(k=K, seed=3, blind=5))]
+    if world == 2:
+        tasks.append(("lookup", "prove", dict(circuit="dev_lookup", k=K,
+                                              seed=PROOF_SEED)))
+    return tasks
+
+
+def _mesh_rank(tasks):
+    """One rank of a spawned world (chip_smoke.py is its main module): the
+    tasks of parallel/programs.py on the card, every kernel call they
+    make recorded (path_calls, lane slices of 1,024) and held against its
+    plain version after them; a mismatch fails the rank."""
+    from collections import defaultdict
+    from halo2_tpu_torch.parallel import programs
+    with path_calls(slice_lanes=1024) as calls:
+        out = programs.run(None, tasks)
+    report, tag = defaultdict(dict), f"mesh rank {out['rank']}"
+    calls.check(tag, report)
+    out["plain_checks"] = {name: {k[len(tag) + 1:]: v for k, v in r.items()}
+                           for name, r in report.items()}
+    return out
+
+
+def phase_mesh(results):
+    """[mesh] The multi-device layer (halo2_tpu_torch/parallel/) at k = K.
+    A world of one rank over NCCL, in this process: BenchCircuit proved
+    cold and warm under ProverMesh(make_mesh()) against the JAX hash,
+    SingleVerifier and BatchVerifier, the sharded commit, NTT and scan
+    counted, every kernel call of the path held against its plain version
+    (path_calls, whole), counts set to 0 just before and read just
+    after; the group destroyed. Then spawned worlds of 2 and 4 ranks on
+    the one card over gloo (every exchange staged through host memory):
+    each rank's proofs hash to the same reference, its sharded NTT of a
+    2^16 column and sharded k = K commit equal the single-device ones,
+    its path's kernel calls equal their plain versions; the world of 2
+    also proves dev_lookup at k = K against its JAX hash. Ranks that share
+    a card compete for it: their times show no speedup and claim none."""
+    import torch
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    from halo2_tpu_torch.curves.host import PALLAS as curve
+    from halo2_tpu_torch.parallel import ProverMesh, make_mesh, programs
+    from halo2_tpu_torch.parallel import mesh as mesh_mod
+    from halo2_tpu_torch.parallel.launch import run_ranks, world_of_one
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.plonk.verifier import (verify_proof, SingleVerifier,
+                                                BatchVerifier)
+    from halo2_tpu_torch.transcript import TranscriptWrite, TranscriptRead
+
+    want = REF_SHA256["bench", K]
+    for key in mesh_mod.COUNTS:
+        mesh_mod.COUNTS[key] = 0
+    with world_of_one("nccl", MESH_TIMEOUT_S):
+        mesh = make_mesh()
+        params, vk, pk_, circuit, inst = programs.keys_for("bench", K,
+                                                           mesh.device)
+        reset_counts()                    # the mesh path's count starts
+        proofs = []
+        with path_calls() as calls:
+            for label in ("cold", "warm"):
+                before = launch_counts()
+                tw = TranscriptWrite(curve)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with ProverMesh(mesh):
+                    pv.create_proof(params, pk_, [circuit], inst,
+                                    random.Random(PROOF_SEED), tw)
+                torch.cuda.synchronize()
+                proofs.append(tw.finalize())
+                log(f"[mesh] world 1 (nccl, {mesh.device}): create_proof "
+                    f"{label} {time.perf_counter() - t:.3f}s")
+        warm = diff_counts(before)
+        launches = launch_counts()
+        counts = dict(mesh_mod.COUNTS)
+    log(f"[mesh] world 1: launches {launches} (the warm prove {warm}); "
+        f"mesh counts {counts}")
+    for name in MAIN_PATH_KERNELS:
+        results[name]["mesh_launches_d1"] = warm[name]
+    idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
+    idle += [k for k in ("sharded_msm", "sharded_ntt",
+                         "sharded_inclusive_product", "sharded_batch_inv")
+             if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"not run on the mesh path: {idle}")
+    verify_proof(params, vk, SingleVerifier(params), inst,
+                 TranscriptRead(curve, proofs[1]))
+    bv = BatchVerifier(params)
+    for p in proofs:
+        bv.add_proof(inst, p)
+    if not bv.finalize(vk):
+        raise AssertionError("BatchVerifier rejected the mesh proofs")
+    digests = {hashlib.sha256(p).hexdigest() for p in proofs}
+    log(f"[mesh] world 1: verified (SingleVerifier, BatchVerifier); proof "
+        f"sha256 {sorted(digests)}")
+    if digests != {want}:
+        raise AssertionError(f"world 1 mesh proofs {digests} != JAX {want}")
+    calls.check("mesh", results)
+
+    for world in MESH_WORLDS:
+        t = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, world, "gloo", MESH_TIMEOUT_S,
+                          _mesh_tasks(world))
+        log(f"[mesh] world {world} (gloo, one card): "
+            f"{time.perf_counter() - t:.1f}s with the spawn")
+        for r in ranks:
+            b = r["bench"]
+            hashes = {hashlib.sha256(p).hexdigest() for p in b["proofs"]}
+            log(f"[mesh] world {world} rank {r['rank']} ({r['backend']}, "
+                f"{r['device']}): create_proof cold {b['times'][0]:.3f}s, "
+                f"warm {b['times'][1]:.3f}s; staged {r['staged_bytes']} "
+                f"bytes; warm launches {b['launches']}; mesh counts "
+                f"{b['counts']}; ntt 2^16 equal {r['ntt']['single']}; "
+                f"commit equal {r['commit']['mesh'] == r['commit']['single']}"
+                f"; plain checks {r['plain_checks']}")
+            if hashes != {want}:
+                raise AssertionError(f"world {world} rank {r['rank']}: "
+                                     f"{hashes} != JAX {want}")
+            if not (r["ntt"]["single"]
+                    and r["commit"]["mesh"] == r["commit"]["single"]):
+                raise AssertionError(f"world {world} rank {r['rank']}: the "
+                                     f"sharded NTT or commit differs")
+            if r["staged_bytes"] == 0:
+                raise AssertionError("gloo on the card staged nothing")
+            if world == 2:
+                lk = hashlib.sha256(r["lookup"]["proofs"][0]).hexdigest()
+                log(f"[mesh] world 2 rank {r['rank']}: dev_lookup k={K} "
+                    f"{r['lookup']['times'][0]:.3f}s, sha256 {lk}")
+                if lk != REF_SHA256["dev-lookup", K]:
+                    raise AssertionError(f"world 2 dev_lookup {lk}")
+        first = ranks[0]
+        for name in MAIN_PATH_KERNELS + ("padd",):
+            results[name][f"mesh_launches_d{world}"] = \
+                first["bench"]["launches"][name]
+        outs = {r["ntt"]["out"].tobytes() for r in ranks}
+        if len(outs) != 1:
+            raise AssertionError(f"world {world}: ranks gathered different "
+                                 f"NTTs")
+    log("[mesh] every rank's proof equals the JAX reference's")
+
+
 def run_phase(phase, *args):
     t = time.perf_counter()
     ret = phase(*args)
@@ -3035,6 +3191,9 @@ def main() -> int:
         print("halo2_tpu_torch not found: run from the repository root",
               file=sys.stderr)
         return 2
+    global HBM_BYTES_PER_S, MULADD_PER_S, MONT_MULADDS, bound_ms
+    from halo2_tpu_torch.parallel.profiling import (
+        HBM_BYTES_PER_S, MULADD_PER_S, MONT_MULADDS, bound_ms)
     src = "halo2_tpu_torch/csrc/"
     results = {
         "fmul": {"route": "cuda", "source": src + "field_kernels.cu",
@@ -3107,6 +3266,7 @@ def main() -> int:
     del params_ref_k
     run_phase(phase_b3_widths, results, state[0], widths)
     run_phase(phase_srs, results)
+    run_phase(phase_mesh, results)
     kernels = [{"name": name, "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"], "path": paths[name],
                 "launches": r["launches"],
@@ -3119,7 +3279,7 @@ def main() -> int:
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
                      "graph_ms", "profiler_ms", "srs_", "verify_", "v1_",
-                     "mock_", "gadgets_", "sha256_",
+                     "mock_", "gadgets_", "sha256_", "mesh_",
                      "launches_offset_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

@@ -75,16 +75,24 @@ def normalize(df: DeviceField, pts: torch.Tensor):
     return x, y, inf
 
 
-def tree_sum(df: DeviceField, pts: torch.Tensor) -> torch.Tensor:
-    """Sum of the L lanes of a [48, L] batch as a [48, 1] batch:
-    log-depth halvings with B4, an odd width padded with one identity
-    lane (the reference's tree_sum, halo2_tpu/curves/device.py:191)."""
-    cur = pts
+def tree_sum(df: DeviceField, pts: torch.Tensor, axis=None
+             ) -> torch.Tensor:
+    """Sum of the L lanes of a [48, L] batch as a [48, 1] batch; with
+    axis=1, of a [48, D, L] batch over its D axis as a [48, L] batch (the
+    mesh's sum over ranks): log-depth halvings with B4, an odd count
+    padded with one identity (the reference's tree_sum,
+    halo2_tpu/curves/device.py:191)."""
+    if axis not in (None, 1):
+        raise ValueError(f"tree_sum sums lanes or axis 1, not {axis}")
+    cur = pts.unsqueeze(2) if axis is None else pts
+    rows, L = cur.shape[0], cur.shape[2]
     if cur.shape[1] == 0:
-        return identity(df, 1, pts.device)
+        return identity(df, L, pts.device)
     while cur.shape[1] > 1:
         if cur.shape[1] % 2:
-            cur = torch.cat([cur, identity(df, 1, cur.device)], dim=1)
+            cur = torch.cat([cur, identity(df, L, cur.device)[:, None]],
+                            dim=1)
         half = cur.shape[1] // 2
-        cur = padd(df, cur[:, :half], cur[:, half:])
-    return cur
+        cur = padd(df, cur[:, :half].reshape(rows, -1),
+                   cur[:, half:].reshape(rows, -1)).view(rows, half, L)
+    return cur.reshape(rows, L)

@@ -426,6 +426,12 @@ def msm_many(cv_spec, df, digits16: torch.Tensor, pts: torch.Tensor,
     combine); arguments as msm_window_sums_many."""
     wsums, c = msm_window_sums_many(cv_spec, df, digits16, pts, c, signed,
                                     affine, packed)
+    return horner_combine_host(cv_spec, df, wsums, c)
+
+
+def horner_combine_host(cv_spec, df, wsums: torch.Tensor, c: int) -> list:
+    """[m, 48, W] device window sums -> m affine host points: one
+    readback, then the host Horner combine of each."""
     wnp = wsums.cpu().numpy()
     return [host_horner_combine(cv_spec, points_from_proj(df, wnp[j]), c)
             for j in range(wnp.shape[0])]

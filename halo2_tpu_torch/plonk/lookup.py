@@ -1,10 +1,12 @@
 """Lookup argument (halo2's permuted-pair Plookup variant).
 
 Port of halo2_tpu/plonk/lookup.py (halo2_proofs/src/plonk/lookup/
-prover.rs:76-552, verifier.rs:34-208) without the mesh branch:
+prover.rs:76-552, verifier.rs:34-208):
   commit_permuted: theta-compress the input and table expressions,
     permute the pair, commit A' and S';
-  commit_product: the fraction batch and the running product Z;
+  commit_product: the fraction batch and the running product Z (under
+    a ProverMesh whose D^2 divides n, on the rank's rows through
+    parallel/mesh.py's sharded inversion and scan, gathered whole);
   h terms: the 5 constraint families on the extended domain;
   evaluate: the 5 evaluations, in the reference's order.
 
@@ -27,6 +29,8 @@ from ..fields.device import (DeviceField, NLIMBS, LIMB_BITS, batch_inv,
                              running_product, from_mont, to_mont,
                              digits_to_ints, ints_to_digits)
 from ..ops.field_kernels import fadd, fsub, fmul
+from ..parallel import context
+from ..parallel.mesh import sharded_batch_inv, sharded_inclusive_product
 from .circuit import LookupArgument, ConstraintSystem
 from .evaluation import evaluate_expression, evaluate_expression_host
 
@@ -266,12 +270,21 @@ def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
     blinding_factors = cs.blinding_factors()
     beta_m = df.scalar(beta, dev)
     gamma_m = df.scalar(gamma, dev)
-    denom = fmul(df, fadd(df, permuted.permuted_input, beta_m),
-                 fadd(df, permuted.permuted_table, gamma_m))
-    product = fmul(df, batch_inv(df, denom, axis=0),
-                   fmul(df, fadd(df, permuted.compressed_input, beta_m),
-                        fadd(df, permuted.compressed_table, gamma_m)))
-    incl = running_product(df, product, axis=0)
+    ctx = context.active()
+    if ctx is not None and not ctx.divides(n):
+        ctx = None
+    rows = (lambda t: t) if ctx is None else ctx.shard_rows
+    denom = fmul(df, fadd(df, rows(permuted.permuted_input), beta_m),
+                 fadd(df, rows(permuted.permuted_table), gamma_m))
+    frac = fmul(df, fadd(df, rows(permuted.compressed_input), beta_m),
+                fadd(df, rows(permuted.compressed_table), gamma_m))
+    if ctx is None:
+        incl = running_product(
+            df, fmul(df, batch_inv(df, denom, axis=0), frac), axis=0)
+    else:
+        product = fmul(df, sharded_batch_inv(df, ctx.mesh, denom), frac)
+        incl = ctx.gather_rows(
+            sharded_inclusive_product(df, ctx.mesh, product))
     blinds = [fs.rand(rng) for _ in range(blinding_factors)]
     z = torch.cat([df.scalar(1, dev)[None], incl[:n - blinding_factors - 1],
                    df.upload_values(blinds, dev)], dim=0)

@@ -1,11 +1,13 @@
 """Permutation argument: global copy constraints via chunked grand products.
 
 Port of halo2_tpu/plonk/permutation.py (halo2_proofs/src/plonk/permutation/
-keygen.rs:16-211, prover.rs:47-312, verifier.rs:33-241), without the mesh
-branches. The sigma tables are a device outer product (delta powers x
-omega powers) gathered through the host-built cycle mapping; each chunk's
-z is one batched inversion, elementwise products and an inclusive product
-scan scaled by the chained last_z.
+keygen.rs:16-211, prover.rs:47-312, verifier.rs:33-241). The sigma
+tables are a device outer product (delta powers x omega powers) gathered
+through the host-built cycle mapping; each chunk's z is one batched
+inversion, elementwise products and an inclusive product scan scaled by
+the chained last_z. Under a ProverMesh whose D^2 divides n, each rank
+computes the chunk's fractions on its rows, inverts them and scans them
+across the ranks (parallel/mesh.py), and the z rows are gathered whole.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 from ..fields.device import (DeviceField, NLIMBS, batch_inv,
                              running_product)
 from ..ops.field_kernels import fadd, fsub, fmul
+from ..parallel import context
+from ..parallel.mesh import sharded_batch_inv, sharded_inclusive_product
 from ..poly.utils import powers, eval_poly
 from ..poly.domain import EvaluationDomain
 from .circuit import (ConstraintSystem, Column, PermutationArgument,
@@ -127,11 +131,17 @@ def _values_for(column: Column, advice, fixed, instance):
 
 
 def _z_chunk(df: DeviceField, vals, sigs, beta_m, gamma_m, lastz_m,
-             deltas_m, omega_pow) -> torch.Tensor:
+             deltas_m, omega_pow, ctx=None) -> torch.Tensor:
     """One chunk's z: the denominator fractions' batched inversion, the
     numerator products, and the inclusive running product scaled by the
     chained last_z. vals/sigs [cl, n, 16]; deltas_m [cl, 16] =
-    beta * delta^{global column} in Montgomery form."""
+    beta * delta^{global column} in Montgomery form. With ctx (a
+    ProverMesh, D^2 | n) on this rank's rows, through sharded_batch_inv
+    and sharded_inclusive_product (the reference's _z_chunk_mesh), the
+    rows gathered whole at the end."""
+    if ctx is not None:
+        vals, sigs = ctx.shard_rows(vals, dim=1), ctx.shard_rows(sigs, dim=1)
+        omega_pow = ctx.shard_rows(omega_pow)
     cl = vals.shape[0]
     den = fadd(df, vals, fadd(df, fmul(df, sigs, beta_m), gamma_m))
     num = fadd(df, vals, fadd(df, fmul(df, omega_pow[None],
@@ -139,11 +149,18 @@ def _z_chunk(df: DeviceField, vals, sigs, beta_m, gamma_m, lastz_m,
     modified = den[0]
     for j in range(1, cl):
         modified = fmul(df, modified, den[j])
-    modified = batch_inv(df, modified, axis=0)
+    modified = (batch_inv(df, modified, axis=0) if ctx is None
+                else sharded_batch_inv(df, ctx.mesh, modified))
     for j in range(cl):
         modified = fmul(df, modified, num[j])
-    incl = running_product(df, modified, axis=0)
-    return torch.cat([lastz_m[None], fmul(df, incl[:-1], lastz_m)], dim=0)
+    if ctx is None:
+        incl = running_product(df, modified, axis=0)
+    else:
+        incl = sharded_inclusive_product(df, ctx.mesh, modified)
+    scaled = fmul(df, incl, lastz_m)
+    if ctx is not None:
+        scaled = ctx.gather_rows(scaled)
+    return torch.cat([lastz_m[None], scaled[:-1]], dim=0)
 
 
 def permutation_commit(cs: ConstraintSystem, params, domain,
@@ -170,6 +187,9 @@ def permutation_commit(cs: ConstraintSystem, params, domain,
     beta_m = df.scalar(beta, dev)
     gamma_m = df.scalar(gamma, dev)
     omega_pow = powers(df, domain.omega, n, dev)
+    ctx = context.active()
+    if ctx is not None and not ctx.divides(n):
+        ctx = None
 
     global_col = 0          # delta exponent carried across chunks
     last_z = 1
@@ -187,7 +207,7 @@ def permutation_commit(cs: ConstraintSystem, params, domain,
         global_col += cl
         deltas_m = torch.from_numpy(df.to_mont_np(deltas)).to(dev)
         z = _z_chunk(df, vals, sigs, beta_m, gamma_m,
-                     df.scalar(last_z, dev), deltas_m, omega_pow)
+                     df.scalar(last_z, dev), deltas_m, omega_pow, ctx)
         # blinding rows
         blinds = [fs.rand(rng) for _ in range(blinding_factors)]
         z = torch.cat([z[:n - blinding_factors],

@@ -1,7 +1,7 @@
 """The PLONK prover: the Fiat-Shamir proof construction.
 
 Port of halo2_tpu/plonk/prover.py (halo2_proofs/src/plonk/prover.rs:
-35-725) without the jitted gate chunks or the mesh mode. The phase order
+35-725) without the jitted gate chunks. The phase order
 -- and therefore the proof byte layout and the order of every draw from
 the caller's `rng` -- is the reference's exactly:
   vk.hash_into -> instance commitments -> witness synthesis -> advice
@@ -13,14 +13,26 @@ the caller's `rng` -- is the reference's exactly:
 
 All O(n) work (commitments, NTTs, gate evaluation, scans) runs on the
 Params device; the host sequences phases and hashes the transcript.
+
+Under a ProverMesh (parallel/context.py) every rank runs this same
+prover on the same inputs; the commits, the domain transforms and the
+grand products take their sharded branches, and the proof is the
+single-device proof byte for byte. The reference lays the proving key's
+arrays out across its devices once (halo2_tpu/plonk/prover.py:279-297);
+the port has no counterpart: every rank keeps whole tensors and each
+branch slices its rows out of them. A mesh proof ends with an all_gather
+of each rank's SHA-256 of the transcript, and raises on every rank if
+any differs (ranks given different RNGs or inputs).
 """
 from __future__ import annotations
 
+import hashlib
 import time
 
 import torch
 
 from ..ops.field_kernels import fadd, fmul
+from ..parallel import context
 from ..poly.commitment import Params, DEFAULT_BLIND, NATIVE_IPA_THRESHOLD
 from ..poly.multiopen import ProverQuery, multiopen_create_proof
 from ..poly.utils import MemoEval
@@ -163,6 +175,20 @@ def _gates_h_fold(pk, cs, df, rot_scale: int, y_m, h_acc, advice_c,
                 instance=instance_c, rot_scale=rot_scale, memo=memo)
             h_acc = t if h_acc is None else fadd(df, fmul(df, h_acc, y_m), t)
     return h_acc
+
+
+def check_ranks_agree(ctx, proof: bytes) -> None:
+    """Every rank of the mesh wrote `proof`: an all_gather of each rank's
+    SHA-256 of it. A difference raises on every rank: ranks given
+    different RNGs or inputs have committed to a mix of their rows."""
+    mine = torch.frombuffer(bytearray(hashlib.sha256(proof).digest()),
+                            dtype=torch.uint8).to(ctx.mesh.device)
+    every = ctx.gather_rows(mine[None])                       # [D, 32]
+    if not bool((every == every[0]).all()):
+        raise RuntimeError(
+            f"the {ctx.ndev} ranks of the mesh made different proofs "
+            f"(rank {ctx.rank}'s sha256 {mine.cpu().numpy().tobytes().hex()})"
+            ": each rank must prove the same circuit, instances and RNG")
 
 
 def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
@@ -421,4 +447,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     multiopen_create_proof(params, rng, transcript, queries,
                            native_ipa_threshold)
     prof.lap("multiopen+ipa")
+    ctx = context.active()
+    if ctx is not None:
+        check_ranks_agree(ctx, transcript.finalize())
     LAST_PHASES[:] = prof.laps

@@ -47,6 +47,8 @@ from ..ops import msm_pippenger as mp
 from ..ops.msm import msm
 from ..ops.ntt import group_ntt, make_plan
 from ..ops.ipa_device import ipa_device_lr, ipa_device_fold_lr
+from ..parallel import context
+from ..parallel.mesh import sharded_msm_mont
 from .utils import eval_poly, powers
 
 # Memory ceiling of one batched commit: the Pippenger gathers a sorted
@@ -144,6 +146,7 @@ class Params:
             points_to_proj(self.base_df, g_lagrange, self.device)
             if g_lagrange_dev is None else g_lagrange_dev)
         self._packed = {}
+        self._mesh_cache = {}
 
     # ----------------- construction -----------------
     @classmethod
@@ -254,25 +257,55 @@ class Params:
         assert values_mont.shape[0] == self.n
         return self.commit_many([values_mont], [blind], lagrange=True)[0]
 
+    def _mesh_ctx(self):
+        """The active ProverMesh when n shards evenly (D | n), else None."""
+        ctx = context.active()
+        if ctx is not None and self.n % ctx.ndev == 0:
+            return ctx
+        return None
+
+    def _mesh_bases(self, ctx, lagrange: bool) -> tuple:
+        """This rank's rows of g_lagrange_dev or g_dev and of their packed
+        copy (the reference's _mesh_bases), made once per basis and mesh."""
+        key = (lagrange, ctx.ndev, ctx.rank)
+        ent = self._mesh_cache.get(key)
+        if ent is None:
+            bases = self.g_lagrange_dev if lagrange else self.g_dev
+            ent = self._mesh_cache[key] = (
+                ctx.shard_rows(bases, dim=1).contiguous(),
+                ctx.shard_rows(self.packed_bases(lagrange)))
+        return ent
+
     def commit_many(self, polys_mont: list, blinds: list[int],
                     lagrange: bool) -> list[Point]:
         """m same-basis commitments in one batched device Pippenger: the
         m scalar vectors share the bases, so they only widen the lanes of
-        every round. [blind]w is added on the host."""
+        every round. Under a ProverMesh (D | n) each rank runs it on its
+        n/D rows and the ranks sum their window sums
+        (parallel/mesh.py::sharded_msm_mont). [blind]w is added on the
+        host."""
         m = len(polys_mont)
         if m == 0:
             return []
-        c = mp.pick_c(self.n)
+        ctx = self._mesh_ctx()
+        rows = self.n if ctx is None else self.n // ctx.ndev
+        c = mp.pick_c(rows)
         w_cnt = -(-256 // c)
-        m_chunk = max(1, (COMMIT_GN_BUDGET // self.n) // w_cnt)
+        m_chunk = max(1, (COMMIT_GN_BUDGET // rows) // w_cnt)
         bases = self.g_lagrange_dev if lagrange else self.g_dev
         fs = self.curve.scalar
         out = []
         for i in range(0, m, m_chunk):
             vals = torch.stack(polys_mont[i:i + m_chunk], dim=0)
-            digits = from_mont(self.scalar_df, vals)
-            pts = mp.msm_many(self.curve, self.base_df, digits, bases, c=c,
-                              packed=self.packed_bases(lagrange))
+            if ctx is not None:
+                local, packed = self._mesh_bases(ctx, lagrange)
+                pts = sharded_msm_mont(self.curve, ctx.mesh,
+                                       ctx.shard_rows(vals, dim=1), local,
+                                       packed)
+            else:
+                digits = from_mont(self.scalar_df, vals)
+                pts = mp.msm_many(self.curve, self.base_df, digits, bases,
+                                  c=c, packed=self.packed_bases(lagrange))
             for pt, b in zip(pts, blinds[i:i + m_chunk]):
                 b %= fs.modulus
                 if b:

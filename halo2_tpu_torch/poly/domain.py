@@ -3,7 +3,10 @@
 Port of halo2_tpu/poly/domain.py (the math of halo2_proofs/src/poly/
 domain.rs:19-498) with device-resident tables. Every transform runs on
 the domain's device through ops/ntt.py: there is no native-NTT
-crossover and no mesh branch in the port.
+crossover. Under a ProverMesh whose D^2 divides both domain sizes, the
+transforms run as four-step NTTs over the mesh
+(parallel/mesh.py::sharded_ntt) on the rank's rows, and return whole
+tensors, as the reference routes them.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import torch
 from ..fields.device import DeviceField, NLIMBS, int_to_limbs
 from ..ops.field_kernels import fmul
 from ..ops.ntt import make_plan, ntt_many
+from ..parallel import context
+from ..parallel.mesh import ShardedNttPlan, sharded_ntt
 
 # Columns per batched transform: the m-column pipeline holds a few
 # [m, extended_n, 16] int32 intermediates (64 B per element each); 2^24
@@ -80,53 +85,118 @@ class EvaluationDomain:
             int_to_limbs(pow(self.n, p - 2, p) * (1 << 256) % p))
         self._ext_ifft_divisor = self._upload_mont(
             int_to_limbs(pow(self.extended_n, p - 2, p) * (1 << 256) % p))
+        self._mesh_plan_cache: dict = {}
 
     def _upload_mont(self, digits: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(digits)).to(self.device)
 
+    # ---------------- mesh-sharded transforms ----------------
+    def _mesh_ctx(self):
+        """The active ProverMesh when D^2 divides both domain sizes (the
+        four-step NTT's condition), else None."""
+        ctx = context.active()
+        if (ctx is not None and ctx.divides(self.n)
+                and ctx.divides(self.extended_n)):
+            return ctx
+        return None
+
+    def _mesh_plans(self, ctx) -> dict:
+        plans = self._mesh_plan_cache.get(ctx.ndev)
+        if plans is None:
+            df, D = self.df, ctx.ndev
+            plans = self._mesh_plan_cache[D] = {
+                "fwd": ShardedNttPlan(df, self.n, self.omega, D),
+                "inv": ShardedNttPlan(df, self.n, self.omega_inv, D),
+                "ext": ShardedNttPlan(df, self.extended_n,
+                                      self.extended_omega, D),
+                "ext_inv": ShardedNttPlan(df, self.extended_n,
+                                          self.extended_omega_inv, D)}
+        return plans
+
+    def _mesh_ntt(self, ctx, kind: str, x: torch.Tensor, *scales
+                  ) -> torch.Tensor:
+        """Columns x [m, N, 16] through the four-step NTT `kind` on this
+        rank's rows, each product with `scales` (whole-column tables are
+        sliced to the rank's rows) on them too; whole columns back."""
+        local = sharded_ntt(self.df, ctx.mesh, self._mesh_plans(ctx)[kind],
+                            ctx.shard_rows(x, dim=1))
+        for s in scales:
+            local = fmul(self.df, local,
+                         ctx.shard_rows(s) if s.dim() == 2 else s)
+        return ctx.gather_rows(local, dim=1)
+
+    def _mesh_l2c(self, ctx, values: torch.Tensor) -> torch.Tensor:
+        return self._mesh_ntt(ctx, "inv", values, self._ifft_divisor)
+
+    def _mesh_c2e(self, ctx, coeffs: torch.Tensor) -> torch.Tensor:
+        return self._mesh_ntt(ctx, "ext", self._pad_coset(coeffs))
+
+    def _mesh_e2c(self, ctx, values: torch.Tensor) -> torch.Tensor:
+        return self._mesh_ntt(ctx, "ext_inv", values, self._ext_ifft_divisor,
+                              self._coset_out_ext)
+
     # ---------------- transforms ----------------
+    def _pad_coset(self, coeffs: torch.Tensor) -> torch.Tensor:
+        """[m, n, 16] coefficients times the coset's zeta powers, padded
+        with zeros to [m, extended_n, 16]."""
+        a = fmul(self.df, coeffs, self._coset_in)
+        pad = torch.zeros((a.shape[0], self.extended_n - self.n, NLIMBS),
+                          dtype=a.dtype, device=a.device)
+        return torch.cat([a, pad], dim=1)
+
     def lagrange_to_coeff_extended_many(self, values_list: list):
         """m Lagrange vectors -> (m coeff polys, m extended-coset vectors):
         iNTT, 1/n scale, coset zeta powers, zero pad, extended NTT, all m
-        columns per launch (in chunks of NTT_BATCH_ELEMS)."""
+        columns per launch (in chunks of NTT_BATCH_ELEMS); on a mesh, the
+        two four-step NTTs."""
         m = len(values_list)
         if m == 0:
             return [], []
+        ctx = self._mesh_ctx()
         m_chunk = max(1, NTT_BATCH_ELEMS // self.extended_n)
         polys, cosets = [], []
         for i in range(0, m, m_chunk):
             vals = torch.stack(values_list[i:i + m_chunk], dim=0)
-            x = ntt_many(self.df, vals, self.plan_inv)
-            pc = fmul(self.df, x, self._ifft_divisor)
-            a = fmul(self.df, pc, self._coset_in)
-            pad = torch.zeros((a.shape[0], self.extended_n - self.n, NLIMBS),
-                              dtype=a.dtype, device=a.device)
-            ext = ntt_many(self.df, torch.cat([a, pad], dim=1),
-                           self.plan_ext)
+            if ctx is not None:
+                pc = self._mesh_l2c(ctx, vals)
+                ext = self._mesh_c2e(ctx, pc)
+            else:
+                x = ntt_many(self.df, vals, self.plan_inv)
+                pc = fmul(self.df, x, self._ifft_divisor)
+                ext = ntt_many(self.df, self._pad_coset(pc), self.plan_ext)
             polys.extend(pc.unbind(0))
             cosets.extend(ext.unbind(0))
         return polys, cosets
 
     def lagrange_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
         assert values.shape[0] == self.n
+        ctx = self._mesh_ctx()
+        if ctx is not None:
+            return self._mesh_l2c(ctx, values.unsqueeze(0))[0]
         x = ntt_many(self.df, values.unsqueeze(0), self.plan_inv)[0]
         return fmul(self.df, x, self._ifft_divisor)
 
     def coeff_to_lagrange(self, coeffs: torch.Tensor) -> torch.Tensor:
+        ctx = self._mesh_ctx()
+        if ctx is not None:
+            return self._mesh_ntt(ctx, "fwd", coeffs.unsqueeze(0))[0]
         return ntt_many(self.df, coeffs.unsqueeze(0), self.plan)[0]
 
     def coeff_to_extended(self, coeffs: torch.Tensor) -> torch.Tensor:
         assert coeffs.shape[0] == self.n
-        a = fmul(self.df, coeffs, self._coset_in)
-        pad = torch.zeros((self.extended_n - self.n, NLIMBS), dtype=a.dtype,
-                          device=a.device)
-        return ntt_many(self.df, torch.cat([a, pad], dim=0).unsqueeze(0),
+        ctx = self._mesh_ctx()
+        if ctx is not None:
+            return self._mesh_c2e(ctx, coeffs.unsqueeze(0))[0]
+        return ntt_many(self.df, self._pad_coset(coeffs.unsqueeze(0)),
                         self.plan_ext)[0]
 
     def extended_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
         """iNTT + un-coset; returns all extended_n coefficients (caller
         truncates to n * quotient_poly_degree, domain.rs:303-325)."""
         assert values.shape[0] == self.extended_n
+        ctx = self._mesh_ctx()
+        if ctx is not None:
+            return self._mesh_e2c(ctx, values.unsqueeze(0))[0]
         x = ntt_many(self.df, values.unsqueeze(0), self.plan_ext_inv)[0]
         x = fmul(self.df, x, self._ext_ifft_divisor)
         return fmul(self.df, x, self._coset_out_ext)

@@ -1,7 +1,7 @@
 """The port's package API against the JAX package's: every name that
-halo2_tpu.{poly,fields,curves} export imports from the port's package of
-the same name, but the few with no counterpart in the port, listed here
-(and in ROADMAP.md, C) with the reason."""
+halo2_tpu.{poly,fields,curves,parallel} export imports from the port's
+package of the same name, but the few with no counterpart in the port,
+listed here (and in ROADMAP.md, C) with the reason."""
 import importlib
 import types
 
@@ -16,6 +16,7 @@ NO_COUNTERPART = {
     "curves": {"JPoint": "the port's batches are [48, L] projective tensors",
                "DeviceCurve": "the base field's DeviceField stands in",
                "PALLAS_DEV": "FP_DEV", "VESTA_DEV": "FQ_DEV"},
+    "parallel": {},
 }
 
 

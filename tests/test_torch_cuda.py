@@ -485,3 +485,67 @@ def test_golden_gadget_key_built_on_the_card(cuda):
         proof = fh.read()
     verify_proof(params, vk, SingleVerifier(params), [[]],
                  TranscriptRead(VESTA, proof))
+
+
+@pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
+@pytest.mark.parametrize("log_n", [0, 1, 2])
+def test_ntt_kernel_at_one_two_and_four_rows(cuda, df, log_n):
+    """B7 at the four-step NTT's size-D DFTs (D = 1, 2, 4 rows; one pass
+    with r_log = 0, none at one row) over 1,024 columns, forward and
+    inverse."""
+    n = 1 << log_n
+    spec = df.spec
+    x = _field_operands(df, 1024 * n, 7).view(1024, n, 16)
+    omega = pow(spec.root_of_unity, 1 << (spec.s - log_n), spec.modulus)
+    for omega in (omega, pow(omega, spec.modulus - 2, spec.modulus)):
+        plan = ntt_ops.make_plan(df, n, omega)
+        before = ntt_ops.LAUNCHES["ntt"]
+        got = ntt_ops.ntt_many(df, x.to(cuda), plan).cpu()
+        assert ntt_ops.LAUNCHES["ntt"] == before + (log_n > 0)
+        assert torch.equal(got, ntt_ops.ntt_many_plain(df, x, plan))
+
+
+def test_mesh_proof_world_of_one_over_nccl(cuda):
+    """BenchCircuit at K = 10 under a mesh of one rank over NCCL (every
+    branch sharded, the collectives over one rank) equals the
+    single-device proof."""
+    from halo2_tpu_torch.parallel import ProverMesh, make_mesh
+    from halo2_tpu_torch.parallel import mesh as mesh_mod
+    from halo2_tpu_torch.parallel.launch import world_of_one
+    k, regions = 10, 200
+    out = expected_output(PALLAS.scalar, 5, regions)
+    params = Params.new(PALLAS, k, device=cuda)
+    circuit = BenchCircuit(5, regions)
+    pk_ = keygen_pk(params, keygen_vk(params, circuit), circuit)
+    proofs = []
+    for mesh in (False, True):
+        tw = TranscriptWrite(PALLAS)
+        if mesh:
+            before = mesh_mod.COUNTS["sharded_ntt"]
+            with world_of_one("nccl", 120):
+                with ProverMesh(make_mesh()):
+                    create_proof(params, pk_, [circuit], [[[out]]],
+                                 random.Random(3), tw)
+            assert mesh_mod.COUNTS["sharded_ntt"] > before
+        else:
+            create_proof(params, pk_, [circuit], [[[out]]], random.Random(3),
+                         tw)
+        proofs.append(tw.finalize())
+    assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_sharded_ntt_over_gloo_on_one_card(cuda, world):
+    """sharded_ntt of a 2^14 column, forward and inverse, in a world of
+    spawned ranks sharing the card over gloo: every rank's gathered
+    transform equals ntt_many of the whole column, and the exchanges
+    were staged through host memory."""
+    from halo2_tpu_torch.parallel import programs
+    from halo2_tpu_torch.parallel.launch import run_ranks
+    tasks = [("ntt", "ntt", dict(log_n=14, seed=1)),
+             ("intt", "ntt", dict(log_n=14, seed=1, inverse=True))]
+    ranks = run_ranks(programs.run, world, "gloo", 120, None, tasks)
+    for r in ranks:
+        assert r["ntt"]["single"] and r["intt"]["single"]
+        assert r["device"].startswith("cuda") and r["staged_bytes"] > 0
+    assert len({r["ntt"]["out"].tobytes() for r in ranks}) == 1

@@ -320,6 +320,16 @@ _ISOLATED = textwrap.dedent("""
     verify_proof(params, vk, SingleVerifier(params), [[[out]]],
                  TranscriptRead(PALLAS, tw.finalize()))
 
+    # the multi-device layer: the same proof under a mesh of one gloo rank
+    from halo2_tpu_torch.parallel import ProverMesh, make_mesh
+    from halo2_tpu_torch.parallel.launch import world_of_one
+    with world_of_one("gloo", 60):
+        mesh_tw = TranscriptWrite(PALLAS)
+        with ProverMesh(make_mesh(device="cpu")):
+            create_proof(params, pk, [circuit], [[[out]]], random.Random(1),
+                         mesh_tw)
+    assert mesh_tw.finalize() == tw.finalize()
+
     # the gadgets: a golden circuit satisfied under the mock prover, and a
     # Poseidon transcript
     import halo2_tpu_torch.gadgets
@@ -351,7 +361,8 @@ _ISOLATED = textwrap.dedent("""
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of the port imports, a K = 4 proof is made and
-    verified on the CPU, a golden gadget circuit (gadget_circuits.py)
+    verified on the CPU, and made again under a mesh of one rank
+    (parallel/), a golden gadget circuit (gadget_circuits.py)
     passes the mock prover and the SHA-256 chip's compression is copied
     to its instance, with jax and halo2_tpu unimportable."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
