@@ -34,10 +34,15 @@ Phases, in this order (any failure exits non-zero):
      that read the second operand at a lane offset or by index with
      signs, timed beside B3 after torch.roll or a gather and a negation
      (how the commits called it before); B4 (complete add, one lane a
-     group of four threads), B5 (doubling) and B6 (masked doubling)
-     likewise at 2^17 lanes (k=18's first IPA fold) and 8,192 lanes
-     (k=14's), with identity lanes, B4 lanes with a == b and a random B6
-     mask;
+     group of four threads) likewise at 2^17 lanes (k=18's first IPA
+     fold) and 8,192 lanes (k=14's), with identity lanes and lanes with
+     a == b; B5 (doubling) and B6 (masked doubling) in each form (one
+     thread a lane, one lane a group of four threads) and through the
+     wrappers, which pick the form by lane count, at 1, 2, 8,191, 8,192
+     and 2^17 lanes and at each form threshold and one lane either side,
+     both fields, B6 with masks of a random half, all ones and all zeros;
+     each form's device time a launch from a CUDA graph of 20 launches at
+     1, 2, 8,192 and 2^17 lanes beside its bound;
   7b. [ladder] the fused GLV ladder kernel (one launch per IPA fold
      round) against the B5/B3 kernel loop it replaced at 2^13 and 2^17
      lanes and against its plain version at 256 lanes, both fields;
@@ -54,7 +59,8 @@ Phases, in this order (any failure exits non-zero):
   8. k=14 commits (random, all-zero, all-equal columns) against the native
      host MSM, exact affine equality;
   9. the device window combine (B5, B4) against the host one on the
-     window sums of a k=14 MSM (B5's only caller);
+     window sums of a k=14 MSM (B5's only caller), its B5 launches and
+     its device time by the profiler;
  10. the warm k=14 prove once more under torch.profiler: device time by
      kernel and the device's busy share of the wall time;
  11. the device IPA path at k=14: create_proof with every IPA round on
@@ -343,6 +349,7 @@ def phase_build():
                       ("point_kernels", "pmixed_masked_kernel"),
                       ("point_kernels", "scalar_mul_ladder"),
                       ("point_kernels", "padd_kernel"),
+                      ("point_kernels", "pdouble_"),
                       ("ntt_kernels", "ntt_")):
         for fn, count in sass_counts(cuda_build._so_path(name)).items():
             if key in fn:
@@ -742,16 +749,19 @@ def phase_bucket(results, params, params_ref_k):
         raise AssertionError(f"bucket-run kernel mismatches: {mism}")
 
 
-def graph_ms(fn, reps: int) -> float:
-    """Mean ms per replay of fn's launches captured in a CUDA graph: their
-    device time without the host's gaps between launches."""
+def graph_ms(fn, reps: int, calls: int = 1) -> float:
+    """Mean ms per call of fn over `reps` replays of a CUDA graph of
+    `calls` calls: the device time of fn's launches without the host's
+    gaps between them (with calls > 1, each launch beside its neighbours,
+    as a chain of short launches runs)."""
     import torch
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return timed(graph.replay, reps)
+        for _ in range(calls):
+            fn()
+    return timed(graph.replay, reps) / calls
 
 
 def unfused_ladder(df, t1, t2, t12, bits1, bits2, consts):
@@ -863,69 +873,178 @@ def _rand_points(params, L, rng):
 
 
 def phase_add_double(results, params, lanes=(1 << 17, 1 << 13)):
-    """B4, B5, B6 against their plain versions at 2^17 lanes (k=18's first
-    IPA fold) and 8,192 lanes (k=14's); device time at both, the wrapper
-    and plain times at the last (the [ipa] path's first fold)."""
+    """B4 against its plain version at 2^17 lanes (k=18's first IPA fold)
+    and 8,192 lanes (k=14's); device time at both, the wrapper and plain
+    times at the last (the [ipa] path's first fold); then B5 and B6 in
+    every form (phase_pdouble_forms)."""
     import torch
     from halo2_tpu_torch.ops import point_kernels as pk
     dev = params.device
     df = params.base_df
     rng = random.Random(14)
     ident = pk.ident_col(df, dev)
-    mism = {"padd": 0, "pdouble": 0, "pdouble_masked": 0}
-    err = dict(mism)
+    mism, err = 0, 0
+    r = results["padd"]
     for L in lanes:
         A = _rand_points(params, L, rng)
         A[:, :64] = ident[:, None]                    # identity lanes
         B = _rand_points(params, L, rng)
         B[:, 32:96] = ident[:, None]
         B[:, 200:264] = A[:, 200:264]                 # a == b: doubling
-        mask = torch.as_tensor([rng.random() < 0.5 for _ in range(L)],
-                               device=dev).to(torch.int32)
-        live = int(mask.sum())
-        cases = (
-            ("padd", lambda: pk.padd_flat(df, A, B),
-             lambda: pk.padd_plain(df, A, B),
-             L * 3 * 192, L * 12 * MONT_MULADDS),
-            ("pdouble", lambda: pk.pdouble_flat(df, A),
-             lambda: pk.pdouble_plain(df, A),
-             L * 2 * 192, L * 8 * MONT_MULADDS),
-            ("pdouble_masked", lambda: pk.pdouble_masked_flat(df, A, mask),
-             lambda: pk.pdouble_masked_plain(df, A, mask),
-             L * (2 * 192 + 4), live * 8 * MONT_MULADDS))
-        for name, fn, plain, nbytes, muladds in cases:
-            got, want = fn(), plain()
-            mism[name] += int((got != want).any(dim=0).sum())
-            err[name] = max(err[name], max_abs(got, want))
-            torch.cuda.synchronize()
-            ms = device_ms(fn, 50, name + "_kernel")
-            bd, by = bound_ms(nbytes, muladds)
-            log(f"[points] {name} L={L}: {ms:.5f} ms on the device "
-                f"(bound {bd:.5f} ms by {by})")
-            r = results[name]
-            r[f"ms_L{L}"] = ms
-            r[f"bound_ms_L{L}"] = bd
-            if L == lanes[-1]:
-                call_ms = timed(fn, 50)
-                pms = timed(plain, 3)
-                r.update(ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
-                         bound_by=by, shape=[48, L])
-                log(f"[points] {name} L={L}: {call_ms:.4f} ms per wrapper "
-                    f"call, plain {pms:.3f} ms")
-    log(f"[points] B4-B6 mismatches {mism}")
+        fn = lambda: pk.padd_flat(df, A, B)
+        plain = lambda: pk.padd_plain(df, A, B)
+        got, want = fn(), plain()
+        mism += int((got != want).any(dim=0).sum())
+        err = max(err, max_abs(got, want))
+        torch.cuda.synchronize()
+        ms = device_ms(fn, 50, "padd_kernel")
+        bd, by = bound_ms(L * 3 * 192, L * 12 * MONT_MULADDS)
+        log(f"[points] padd L={L}: {ms:.5f} ms on the device "
+            f"(bound {bd:.5f} ms by {by})")
+        r[f"ms_L{L}"] = ms
+        r[f"bound_ms_L{L}"] = bd
+        if L == lanes[-1]:
+            call_ms = timed(fn, 50)
+            pms = timed(plain, 3)
+            r.update(ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
+                     bound_by=by, shape=[48, L])
+            log(f"[points] padd L={L}: {call_ms:.4f} ms per wrapper call, "
+                f"plain {pms:.3f} ms")
+    log(f"[points] B4 mismatches {mism}")
+    r.update(mismatches=mism, max_abs_err=err)
+    if mism:
+        raise AssertionError(f"B4 mismatches {mism}")
+    phase_pdouble_forms(results, params)
+
+
+# B5's and B6's widths: 1 lane (a traced MSM's combine), 2 ([horner]),
+# 8,192 and 2^17 (the first IPA fold at k = 14 and 18) and the edges of a
+# block; the forms are held to the plain versions at all of them and at
+# each form threshold and one lane either side, and timed at PDOUBLE_TIMED
+PDOUBLE_WIDTHS = (1, 2, 8191, 8192, 1 << 17)
+PDOUBLE_TIMED = (1, 2, 8192, 1 << 17)
+
+
+def pdouble_lane_from() -> dict:
+    """csrc/point_kernels.cu's kPdouble* constants: from that many lanes
+    B5 (kPdoubleLaneFrom) and B6 (kPdoubleMaskedLaneFrom) run one thread a
+    lane, below it one lane a group of four threads."""
+    import os
+    import re
+    from halo2_tpu_torch.ops import cuda_build
+    with open(os.path.join(cuda_build.CSRC, "point_kernels.cu")) as fh:
+        src = fh.read()
+    return {k: int(v) for k, v in re.findall(
+        r"static constexpr int (kPdouble\w+) = (\d+);", src)}
+
+
+def phase_pdouble_forms(results, params):
+    """B5 and B6 in every form (pdouble_form: one thread a lane, one lane a
+    group of four threads) and through their wrappers (the form picked by
+    lane count) against pdouble_plain and pdouble_masked_plain, bit for
+    bit, on both fields, at PDOUBLE_WIDTHS and at each form threshold and
+    one lane either side, with identity lanes, B6 with masks of a random
+    half, all ones and all zeros. Then, on the PALLAS base field at
+    PDOUBLE_TIMED lanes (B6 with the random half), each form's device time
+    a launch from a CUDA graph of 20 launches beside its bound, and the
+    wrappers' from a graph and by the profiler; their call and plain times
+    at 8,192 lanes."""
+    import torch
+    from halo2_tpu_torch.curves.host import VESTA
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = params.device
+    lane_from = pdouble_lane_from()
+    widths = sorted(set(PDOUBLE_WIDTHS) | {t + d for t in lane_from.values()
+                                           for d in (-1, 0, 1)})
+    gen = torch.Generator(device=dev).manual_seed(17)
+    vesta = pk.points_to_proj(FQ_DEV, native_srs_g(
+        VESTA, "chip-smoke-pdouble", 1024), dev)
+    mism = {"pdouble": 0, "pdouble_masked": 0}
+    err = dict(mism)
+    for df, pts in ((params.base_df, params.g_dev), (FQ_DEV, vesta)):
+        for L in widths:
+            a, _ = _ladder_inputs(df, pts, L, gen, edge=False)
+            a[:, L // 3] = pk.ident_col(df, dev)
+            half = (torch.rand(L, generator=gen, device=dev) < 0.5).to(
+                torch.int32)
+            for mask in (None, half, torch.ones_like(half),
+                         torch.zeros_like(half)):
+                name = "pdouble" if mask is None else "pdouble_masked"
+                want = (pk.pdouble_plain(df, a) if mask is None
+                        else pk.pdouble_masked_plain(df, a, mask))
+                outs = [pk.pdouble_form(df, a, t, mask)
+                        for t in pk.PDOUBLE_FORMS.values()]
+                outs.append(pk.pdouble_flat(df, a) if mask is None
+                            else pk.pdouble_masked_flat(df, a, mask))
+                for got in outs:
+                    mism[name] += int((got != want).any(dim=0).sum())
+                    err[name] = max(err[name], max_abs(got, want))
+        torch.cuda.synchronize()
+        log(f"[points] B5, B6 field {df.field_id}: every form and the "
+            f"wrappers against the plain versions at {widths} lanes; "
+            f"mismatches so far {mism}")
     for name in mism:
         results[name].update(mismatches=mism[name], max_abs_err=err[name])
     if any(mism.values()):
-        raise AssertionError(f"point kernel mismatches {mism}")
+        raise AssertionError(f"B5/B6 mismatches {mism}")
+    df = params.base_df
+    for L in PDOUBLE_TIMED:
+        a, _ = _ladder_inputs(df, params.g_dev, L, gen, edge=False)
+        half = (torch.rand(L, generator=gen, device=dev) < 0.5).to(
+            torch.int32)
+        live = int(half.sum())
+        for name, mask, nbytes, muladds in (
+                ("pdouble", None, L * 2 * 192, L * 8 * MONT_MULADDS),
+                ("pdouble_masked", half, L * (2 * 192 + 4),
+                 live * 8 * MONT_MULADDS)):
+            bd, by = bound_ms(nbytes, muladds)
+            r = results[name]
+            forms = r.setdefault("forms", {})
+            parts = []
+            for form, t in pk.PDOUBLE_FORMS.items():
+                ms = graph_ms(lambda t=t, mask=mask: pk.pdouble_form(
+                    df, a, t, mask), 10, calls=20)
+                forms.setdefault(form, {"threads": t})[f"ms_L{L}"] = ms
+                parts.append(f"{form} {ms:.5f}")
+            if mask is None:
+                fn = lambda: pk.pdouble_flat(df, a)
+                plain = lambda: pk.pdouble_plain(df, a)
+            else:
+                fn = lambda mask=mask: pk.pdouble_masked_flat(df, a, mask)
+                plain = lambda mask=mask: pk.pdouble_masked_plain(df, a,
+                                                                  mask)
+            ms = graph_ms(fn, 10, calls=20)
+            prof = device_ms(fn, 50, "pdouble_")
+            key = "kPdoubleLaneFrom" if mask is None else \
+                "kPdoubleMaskedLaneFrom"
+            picked = "lane" if L >= lane_from[key] else "group"
+            r.update({f"ms_L{L}": ms, f"profiler_ms_L{L}": prof,
+                      f"bound_ms_L{L}": bd, f"form_L{L}": picked})
+            log(f"[points] {name} L={L}: " + ", ".join(parts) + f" ms a "
+                f"launch from a graph; the wrapper ({picked}) {ms:.5f} ms "
+                f"from a graph, {prof:.5f} ms by the profiler (bound "
+                f"{bd:.5f} ms by {by})")
+            if L == 8192:
+                call_ms = timed(fn, 50)
+                pms = timed(plain, 3)
+                r.update(ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
+                         bound_by=by, shape=[48, L],
+                         forms_lane_from=lane_from[key])
+                log(f"[points] {name} L={L}: {call_ms:.4f} ms per wrapper "
+                    f"call, plain {pms:.3f} ms")
 
 
-def phase_horner(params):
+def phase_horner(params, results):
     """device_horner_combine (c B5 doublings and one B4 add per window)
-    against host_horner_combine on the window sums of a k=14 MSM."""
+    against host_horner_combine on the window sums of a k=14 MSM; its B5
+    and B4 launches, its device time by the profiler (every kernel of one
+    combine, and B5's part) and its wall time."""
     import torch
     from halo2_tpu_torch.fields.device import from_mont
     from halo2_tpu_torch.ops import msm_pippenger as mp
-    from halo2_tpu_torch.ops.point_kernels import points_from_proj
+    from halo2_tpu_torch.ops import point_kernels as pk
     q = params.curve.scalar.modulus
     rng = random.Random(15)
     df = params.scalar_df
@@ -934,22 +1053,40 @@ def phase_horner(params):
                                         for c in cols]))
     wsums, c = mp.msm_window_sums_many(params.curve, params.base_df,
                                        digits, params.g_dev)
+    ws = wsums.permute(1, 0, 2)
+    combine = lambda: mp.device_horner_combine(params.base_df, ws, c)
     torch.cuda.synchronize()
+    before = launch_counts()
     t = time.perf_counter()
-    got = mp.device_horner_combine(params.base_df, wsums.permute(1, 0, 2),
-                                   c)
+    got = combine()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
+    diff = diff_counts(before)
     wnp = wsums.cpu().numpy()
     want = [mp.host_horner_combine(params.curve,
-                                   points_from_proj(params.base_df, wnp[j]),
+                                   pk.points_from_proj(params.base_df,
+                                                       wnp[j]),
                                    c) for j in range(len(cols))]
-    got = points_from_proj(params.base_df, got)
-    log(f"[horner] k={K} c={c} W={wsums.shape[-1]}, two sums: device "
-        f"combine {dt * 1e3:.1f} ms; equal to the host combine: "
+    got = pk.points_from_proj(params.base_df, got)
+    # every kernel and copy of the combine: B5, B4, the copies that make
+    # each window's sums contiguous and the identity's upload
+    dev_ms = device_ms(combine, 3, ("pdouble_", "padd_kernel", "copy",
+                                    "Memcpy"), per_call=True)
+    b5_ms = device_ms(combine, 3, "pdouble_", per_call=True)
+    W = wsums.shape[-1]
+    log(f"[horner] k={K} c={c} W={W}, two sums: device combine "
+        f"{dt * 1e3:.1f} ms; B5 {diff['pdouble']} launches, B4 "
+        f"{diff['padd']}; {dev_ms:.4f} ms of device time a combine by the "
+        f"profiler, B5 {b5_ms:.4f} ms of it; equal to the host combine: "
         f"{got == want}")
+    results["pdouble"].update(horner_launches=diff["pdouble"],
+                              horner_device_ms=dev_ms, horner_b5_ms=b5_ms,
+                              horner_wall_ms=dt * 1e3)
     if got != want:
         raise AssertionError("device Horner combine != host combine")
+    if diff["pdouble"] != c * W:
+        raise AssertionError(f"{diff['pdouble']} B5 launches in the "
+                             f"combine, want c W = {c * W}")
 
 
 def phase_commit(params):
@@ -3252,7 +3389,7 @@ def main() -> int:
     run_phase(phase_ladder, results, state[0])
     run_phase(phase_scalar_ladder, results, state[0])
     run_phase(phase_commit, state[0])
-    run_phase(phase_horner, state[0])
+    run_phase(phase_horner, state[0], results)
     run_phase(phase_profile, *state)
     run_phase(phase_ipa, results, *state)
     run_phase(phase_verify, results, *state)
@@ -3280,7 +3417,7 @@ def main() -> int:
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
                      "graph_ms", "profiler_ms", "srs_", "verify_", "v1_",
                      "mock_", "gadgets_", "sha256_", "mesh_",
-                     "launches_offset_"))}}
+                     "launches_offset_", "forms", "form_", "horner_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -50,12 +50,12 @@
 //
 // Layout: a point batch is [48, L] int32 (rows 0-15 X, 16-31 Y, 32-47 Z
 // as 16-bit Montgomery digits, lanes last); an affine batch is [32, L].
-// One thread per lane (B2, B3, B5, B6, the GLV ladder, the bucket-run
-// kernel) or one lane a group of four threads (B4, the scalar ladder; see
-// the last note): neighbouring lanes read neighbouring words of each row,
-// so every load and store coalesces (B3's index form gathers). The
-// formulas are written straight-line with the coordinates in registers
-// (8 x 32-bit limbs each).
+// One thread per lane (B2, B3, the GLV ladder, the bucket-run kernel),
+// one lane a group of four threads (B4, the scalar ladder), or either by
+// lane count (B5, B6; see the last notes): neighbouring lanes read
+// neighbouring words of each row, so every load and store coalesces (B3's
+// index form gathers). The formulas are written straight-line with the
+// coordinates in registers (8 x 32-bit limbs each).
 //
 // What bounds them on an H100, and what the design does about it:
 // - By the roofline B3 moves 2 x 192 + 4 bytes in and 192 out per lane
@@ -169,6 +169,34 @@
 //   and a select measured the same as the branch; the ladder's products
 //   inlined (13,832 SASS instructions against 8,576) ran 1.2-1.7x slower;
 //   the sums on rank 0 alone, their results shuffled out, 8-23% slower.
+// - B5 and B6 run in either form, picked by lane count at launch: one lane
+//   a group of four threads (coop_double, the products inlined; 63 and 72
+//   registers, 3,664 and 3,688 SASS instructions) below kPdoubleLaneFrom
+//   and kPdoubleMaskedLaneFrom (30,720) lanes, one thread a lane
+//   (rcb_double inlined; 106 and 109 registers, 5,064 instructions each)
+//   from there, both in blocks from spread_threads. The doubling suits the
+//   group better than the add: every rank is busy in both product rounds
+//   and the dependent chain is 2 products, not 8. One thread a lane,
+//   8,192 lanes are 256 warps: the 0.0084 ms of the form in fixed
+//   128-thread blocks (64 SMs) is latency; the group takes 0.0045 ms.
+//   At 2^17 lanes the card is full either way and the group's extra sums
+//   and shuffles cost more than its warps buy (0.0428 against 0.0416 ms).
+//   Between 26,624 and 30,720 lanes the two forms are within 1-8%; the
+//   threshold is the first measured width from which one thread wins at
+//   every wider one (redesign_variants.py; NVIDIA H100 80GB HBM3, 700 W,
+//   each time a launch from a CUDA graph of 20; PERF.md).
+// - B6 doubles every lane and keeps a masked-off lane's input by a select,
+//   reading the mask word before the doubling. Measured against it with
+//   half the lanes live at 2^17 (same process): a branch of each lane to
+//   a copy before any load, 1.3x slower (a warp runs both paths; 1.4x for
+//   the group); a vote of the warp that skips the doubling where none of its
+//   lanes is live, taken after the loads (138 registers) or before them
+//   (114), 2.3-2.4x faster with no lane live but 8-14% slower with half.
+//   Also tried and not kept: a pair of threads a lane (Alg 9's stages two
+//   products a rank, 84 registers; never the fastest, behind both forms
+//   at 2^17) and __launch_bounds__(128, 5, 6 or 8) on the one-thread form,
+//   which caps it at 96, 80 or 64 registers, each with spills, and is
+//   slower at 2^17.
 #include "field.cuh"
 
 using namespace h2t;
@@ -467,6 +495,10 @@ enum SrcMode { SRC_LANE = 0, SRC_ROLL = 1, SRC_INDEX = 2 };
 static const int kMaxThreads = 128;
 // the most lanes a cooperative kernel takes (its thread index is 32-bit)
 static const long long kMaxGroupLanes = (1LL << 32) / 4 - kMaxThreads;
+// B5 (B6) runs one lane a group of kGroup threads below kPdoubleLaneFrom
+// (kPdoubleMaskedLaneFrom) lanes, one thread a lane from there up
+static constexpr int kPdoubleLaneFrom = 30720;
+static constexpr int kPdoubleMaskedLaneFrom = 30720;
 
 // B3: out[l] = mask[l] ? a[l] + src[j(l)] : a[l]. SRC_LANE: j = l;
 // SRC_ROLL: j = the lane `shift` (0 <= shift < width) places before l
@@ -755,32 +787,41 @@ padd_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
   if (r < 3) store_rows(out + row, L, o);
 }
 
-template <int F>
-__global__ void pdouble_kernel(int32_t* __restrict__ out,
-                               const int32_t* __restrict__ a, uint32_t L) {
-  uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+// B5 (out = 2a) and, with MASKED, B6 (out = mask ? 2a : a), the products
+// inlined, in two forms. B6 doubles every lane and keeps a masked-off
+// lane's input by a select, as the reference's kernel does, so no warp
+// diverges (see the design note for the branches measured against it).
+// One thread a lane (rcb_double):
+template <int F, bool MASKED>
+__global__ void __launch_bounds__(kMaxThreads)
+pdouble_lane_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
+                    const int32_t* __restrict__ mask, uint32_t L) {
+  const uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
   Pt p, r;
   load_pt(p, a + l, L);
+  const bool live = !MASKED || mask[l] != 0;
   rcb_double<F>(r, p);
+  if (!live) r = p;
   store_pt(out + l, L, r);
 }
 
-template <int F>
-__global__ void pdouble_masked_kernel(int32_t* __restrict__ out,
-                                      const int32_t* __restrict__ a,
-                                      const int32_t* __restrict__ mask,
-                                      uint32_t L) {
-  uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  if (mask[l] == 0) {
-    copy_rows(out + l, a + l, L, 48);
-    return;
-  }
-  Pt p, r;
-  load_pt(p, a + l, L);
-  rcb_double<F>(r, p);
-  store_pt(out + l, L, r);
+// One lane a group of kGroup threads (coop_double): rank r reads
+// coordinate c(r), ranks 0-2 write X, Y, Z.
+template <int F, bool MASKED>
+__global__ void __launch_bounds__(kMaxThreads)
+pdouble_group_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
+                     const int32_t* __restrict__ mask, uint32_t L) {
+  const uint32_t l = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (l >= L) return;  // whole groups: kGroup divides the block
+  const int r = threadIdx.x % kGroup;
+  const size_t row = (size_t)16 * (r == 3 ? 0 : r) * L + l;
+  uint32_t c[8], d[8];
+  load_rows(c, a + row, L);
+  const bool live = !MASKED || mask[l] != 0;
+  coop_double<F, false>(d, c, r, group_mask());
+  select(d, live, d, c);
+  if (r < 3) store_rows(out + row, L, d);
 }
 
 // Launch the field's instance (k0 for Fp, k1 for Fq) over L lanes, one
@@ -944,16 +985,48 @@ extern "C" int h2t_padd(int field, void* out, const void* a, const void* b,
   return (int)cudaGetLastError();
 }
 
+// B5 or, given a mask, B6 over L lanes in the form of `threads` threads a
+// lane (1 or kGroup): L x threads threads in blocks of
+// spread_threads(L x threads)
+extern "C" int h2t_pdouble_form(int threads, int field, void* out,
+                                const void* a, const void* mask, long long L,
+                                void* stream) {
+  if (L <= 0) return 0;
+  if ((threads != 1 && threads != kGroup) ||
+      L > (1LL << 32) / threads - kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  typedef void (*Kern)(int32_t*, const int32_t*, const int32_t*, uint32_t);
+  static const Kern kerns[2][2][2] = {
+      {{pdouble_lane_kernel<0, false>, pdouble_group_kernel<0, false>},
+       {pdouble_lane_kernel<0, true>, pdouble_group_kernel<0, true>}},
+      {{pdouble_lane_kernel<1, false>, pdouble_group_kernel<1, false>},
+       {pdouble_lane_kernel<1, true>, pdouble_group_kernel<1, true>}}};
+  const long long n = L * threads;
+  const int block = spread_threads(n);
+  dim3 grid((unsigned)((n + block - 1) / block));
+  kerns[field != 0][mask != nullptr][threads == kGroup]
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          (int32_t*)out, (const int32_t*)a, (const int32_t*)mask, (uint32_t)L);
+  return (int)cudaGetLastError();
+}
+
+// The form of B5 (B6) at L lanes: the faster one measured at that width
+// (see the design note)
+static int pdouble_threads(long long L, bool masked) {
+  return L >= (masked ? kPdoubleMaskedLaneFrom : kPdoubleLaneFrom) ? 1
+                                                                     : kGroup;
+}
+
 extern "C" int h2t_pdouble(int field, void* out, const void* a, long long L,
                            void* stream) {
-  return launch_lanes(field, pdouble_kernel<0>, pdouble_kernel<1>, L, stream,
-                      (int32_t*)out, (const int32_t*)a, (uint32_t)L);
+  return h2t_pdouble_form(pdouble_threads(L, false), field, out, a, nullptr,
+                          L, stream);
 }
 
 extern "C" int h2t_pdouble_masked(int field, void* out, const void* a,
                                   const void* mask, long long L,
                                   void* stream) {
-  return launch_lanes(field, pdouble_masked_kernel<0>,
-                      pdouble_masked_kernel<1>, L, stream, (int32_t*)out,
-                      (const int32_t*)a, (const int32_t*)mask, (uint32_t)L);
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  return h2t_pdouble_form(pdouble_threads(L, true), field, out, a, mask, L,
+                          stream);
 }

@@ -56,6 +56,7 @@ _ARGTYPES = {
         "h2t_padd": [_I, _P, _P, _P, _LL, _P],
         "h2t_pdouble": [_I, _P, _P, _LL, _P],
         "h2t_pdouble_masked": [_I, _P, _P, _P, _LL, _P],
+        "h2t_pdouble_form": [_I, _I, _P, _P, _P, _LL, _P],
         "h2t_glv_ladder": [_I, _P, _P, _P, _P, _U32P, _U32P, _I, _LL, _P],
         "h2t_scalar_mul_ladder": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _P],
     },

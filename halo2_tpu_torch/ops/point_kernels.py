@@ -17,7 +17,8 @@ complete formulas for a = 0, b3 = 15 (eprint 2015/1060, Alg 7, 8 and 9).
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches csrc/point_kernels.cu or raises. `LAUNCHES` counts
 kernel launches. B4 and the scalar ladder run one lane on a group of four
-threads; their results are the same as one thread's, bit for bit.
+threads, B5 and B6 too below a lane count set in the .cu; their results
+are the same as one thread's, bit for bit.
 """
 from __future__ import annotations
 
@@ -488,7 +489,8 @@ def padd_flat(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def pdouble_flat(df, a: torch.Tensor) -> torch.Tensor:
-    """2a on a [48, L] batch, RCB Alg 9 (kernel B5 on CUDA)."""
+    """2a on a [48, L] batch, RCB Alg 9 (kernel B5 on CUDA, in the form
+    that csrc/point_kernels.cu picks by lane count)."""
     _check_batch(a, 3 * NLIMBS, a.shape[1], "a")
     if not _dispatch(a):
         return pdouble_plain(df, a)
@@ -497,13 +499,42 @@ def pdouble_flat(df, a: torch.Tensor) -> torch.Tensor:
 
 def pdouble_masked_flat(df, a: torch.Tensor, mask: torch.Tensor
                         ) -> torch.Tensor:
-    """out = mask ? 2a : a on a [48, L] batch (kernel B6 on CUDA)."""
+    """out = mask ? 2a : a on a [48, L] batch (kernel B6 on CUDA, in the
+    form that csrc/point_kernels.cu picks by lane count)."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     if not _dispatch(a):
         return pdouble_masked_plain(df, a, mask)
     return _launch("pdouble_masked", df, a.contiguous(),
                    _flags(mask, L, "mask"))
+
+
+# the forms of B5 and B6 by threads a lane (h2t_pdouble_form)
+PDOUBLE_FORMS = {"lane": 1, "group": 4}
+
+
+def pdouble_form(df, a: torch.Tensor, threads: int, mask=None
+                 ) -> torch.Tensor:
+    """B5 (B6 given a mask) on a [48, L] batch on the card in the form of
+    `threads` threads a lane (a value of PDOUBLE_FORMS), where
+    pdouble_flat and pdouble_masked_flat take the form by lane count. On
+    no path and counted nowhere: it holds each form to the plain versions
+    at any width."""
+    from . import cuda_build
+    L = a.shape[1]
+    _check_batch(a, 3 * NLIMBS, L, "a")
+    mask = None if mask is None else _flags(mask, L, "mask")
+    if a.device.type != "cuda":
+        raise ValueError(f"pdouble_form launches a CUDA kernel; a is on "
+                         f"{a.device}")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    if L:
+        rc = cuda_build.library("point_kernels").h2t_pdouble_form(
+            threads, df.field_id, out.data_ptr(), a.data_ptr(),
+            _arg(mask), L, cuda_build.stream_ptr(a.device))
+        cuda_build.check(rc, f"pdouble_form({threads})")
+    return out
 
 
 # ---------------------------------------------------------------------------

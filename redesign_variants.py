@@ -38,15 +38,44 @@ halo2_tpu_torch/_build/variants/:
                64 adds a lane instead of about 255, other projective values
     sums1      B4 and the ladder with coop_add's sums between its stages on
                rank 0 alone, their results shuffled (SUMS_ON_RANK0)
+  B5 and B6 (pdouble_*_kernel) at 1, 2, 8,192, 2^17 and 2^20 lanes and a
+  sweep of widths between them (DOUBLE_WIDTHS, DOUBLE_SWEEP), B6 with a
+  random half of its lanes live (and all or none at DOUBLE_WIDTHS),
+  PALLAS base field:
+    lane, group
+               the source's forms (h2t_pdouble_form): one thread a lane,
+               one lane a group of four (coop_double); B6 doubles every
+               lane and keeps a masked-off lane's input by a select
+    fixed      one thread a lane in fixed blocks of 128 threads, the form
+               both had before the group (PDOUBLE_FIXED)
+    pair       one lane a pair of threads (PAIR_FORM: pair_double, Alg 9's
+               stages two products a rank)
+    *_branch   B6 in each form with a branch of each lane (group) to a copy
+               of its rows before any load where the mask is 0, as the
+               fixed form does (PDOUBLE_BRANCH), in place of the source's
+               select
+    *_vote     a warp whose lanes are all masked off writes its loads back
+               and skips the doubling (__any_sync after the loads;
+               PDOUBLE_VOTE)
+    *_vote_early
+               the same vote before the loads, such a warp copying its rows
+               (PDOUBLE_VOTE_EARLY)
+    lane_lb5, lane_lb6, lane_lb8
+               the one-thread form with __launch_bounds__(128, n), n blocks
+               resident an SM, its registers capped to fit them
+  and chip_smoke.py's [horner] combine of two lanes (c B5 and one B4
+  launch a window) with B5 in the fixed form and in the form h2t_pdouble
+  picks; with --json PATH, every number also in a JSON file.
 
-Every variant's output must equal the source's bit for bit (B7's also
-the plain version's). Each is timed from a CUDA graph and by
+Every variant's output must equal the source's bit for bit (B7's and B5's
+and B6's also the plain version's). Each is timed from a CUDA graph and by
 torch.profiler (chip_smoke.py's graph_ms and device_ms); per variant the
 timed kernel's registers (nvcc -Xptxas -v) and SASS instructions
 (cuobjdump -sass).
 
-Run from the repository root (--only runs one of the three groups):
-    python3 redesign_variants.py [--only bucket|ntt|points] [OLD_CHECKOUT]
+Run from the repository root (--only runs one of the four groups):
+    python3 redesign_variants.py [--only bucket|ntt|points|double]
+                                 [--json PATH] [OLD_CHECKOUT]
 """
 from __future__ import annotations
 
@@ -388,6 +417,195 @@ SUMS_ON_RANK0 = r'''  uint32_t t0[8], t1[8], t2[8], m3[8], m4[8], m5[8];
 '''
 
 
+# B5 and B6 as they were before the group: one thread a lane in fixed
+# blocks of kMaxThreads (launch_lanes), no launch bounds
+PDOUBLE_FIXED = r'''
+template <int F, bool MASKED>
+__global__ void pdouble_fixed_kernel(int32_t* __restrict__ out,
+                                   const int32_t* __restrict__ a,
+                                   const int32_t* __restrict__ mask,
+                                   uint32_t L) {
+  uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  if (MASKED && mask[l] == 0) {
+    copy_rows(out + l, a + l, L, 48);
+    return;
+  }
+  Pt p, r;
+  load_pt(p, a + l, L);
+  rcb_double<F>(r, p);
+  store_pt(out + l, L, r);
+}
+
+extern "C" int h2t_pdouble_fixed(int threads, int field, void* out,
+                               const void* a, const void* mask, long long L,
+                               void* stream) {
+  if (mask == nullptr)
+    return launch_lanes(field, pdouble_fixed_kernel<0, false>,
+                        pdouble_fixed_kernel<1, false>, L, stream,
+                        (int32_t*)out, (const int32_t*)a,
+                        (const int32_t*)mask, (uint32_t)L);
+  return launch_lanes(field, pdouble_fixed_kernel<0, true>,
+                      pdouble_fixed_kernel<1, true>, L, stream, (int32_t*)out,
+                      (const int32_t*)a, (const int32_t*)mask, (uint32_t)L);
+}
+'''
+
+# B5 and B6 one lane a pair of threads: rank r (thread index % kPair) holds
+# coordinates r and r + 1 of the point (X, Y at rank 0; Y, Z at rank 1),
+# and every shuffle reads the other rank (kPairOther). Alg 9's two stages
+# of four independent products run two a rank, the dependent chain 4
+# products; both ranks hold Y3. B6 as in the source's forms.
+PAIR_FORM = r"""
+static constexpr int kPair = 2;
+static constexpr uint32_t kPairOther = 0x01;
+
+__device__ __forceinline__ unsigned pair_mask() {
+  return 0x3u << (threadIdx.x & 31u & ~(unsigned)(kPair - 1));
+}
+
+__device__ __forceinline__ void shfl8_pair(uint32_t o[8], const uint32_t v[8],
+                                           int src, unsigned pm) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) o[i] = __shfl_sync(pm, v[i], src, kPair);
+}
+
+// c0 and c1 hold coordinates r and r + 1 of A; o0 and o1 get those of 2A
+template <int F>
+__device__ __forceinline__ void pair_double(uint32_t o0[8], uint32_t o1[8],
+                                            const uint32_t c0[8],
+                                            const uint32_t c1[8], int r,
+                                            unsigned pm) {
+  const int other = nib(kPairOther, r);
+  uint32_t p0[8], p1[8], q[8];
+  mont_mul<F>(p0, c0, c1);          // XY at rank 0, t1 = YZ at rank 1
+  mont_mul<F>(p1, c1, c1);          // Y^2 at rank 0, Z^2 at rank 1
+  shfl8_pair(q, p1, other, pm);
+  uint32_t ysq[8], u[8], z3[8], t2[8], y3[8], t0[8];
+  select(ysq, r == 0, p1, q);
+  select(u, r == 0, q, p1);         // Z^2
+  add<F>(z3, ysq, ysq);
+  add<F>(z3, z3, z3);
+  add<F>(z3, z3, z3);               // 8 Y^2
+  mul15<F>(t2, u);                  // b3 Z^2
+  add<F>(y3, ysq, t2);
+  add<F>(u, t2, t2);
+  add<F>(u, u, t2);
+  sub<F>(t0, ysq, u);               // Y^2 - 3 b3 Z^2
+  // stage 2: t0 xy and t0 y3 at rank 0, t1 z3 (= Z3) and t2 z3 at rank 1
+  uint32_t a[8], b[8], e1[8], e2[8];
+  select(a, r == 0, t0, p0);
+  select(b, r == 0, p0, z3);
+  mont_mul<F>(e1, a, b);
+  select(a, r == 0, t0, t2);
+  select(b, r == 0, y3, z3);
+  mont_mul<F>(e2, a, b);
+  shfl8_pair(q, e2, other, pm);
+  add<F>(u, e2, q);                 // Y3 = t0 y3 + t2 z3 on both ranks
+  add<F>(a, e1, e1);                // X3 = 2 t0 xy at rank 0
+  select(o0, r == 0, a, u);
+  select(o1, r == 0, u, e1);
+}
+
+// rank r reads and writes coordinate r, and rank 1 coordinate 2 too
+template <int F, bool MASKED>
+__global__ void __launch_bounds__(kMaxThreads)
+pdouble_pair_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
+                    const int32_t* __restrict__ mask, uint32_t L) {
+  const uint32_t l = (blockIdx.x * blockDim.x + threadIdx.x) / kPair;
+  if (l >= L) return;
+  const int r = threadIdx.x % kPair;
+  const size_t row = (size_t)16 * r * L + l, next = row + (size_t)16 * L;
+  uint32_t c0[8], c1[8], d0[8], d1[8];
+  load_rows(c0, a + row, L);
+  load_rows(c1, a + next, L);
+  const bool live = !MASKED || mask[l] != 0;
+  pair_double<F>(d0, d1, c0, c1, r, pair_mask());
+  select(d0, live, d0, c0);
+  select(d1, live, d1, c1);
+  store_rows(out + row, L, d0);
+  if (r == 1) store_rows(out + next, L, d1);
+}
+
+extern "C" int h2t_pdouble_pair(int threads, int field, void* out,
+                                const void* a, const void* mask, long long L,
+                                void* stream) {
+  if (L <= 0) return 0;
+  typedef void (*Kern)(int32_t*, const int32_t*, const int32_t*, uint32_t);
+  static const Kern kerns[2][2] = {
+      {pdouble_pair_kernel<0, false>, pdouble_pair_kernel<0, true>},
+      {pdouble_pair_kernel<1, false>, pdouble_pair_kernel<1, true>}};
+  const long long n = L * kPair;
+  const int block = spread_threads(n);
+  dim3 grid((unsigned)((n + block - 1) / block));
+  kerns[field != 0][mask != nullptr]<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)a, (const int32_t*)mask, (uint32_t)L);
+  return (int)cudaGetLastError();
+}
+"""
+
+# B6 in the source's forms with their masked-off lanes (the source doubles
+# every lane and selects) handled three other ways, each a patch of the
+# lane kernel and one of the group kernel:
+_LANE_BODY = ("  Pt p, r;\n"
+              "  load_pt(p, a + l, L);\n"
+              "  const bool live = !MASKED || mask[l] != 0;\n"
+              "  rcb_double<F>(r, p);\n"
+              "  if (!live) r = p;\n")
+_GROUP_BODY = ("  uint32_t c[8], d[8];\n"
+               "  load_rows(c, a + row, L);\n"
+               "  const bool live = !MASKED || mask[l] != 0;\n"
+               "  coop_double<F, false>(d, c, r, group_mask());\n"
+               "  select(d, live, d, c);\n")
+_VOTE = "!__any_sync(__activemask(), !MASKED || mask[l] != 0)"
+# a branch of each lane (group) to a copy of its rows before any load, as
+# the fixed form does
+PDOUBLE_BRANCH = (
+    (_LANE_BODY, "  if (MASKED && mask[l] == 0) {\n"
+                 "    copy_rows(out + l, a + l, L, 48);\n"
+                 "    return;\n"
+                 "  }\n" + _LANE_BODY),
+    (_GROUP_BODY, "  if (MASKED && mask[l] == 0) {\n"
+                  "    if (r < 3) copy_rows(out + row, a + row, L, 16);\n"
+                  "    return;\n"
+                  "  }\n" + _GROUP_BODY))
+# the warp's vote after the loads: a warp whose lanes are all masked off
+# writes its loads back, any other doubles and selects
+PDOUBLE_VOTE = (
+    (_LANE_BODY, _LANE_BODY.replace(
+        "  rcb_double", f"  if (MASKED && {_VOTE}) {{\n"
+        "    store_pt(out + l, L, p);\n"
+        "    return;\n"
+        "  }\n"
+        "  rcb_double")),
+    (_GROUP_BODY, _GROUP_BODY.replace(
+        "  coop_double", f"  if (MASKED && {_VOTE}) {{\n"
+        "    if (r < 3) store_rows(out + row, L, c);\n"
+        "    return;\n"
+        "  }\n"
+        "  coop_double")))
+# the warp's vote before the loads: a warp whose lanes are all masked off
+# copies its rows
+PDOUBLE_VOTE_EARLY = (
+    (_LANE_BODY, f"  if (MASKED && {_VOTE}) {{\n"
+                 "    copy_rows(out + l, a + l, L, 48);\n"
+                 "    return;\n"
+                 "  }\n" + _LANE_BODY),
+    (_GROUP_BODY, f"  if (MASKED && {_VOTE}) {{\n"
+                  "    if (r < 3) copy_rows(out + row, a + row, L, 16);\n"
+                  "    return;\n"
+                  "  }\n" + _GROUP_BODY))
+
+# the one-thread form with a minimum of resident blocks of kMaxThreads
+# threads an SM, so that ptxas caps its registers at 65,536 / (n x 128)
+LANE_BOUNDS = "__launch_bounds__(kMaxThreads)\npdouble_lane_kernel("
+
+
+def lane_min_blocks(n: int) -> tuple:
+    return ((LANE_BOUNDS, LANE_BOUNDS.replace("(kMaxThreads)",
+                                              f"(kMaxThreads, {n})")),)
+
+
 def sums_on_rank0(src_text: str) -> tuple:
     """The (old, new) patch that puts SUMS_ON_RANK0 into coop_add."""
     a = src_text.index(SUMS_FROM)
@@ -469,7 +687,8 @@ def build(variants: dict, kernel) -> dict:
             if "entry function" in line and "ILi0E" in line and \
                     any(k in line for k in kernel):
                 print(f"[{name}] " + "; ".join(
-                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 3]))
+                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                    if "Compiling" not in x))
         for fn, count in cs.sass_counts(so).items():
             if "ILi0E" in fn and any(k in fn for k in kernel):
                 print(f"[{name}] {fn}: {count} SASS instructions")
@@ -715,6 +934,152 @@ def point_variants(dev) -> None:
                 raise AssertionError(f"ladder {name} differs at L={L}")
 
 
+# B5 and B6: the widths asked of them (1 lane: a traced MSM's combine; 2:
+# chip_smoke's [horner]; 8,192 and 2^17: the first IPA fold at k = 14 and
+# 18), and the sweep between them that places the form thresholds
+DOUBLE_WIDTHS = (1, 2, 1 << 13, 1 << 17, 1 << 20)
+DOUBLE_SWEEP = (1 << 10, 1 << 11, 1 << 12, 3 << 11, 3 << 12, 1 << 14,
+                5 << 12, 3 << 13, 13 << 11, 7 << 12, 15 << 11, 1 << 15,
+                3 << 14, 1 << 16, 3 << 15, 3 << 16, 1 << 18, 3 << 17,
+                1 << 19)
+
+
+def double_variants(dev, json_path=None) -> None:
+    """B5 and B6 in every form (csrc/point_kernels.cu's lane and group
+    through h2t_pdouble_form, the fixed form, the pair, B6's branch and
+    vote builds and the one-thread form with a minimum of blocks) against
+    the plain versions bit for bit at every width, each timed per launch
+    from a CUDA graph of 20 launches (and by the profiler at
+    DOUBLE_WIDTHS), beside its bound; the launches of chip_smoke.py's
+    [horner] combine (two lanes) from a graph, with B5 in the fixed form
+    and in the form h2t_pdouble picks. One line a width and kernel here,
+    every number in the JSON file at json_path if given."""
+    import json
+    import torch
+    import chip_smoke as cs
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FP_DEV
+    from halo2_tpu_torch.ops import cuda_build as cb
+    from halo2_tpu_torch.ops import msm_pippenger as mp
+    from halo2_tpu_torch.ops import point_kernels as pk
+    src = "point_kernels.cu"
+    libs = build({"forms": make_variant("forms", CSRC, src,
+                                        append=PDOUBLE_FIXED + PAIR_FORM),
+                  "branch": make_variant("branch", CSRC, src,
+                                         patches=PDOUBLE_BRANCH),
+                  "vote": make_variant("vote", CSRC, src,
+                                       patches=PDOUBLE_VOTE),
+                  "vote_early": make_variant("vote_early", CSRC, src,
+                                             patches=PDOUBLE_VOTE_EARLY),
+                  **{f"lane_lb{n}": make_variant(f"lane_lb{n}", CSRC, src,
+                                                 patches=lane_min_blocks(n))
+                     for n in (5, 6, 8)}},
+                 "pdouble_")
+    sig = cb._ARGTYPES["point_kernels"]
+    for lib in libs.values():
+        for fn in ("h2t_pdouble_form", "h2t_pdouble_fixed", "h2t_pdouble_pair",
+                   "h2t_pdouble", "h2t_padd"):
+            if hasattr(lib, fn):
+                f = getattr(lib, fn)
+                f.argtypes = sig.get(fn, sig["h2t_pdouble_form"])
+                f.restype = ctypes.c_int
+    forms = libs["forms"]
+    # (name, entry, threads a lane, B5 too or B6 alone)
+    variants = [("fixed", forms.h2t_pdouble_fixed, 1, True)] + [
+        (name, forms.h2t_pdouble_form, t, True)
+        for name, t in pk.PDOUBLE_FORMS.items()] + [
+        ("pair", forms.h2t_pdouble_pair, 2, True)] + [
+        (f"{name}_{how}", libs[how].h2t_pdouble_form, t, False)
+        for how in ("branch", "vote", "vote_early")
+        for name, t in pk.PDOUBLE_FORMS.items()] + [
+        (f"lane_lb{n}", libs[f"lane_lb{n}"].h2t_pdouble_form, 1, True)
+        for n in (5, 6, 8)]
+    df = FP_DEV
+    g = pk.points_to_proj(df, native_srs_g(PALLAS, "double-variants", 1024),
+                          dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    record = []
+    for L in sorted(DOUBLE_WIDTHS + DOUBLE_SWEEP):
+        a, _ = cs._ladder_inputs(df, g, L, gen, edge=False)
+        want = pk.pdouble_plain(df, a)
+        half = (torch.rand(L, generator=gen, device=dev) < 0.5).to(
+            torch.int32)
+        masks = {"none": None, "half": half}
+        if L in DOUBLE_WIDTHS:
+            masks.update(ones=torch.ones_like(half),
+                         zeros=torch.zeros_like(half))
+        out = torch.empty_like(a)
+        for what, mask in masks.items():
+            live = L if mask is None else int(mask.sum())
+            nbytes = L * (2 * 192 + (0 if mask is None else 4))
+            bd, by = cs.bound_ms(nbytes, live * 8 * cs.MONT_MULADDS)
+            exp = want if mask is None else torch.where(
+                mask.bool()[None], want, a)
+            row = {"L": L, "mask": what, "live": live, "bound_ms": bd,
+                   "bound_by": by, "graph_ms": {}, "profiler_ms": {}}
+            for name, entry, t, b5 in variants:
+                if mask is None and not b5:
+                    continue
+
+                def call(entry=entry, t=t, mask=mask):
+                    check(entry(t, df.field_id, out.data_ptr(),
+                                a.data_ptr(), 0 if mask is None
+                                else mask.data_ptr(), L, stream()))
+                out.zero_()
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(out, exp):
+                    raise AssertionError(f"pdouble {name} differs from the "
+                                         f"plain version at L={L}, mask "
+                                         f"{what}")
+                reps = 3 if L >= 1 << 19 else 10
+                row["graph_ms"][name] = cs.graph_ms(call, reps, calls=20)
+                if L in DOUBLE_WIDTHS:
+                    row["profiler_ms"][name] = cs.device_ms(call, 20,
+                                                            "pdouble_")
+            best = min(row["graph_ms"], key=row["graph_ms"].get)
+            record.append(row)
+            print(f"[double] L={L} {'B5' if mask is None else 'B6'} mask "
+                  f"{what}: " + ", ".join(
+                      f"{k} {v:.5f}" for k, v in row["graph_ms"].items())
+                  + f" ms a launch from a graph (bound {bd:.5f} ms by {by});"
+                  f" fastest {best}", flush=True)
+    # [horner]: chip_smoke's device combine of two window sums at k = 14,
+    # c B5 launches and one B4 a window, replayed from a graph
+    c = mp.pick_c(1 << 14)
+    W = -(-256 // c)
+    a, _ = cs._ladder_inputs(df, g, 2, gen, edge=False)
+    ws = [cs._ladder_inputs(df, g, 2, gen, edge=False)[0] for _ in range(W)]
+    bufs = [torch.empty_like(a) for _ in range(2)]
+    horner = {}
+    for name, entry in (("fixed", forms.h2t_pdouble_fixed),
+                        ("source", forms.h2t_pdouble)):
+        def combine(entry=entry, name=name):
+            acc = a
+            for w in range(W):
+                for _ in range(c):
+                    nxt = bufs[0] if acc is not bufs[0] else bufs[1]
+                    args = (df.field_id, nxt.data_ptr(), acc.data_ptr())
+                    check(entry(1, *args, 0, 2, stream()) if name == "fixed"
+                          else entry(*args, 2, stream()))
+                    acc = nxt
+                nxt = bufs[0] if acc is not bufs[0] else bufs[1]
+                check(forms.h2t_padd(df.field_id, nxt.data_ptr(),
+                                     acc.data_ptr(), ws[w].data_ptr(), 2,
+                                     stream()))
+                acc = nxt
+        horner[name] = cs.graph_ms(combine, 10)
+    print(f"[double] the [horner] combine, two lanes, c={c}, W={W} ({c * W} "
+          f"B5 and {W} B4 launches): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in horner.items())
+          + " ms a combine from a graph", flush=True)
+    if json_path:
+        with open(json_path, "w") as fh:
+            json.dump({"widths": record, "horner": horner, "c": c, "W": W},
+                      fh)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -723,9 +1088,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from halo2_tpu_torch.parallel import profiling
+    # chip_smoke.py binds its roofline constants in its own main()
+    cs.bound_ms, cs.MONT_MULADDS = profiling.bound_ms, profiling.MONT_MULADDS
     cs.phase_card()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("bucket", "ntt", "points"))
+    ap.add_argument("--only", choices=("bucket", "ntt", "points", "double"))
+    ap.add_argument("--json", default=None,
+                    help="write every number of --only double here")
     ap.add_argument("old", nargs="?", default=None)
     args = ap.parse_args()
     shutil.rmtree(OUT, ignore_errors=True)
@@ -736,6 +1106,8 @@ def main() -> int:
         ntt_variants(dev, args.old)
     if args.only in (None, "points"):
         point_variants(dev)
+    if args.only in (None, "double"):
+        double_variants(dev, args.json)
     return 0
 
 

@@ -1,14 +1,17 @@
 """The cooperative schedule of csrc/point_kernels.cu (coop_add, coop_double,
-and B4 and the scalar-multiplication ladder built on them), emulated on
-the CPU: a group of four ranks serves one lane, each rank's registers are
-row r of a [4, L, 16] tensor, a shuffle reads the row its map names, a
-select picks by rank, and every product and sum is the plain version's
-(fmul_plain, fadd_plain, fsub_plain). The maps are read from the .cu, and
-the emulation follows its statements one by one. It must equal
+and B4, B5, B6 and the scalar-multiplication ladder built on them),
+emulated on the CPU: a group of four ranks serves one lane, each rank's
+registers are row r of a [4, L, 16] tensor, a shuffle reads the row its
+map names, a select picks by rank, and every product and sum is the plain
+version's (fmul_plain, fadd_plain, fsub_plain). The maps are read from the
+.cu, and the emulation follows its statements one by one. It must equal
 rcb_add_plain and rcb_double_plain (and so the one-thread kernels and the
 reference) bit for bit on random projective points, identity lanes and
-a == b lanes, and the ladder must equal scalar_mul_ladder_plain, in both
-fields. Inputs are numpy-seeded."""
+a == b lanes, the masked group form of B6 pdouble_masked_plain, and the
+ladder scalar_mul_ladder_plain, in both fields. The same holds for the
+schedule of two threads a lane that redesign_variants.py builds and times
+beside the kernels (pair_double, its maps read from that script). Inputs
+are numpy-seeded."""
 import os
 import re
 
@@ -29,8 +32,14 @@ CURVES = {"pallas": PALLAS, "vesta": VESTA}
 RANKS = torch.arange(4)
 
 
-def _constants() -> dict:
-    src = open(os.path.join(cuda_build.CSRC, "point_kernels.cu")).read()
+CU = os.path.join(cuda_build.CSRC, "point_kernels.cu")
+# the pair form's source, a variant of redesign_variants.py at the root
+VARIANTS = os.path.join(os.path.dirname(os.path.dirname(cuda_build.CSRC)),
+                        "redesign_variants.py")
+
+
+def _constants(path: str = CU) -> dict:
+    src = open(path).read()
     found = dict(re.findall(
         r"static constexpr (?:int|uint32_t) (k\w+) = (0x[0-9A-Fa-f]+|\d+);",
         src))
@@ -38,11 +47,13 @@ def _constants() -> dict:
 
 
 C = _constants()
+P = _constants(VARIANTS)
 
 
-def _src(name):
+def _src(name, consts=C, ranks=4):
     """The rank each rank reads in a shuffle by map `name` (nibble r)."""
-    return torch.tensor([(C[name] >> (4 * r)) & 15 for r in range(4)])
+    return torch.tensor([(consts[name] >> (4 * r)) & 15
+                         for r in range(ranks)])
 
 
 def _shfl(v, src):
@@ -125,6 +136,32 @@ def coop_double(df, c):
     return _shfl(f, _src("kDblOut"))
 
 
+def pair_double(df, c0, c1):
+    """pair_double (redesign_variants.PAIR_FORM), statement by statement;
+    rows r = the pair's two ranks, c0 and c1 their coordinates r and r + 1."""
+    r = torch.arange(P["kPair"])
+    other = _src("kPairOther", P, P["kPair"])
+    p0 = fmul_plain(df, c0, c1)
+    p1 = fmul_plain(df, c1, c1)
+    q = _shfl(p1, other)
+    ysq = _sel(r == 0, p1, q)
+    u = _sel(r == 0, q, p1)
+    z3 = fadd_plain(df, ysq, ysq)
+    z3 = fadd_plain(df, z3, z3)
+    z3 = fadd_plain(df, z3, z3)
+    t2 = _mul15(df, u)
+    y3 = fadd_plain(df, ysq, t2)
+    u = fadd_plain(df, t2, t2)
+    u = fadd_plain(df, u, t2)
+    t0 = fsub_plain(df, ysq, u)
+    e1 = fmul_plain(df, _sel(r == 0, t0, p0), _sel(r == 0, p0, z3))
+    e2 = fmul_plain(df, _sel(r == 0, t0, t2), _sel(r == 0, y3, z3))
+    q = _shfl(e2, other)
+    u = fadd_plain(df, e2, q)
+    a = fadd_plain(df, e1, e1)
+    return _sel(r == 0, a, u), _sel(r == 0, u, e1)
+
+
 def _spread(batch):
     """[48, L] -> [4, L, 16]: rank r's coordinate c(r) = {X, Y, Z, X}[r]
     (load_rows at row 16 c(r))."""
@@ -172,6 +209,38 @@ def ladder(df, pts, digits, nbits, lo=None):
     acc = _sel(RANKS == 1, neg, acc)
     out2 = _gather(coop_add(df, lo0, lo1, acc, _shfl(acc, nxt)))
     return out, out2
+
+
+def b6_group(df, a, mask):
+    """pdouble_group_kernel<F, true>: each rank loads c(r), runs
+    coop_double and keeps the loaded coordinate where the lane's mask word
+    is 0; ranks 0-2 store."""
+    c = _spread(a)
+    d = coop_double(df, c)
+    return _gather(torch.where((mask != 0)[None, :, None], d, c))
+
+
+def pdouble_pair(df, a, mask=None):
+    """pdouble_pair_kernel (redesign_variants.PAIR_FORM): rank r loads
+    coordinates r and r + 1, runs pair_double and, with a mask, keeps its
+    loads where the lane's mask word is 0; rank r stores coordinate r and
+    rank 1 coordinate 2 too."""
+    X, Y, Z = pk._split2d(a)
+    c0, c1 = torch.stack([X, Y]), torch.stack([Y, Z])
+    o0, o1 = pair_double(df, c0, c1)
+    assert torch.equal(o1[0], o0[1])          # both ranks hold Y3
+    if mask is not None:
+        live = (mask != 0)[None, :, None]
+        o0, o1 = torch.where(live, o0, c0), torch.where(live, o1, c1)
+    return pk._join2d(o0[0], o0[1], o1[1])
+
+
+def _masks(seed):
+    """Masks of all ones, all zeros and a random half of the lanes."""
+    half = np.random.default_rng(seed).random(L) < 0.5
+    return [torch.ones(L, dtype=torch.int32),
+            torch.zeros(L, dtype=torch.int32),
+            torch.from_numpy(half.astype(np.int32))]
 
 
 def _points(curve, seed):
@@ -235,3 +304,46 @@ def test_coop_ladder_equals_plain(curve):
     got = ladder(df, A, digits[:8], nbits, lo=B)
     want = pk.scalar_mul_ladder_plain(df, A, digits[:8], nbits, lo=B)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("curve", CURVES.values(), ids=CURVES.keys())
+def test_masked_group_double_equals_plain(curve):
+    """B6 one lane a group of four: masks of all ones, all zeros and a
+    random half, on points with identity lanes."""
+    df, A, B = _points(curve, 5)
+    for x in (A, B):
+        for mask in _masks(6):
+            assert torch.equal(b6_group(df, x, mask),
+                               pk.pdouble_masked_plain(df, x, mask))
+
+
+@pytest.mark.parametrize("curve", CURVES.values(), ids=CURVES.keys())
+def test_pair_double_equals_plain(curve):
+    """The two-thread schedule (not a form of the kernels: measured beside
+    them) equals rcb_double_plain, and its masked form
+    pdouble_masked_plain."""
+    assert P["kPair"] == 2
+    assert _src("kPairOther", P, 2).tolist() == [1, 0]
+    df, A, B = _points(curve, 7)
+    for x in (A, B):
+        assert torch.equal(pdouble_pair(df, x), pk.pdouble_plain(df, x))
+        for mask in _masks(8):
+            assert torch.equal(pdouble_pair(df, x, mask),
+                               pk.pdouble_masked_plain(df, x, mask))
+
+
+def test_pdouble_form_thresholds():
+    """B5's and B6's lane counts from which one thread serves a lane are
+    positive and at most kMaxGroupLanes, the most lanes the group form
+    takes."""
+    src = open(CU).read()
+    max_threads = int(re.search(r"static const int kMaxThreads = (\d+);",
+                                src).group(1))
+    m = re.search(r"static const long long kMaxGroupLanes = "
+                  r"\(1LL << 32\) / (\d+) - kMaxThreads;", src)
+    assert int(m.group(1)) == C["kGroup"]
+    max_group_lanes = (1 << 32) // C["kGroup"] - max_threads
+    names = [k for k in C if k.startswith("kPdouble")]
+    assert sorted(names) == ["kPdoubleLaneFrom", "kPdoubleMaskedLaneFrom"]
+    for name in names:
+        assert 0 < C[name] <= max_group_lanes, name

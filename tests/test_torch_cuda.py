@@ -7,6 +7,7 @@ JAX, so this file imports none and runs without tests/conftest.py:
 """
 import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from halo2_tpu_torch.bench_circuit import (BenchCircuit, DevLookupCircuit,
 from halo2_tpu_torch.curves.host import PALLAS, VESTA
 from halo2_tpu_torch.curves.native import native_srs_g
 from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
+from halo2_tpu_torch.ops import cuda_build
 from halo2_tpu_torch.ops import field_kernels as fk
 from halo2_tpu_torch.ops import ipa_device as ipd
 from halo2_tpu_torch.ops import msm_pippenger as mp
@@ -334,6 +336,46 @@ def test_padd_kernel_at_group_and_block_edges(cuda, curve):
         got = pk.padd_flat(df, a, b)
         assert pk.LAUNCHES["padd"] == before + 1
         assert torch.equal(got.cpu(), pk.padd_plain(df, a.cpu(), b.cpu())), L
+
+
+def _pdouble_thresholds():
+    """The lane counts from which B5 and B6 run one thread a lane
+    (csrc/point_kernels.cu)."""
+    src = open(os.path.join(cuda_build.CSRC, "point_kernels.cu")).read()
+    return sorted({int(v) for v in re.findall(
+        r"static constexpr int kPdouble\w+ = (\d+);", src)})
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_pdouble_kernels_at_group_and_block_edges(cuda, curve):
+    """B5 and B6 in each form (one thread a lane, one lane a group of four
+    threads) and through their wrappers equal the plain versions at lane
+    counts that end part way through a warp or a block (1, 31, 33, 8,191,
+    8,192) and at each form threshold and one lane either side, with an
+    identity lane and no mask or masks of all ones, all zeros and a random
+    half; one launch a wrapper call."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(23)
+    widths = list(GROUP_EDGES) + [t + d for t in _pdouble_thresholds()
+                                  for d in (-1, 0, 1)]
+    for L in widths:
+        a = _edge_points(curve, df, L, rng, cuda)
+        half = torch.from_numpy((rng.random(L) < 0.5).astype(np.int32))
+        half = half.to(cuda)
+        want = pk.pdouble_plain(df, a)
+        for mask in (None, torch.ones_like(half), torch.zeros_like(half),
+                     half):
+            exp = want if mask is None else pk.pdouble_masked_plain(df, a,
+                                                                    mask)
+            for t in pk.PDOUBLE_FORMS.values():
+                assert torch.equal(pk.pdouble_form(df, a, t, mask), exp), \
+                    (L, t)
+            name = "pdouble" if mask is None else "pdouble_masked"
+            before = pk.LAUNCHES[name]
+            got = (pk.pdouble_flat(df, a) if mask is None
+                   else pk.pdouble_masked_flat(df, a, mask))
+            assert pk.LAUNCHES[name] == before + 1
+            assert torch.equal(got, exp), (L, name)
 
 
 @pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])

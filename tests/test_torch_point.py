@@ -169,7 +169,8 @@ def test_padd_matches_reference_and_host(name):
 @pytest.mark.parametrize("name", list(CURVES))
 def test_pdouble_matches_reference_and_host(name):
     """B5 and B6 (RCB Alg 9) on projective points with identity lanes;
-    B6 with a random mask."""
+    B6 with a random mask; then at the ragged widths of 1, 2 and 5 lanes
+    (the card's group form ends part way through a warp there)."""
     curve, rdf = CURVES[name]
     df, a, a_host, _, _, mask, _ = _batches(curve, 4)
     got = pk.pdouble_flat(df, a)
@@ -183,6 +184,18 @@ def test_pdouble_matches_reference_and_host(name):
     np.testing.assert_array_equal(got_m.numpy(),
                                   np.asarray(want_m).astype(np.int32))
     assert torch.equal(got_m, torch.where(mask.bool()[None], got, a))
+    for w in (1, 2, 5):
+        x, m = a[:, -w:].clone(), mask[-w:]
+        if w == 5:
+            x[:, 2] = pk.ident_col(df, "cpu")
+        want = rpp.pdouble_flat(rdf, _ref(x), interpret=True)
+        np.testing.assert_array_equal(pk.pdouble_flat(df, x).numpy(),
+                                      np.asarray(want).astype(np.int32))
+        want_m = rpp.pdouble_masked_flat(rdf, _ref(x), _ref(m),
+                                         interpret=True)
+        np.testing.assert_array_equal(
+            pk.pdouble_masked_flat(df, x, m).numpy(),
+            np.asarray(want_m).astype(np.int32))
 
 
 def test_identity_coding_round_trip():
@@ -226,3 +239,17 @@ def test_wrappers_reject_bad_input():
         pk.padd_masked_flat(df, meta, meta, mask.to("meta"))
     with pytest.raises(ValueError):
         pk.pdouble_flat(df, meta)
+
+
+def test_pdouble_form_needs_the_card():
+    """pdouble_form launches the form it is asked for, so it has no CPU
+    version: a CPU batch raises, as do a bad batch and a bad mask."""
+    df = DeviceField(PALLAS.base)
+    a = torch.zeros(48, 4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pk.pdouble_form(df, a, 1)
+    with pytest.raises(TypeError):
+        pk.pdouble_form(df, a[:32], 4)
+    meta = torch.zeros(48, 4, dtype=torch.int32, device="meta")
+    with pytest.raises(TypeError):
+        pk.pdouble_form(df, meta, 4, torch.ones(3, dtype=torch.int32))
