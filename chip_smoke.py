@@ -19,15 +19,27 @@ Phases, in this order (any failure exits non-zero):
      2^16 and 2^20 with 1 and 4 columns, forward and inverse, both
      fields; device time per transform from a CUDA graph and by the
      profiler, wrapper time, bound;
+  4b. [mxu] kernel K1 (products by a constant shared across a group of
+     lanes on the tensor cores, mma.sync on u8 digits, with the NTT
+     butterfly fused) against its plain version at 1, 15, 16, 17 and
+     4,096 lanes a group, both fields, with 0xFF bytes; the four-step
+     NTT (ops/mxu_field.py) against B7 at 2^16, 2^17 and 2^20 with 1 and
+     4 columns, forward and inverse, both fields, and against the plain
+     four-step at 2^10 and 2^16; K1's time a launch from a CUDA graph
+     beside a stage's bound, the four-step's beside B7's, and a float32
+     torch.bmm of each stage's digit products (TF32 off) as the
+     yardstick;
   5. [layout] kernel B8 (limbs-first [16, N] multiply) beside B1
      (element-major [N, 16]) at N = 2^12 .. 2^20, both against the plain
      version, device time against the same byte bound;
-  6. the main path at k=14: Params.new (g_lagrange by the device group
-     iNTT), keygen_vk, keygen_pk, create_proof
+  6. the main path at k=14 (its transforms, of 2^14 and 2^15, on B7):
+     Params.new (g_lagrange by the device group iNTT), keygen_vk,
+     keygen_pk, create_proof
      twice (cold, warm), verify_proof, a wrong public input rejected, and
      the proof's sha256 against the JAX reference's recorded hash; the
-     bucket-run kernel launched and no one-step B2; then [ntt-main], B7
-     timed at the shapes the warm prove transforms;
+     bucket-run kernel launched and no one-step B2; every transform on
+     its route (B7 below 2^16); then [ntt-main], each route timed at the
+     shapes the warm prove transforms;
   7. kernels B2 (masked mixed add) and B3 (masked complete add) against
      their plain versions, bit-exact, at the lane count of a k=14 commit,
      with random masks and signs and identity-coded bases; B3's forms
@@ -117,12 +129,19 @@ Phases, in this order (any failure exits non-zero):
      kernel, B7, the GLV and scalar ladders) held against its plain
      version at the path's shapes on its own data, a profiled warm
      prove, and the proof's sha256 against the JAX reference's
-     (reference_proof_hash.py --circuit sha256);
+     (reference_proof_hash.py --circuit sha256); the gate-chunk branch
+     (create_proof(h_chunk_nodes=...), kernel K2, one launch a chunk)
+     with the whole gate set as one chunk and in chunks of 400 nodes,
+     each proof byte-equal, `h terms build`'s time and launches beside
+     the eager fold's, K2's calls held against the plain tape on row
+     slices, and K2 timed alone at 2^20 rows from a CUDA graph;
  12. BenchCircuit proved at 2^REF_K rows, the largest size the JAX
      reference was run at, at the default IPA schedule (four device
      rounds, then native; cold, then warm), with every round native and
      with every round on the card; each proof's sha256 against that
-     run's; the default and the all-device proves profiled;
+     run's; every transform (2^18, 2^19) on the four-step, K1's launches
+     counted from keygen to the last prove and no B7; the default and
+     the all-device proves profiled;
  12b. [bucket] the bucket-run kernel against its plain version and the
      one-step B2 kernel run round by round, at a k=14 advice commit's
      26,624 lanes and a k=REF_K commit's 163,840, both fields; the kernel
@@ -139,9 +158,12 @@ Phases, in this order (any failure exits non-zero):
  13a. [points] B3's offset form at those widths against its plain
      version, device time beside its byte bound;
  13b. [srs] Params.new(use_cache=False) at k=14 and k=REF_K on the card:
-     write() bytes equal to those with the native library's g_lagrange;
-     native g, native group iNTT and the device group iNTT timed apart;
-     one ladder launch a stage and one for the 1/n scale;
+     write() bytes equal to those with the native library's g_lagrange
+     at k=14, and their sha256 equal to the JAX reference's
+     (REF_PARAMS_SHA256) at k=REF_K, where the native group iNTT takes
+     minutes on the host; native g and the device group iNTT timed
+     apart; one
+     ladder launch a stage and one for the 1/n scale;
  13c. [mesh] the multi-device layer (halo2_tpu_torch/parallel/) at
      k = 14: a world of one rank over NCCL in this process (BenchCircuit
      proved cold and warm under ProverMesh against the JAX hash, both
@@ -155,10 +177,12 @@ Phases, in this order (any failure exits non-zero):
      and the bytes it staged through host memory; dev_lookup at k = 14
      in the world of 2 against its JAX hash);
  14. a `kernels` JSON line: launches on the path that runs each kernel
-     (main, ipa or srs), mismatches, each kernel's device time per launch
-     (torch.profiler; from a CUDA graph for B7 and the bucket-run kernel,
-     with the profiler's beside it) against its bound, the wrapper's time
-     per call (CUDA events) and the plain version's;
+     (main, ipa, srs, ref-k for K1, sha256 for K2), mismatches, each
+     kernel's device time per launch (torch.profiler; from a CUDA graph
+     for B7, K1, K2 and the bucket-run kernel, with the profiler's beside
+     some) against its bound, the wrapper's time per call (CUDA events),
+     the plain version's and, for K1, a float32 torch.bmm of the same
+     digit products (library_ms);
 and, last, {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -214,8 +238,19 @@ REF_SHA256 = {
         "445f4716ce0f07bda8da7d50b95dfab50527c1b66bc1e8602fdb2e4a8d9f0629",
 }
 REF_K = 18
+# sha256 of the JAX reference's Params.new(PALLAS, k, use_cache=False)
+# .write() (g, its Lagrange basis from the native group iNTT, w, u;
+# reference_proof_hash.py --circuit params --k k, on a CPU): [srs] holds
+# the card's k = REF_K g_lagrange to it
+REF_PARAMS_SHA256 = {
+    18: "e29113a93c5dbcabc42b58ef2d1f1ba300694cb696ac9e97b6aa5b513971bda7",
+}
 # kernels of the main path (the default IPA schedule at k=14 runs every
-# IPA round natively) and of the lookup path; B4 and the GLV ladder run
+# IPA round natively; its transforms are of 2^14 and 2^15, so B7's) and
+# of the lookup path; K1 runs every transform of n >= 2^16 (the
+# BenchCircuit proves at k = REF_K, [ref-k], the k = 18 dev_lookup and
+# SHA-256 at k = 17), K2 the gate-chunk proves of [sha256];
+# B4 and the GLV ladder run
 # on the device IPA path (phase_ipa), B5 (the device Horner combine), B6,
 # B8 and the one-step B2 on no proving path
 MAIN_PATH_KERNELS = ("fmul", "faddsub", "pmixed_bucket_runs", "padd_masked",
@@ -1154,8 +1189,9 @@ def phase_main_path(results):
         proofs.append(tw.finalize())
         log(f"[main] create_proof {label}: {times[-1]:.3f}s, "
             f"{len(proofs[-1])} bytes, launches {diff_counts(before)}")
-    log(f"[main] NTT calls of the warm prove, (columns, n): count "
-        f"{dict(shapes)}")
+    log(f"[main] transforms of the warm prove, (route, columns, n): "
+        f"count {dict(shapes)}")
+    check_routes("main", shapes)
     log("[main] warm phases " + json.dumps(
         {name: round(s, 4) for name, s in pv.LAST_PHASES}))
     t = time.perf_counter()
@@ -1177,7 +1213,8 @@ def phase_main_path(results):
         f"{launches['pdouble']}")
     log(f"[main] B2 family: bucket-run kernel {launches['pmixed_bucket_runs']}"
         f" launches (one per affine-base commit), one-step B2 "
-        f"{launches['pmixed_masked']}; B7 {launches['ntt']} launches")
+        f"{launches['pmixed_masked']}; B7 {launches['ntt']} launches, K1 "
+        f"{launches['mxu']}")
     if launches["glv_ladder"] or launches["pdouble"]:
         raise AssertionError("the default k=14 schedule folds no IPA round "
                              "on the card, yet a ladder or B5 ran")
@@ -1199,33 +1236,48 @@ def phase_main_path(results):
 
 
 class ntt_shapes:
-    """Within the block, the (columns, n) of every NTT the domain runs,
-    counted (a measurement hook around poly/domain.py's ntt_many)."""
+    """Within the block, the (route, columns, n) of every transform the
+    domain runs, counted: route "mxu" for the four-step (K1), "b7" for
+    B7 (a measurement hook around poly/domain.py's _ntt_dispatch)."""
 
     def __enter__(self):
         from collections import Counter
         from halo2_tpu_torch.poly import domain
         self.shapes = Counter()
-        self.orig = orig = domain.ntt_many
+        self.orig = orig = domain._ntt_dispatch
 
-        def recording(df, x, plan, **kw):
-            self.shapes[tuple(x.shape[:2])] += 1
-            return orig(df, x, plan, **kw)
+        def recording(df, x, plan):
+            route = "mxu" if domain._use_mxu(plan.n, x.device) else "b7"
+            self.shapes[(route,) + tuple(x.shape[:2])] += 1
+            return orig(df, x, plan)
 
-        domain.ntt_many = recording
+        domain._ntt_dispatch = recording
         return self.shapes
 
     def __exit__(self, *exc):
         from halo2_tpu_torch.poly import domain
-        domain.ntt_many = self.orig
+        domain._ntt_dispatch = self.orig
         return False
+
+
+def check_routes(tag, shapes):
+    """Every transform of n >= 2^16 took the four-step and every smaller
+    one B7 (shapes from ntt_shapes); raises otherwise."""
+    from halo2_tpu_torch.poly.domain import MXU_NTT_MIN
+    wrong = {k: c for k, c in shapes.items()
+             if (k[0] == "mxu") != (k[2] >= MXU_NTT_MIN)}
+    if wrong:
+        raise AssertionError(f"[{tag}] transforms on the wrong route: "
+                             f"{wrong}")
 
 
 def _counters() -> tuple:
     from halo2_tpu_torch.ops import field_kernels as fk
+    from halo2_tpu_torch.ops import gate_kernels as gk
+    from halo2_tpu_torch.ops import mxu_field as mxu
     from halo2_tpu_torch.ops import ntt
     from halo2_tpu_torch.ops import point_kernels as pk
-    return fk.LAUNCHES, pk.LAUNCHES, ntt.LAUNCHES
+    return fk.LAUNCHES, pk.LAUNCHES, ntt.LAUNCHES, mxu.LAUNCHES, gk.LAUNCHES
 
 
 def launch_counts() -> dict:
@@ -1349,9 +1401,12 @@ def phase_ipa(results, params, pk_, circuit, out):
     profile_prove("ipa", params, pk_, circuit, out, native_ipa_threshold=0)
 
 
-def phase_reference_k():
+def phase_reference_k(results):
     """BenchCircuit at 2^REF_K rows: keygen and a proof under each IPA
-    schedule, whose bytes must hash to the JAX reference's."""
+    schedule, whose bytes must hash to the JAX reference's. Every
+    transform here is of 2^18 or 2^19, so the four-step's (K1): counts set
+    to 0 just before keygen and read after the proves, K1 launched and
+    B7 not, every transform on its route."""
     import torch
     from halo2_tpu_torch.bench_circuit import (BenchCircuit, regions_for_k,
                                                expected_output, SEED_A,
@@ -1367,6 +1422,7 @@ def phase_reference_k():
     t0 = time.perf_counter()
     params = Params.new(PALLAS, REF_K)
     t1 = time.perf_counter()
+    reset_counts()                        # the ref-k path's count starts
     vk = keygen_vk(params, circuit)
     pk_ = keygen_pk(params, vk, circuit)
     torch.cuda.synchronize()
@@ -1387,9 +1443,11 @@ def phase_reference_k():
         before = launch_counts()
         tw = TranscriptWrite(PALLAS)
         t = time.perf_counter()
-        pv.create_proof(params, pk_, [circuit], [[[out]]],
-                        random.Random(PROOF_SEED), tw, **kw)
+        with ntt_shapes() as shapes:
+            pv.create_proof(params, pk_, [circuit], [[[out]]],
+                            random.Random(PROOF_SEED), tw, **kw)
         torch.cuda.synchronize()
+        check_routes("ref-k", shapes)
         digest = hashlib.sha256(tw.finalize()).hexdigest()
         log(f"[ref-k] create_proof, {label}: "
             f"{time.perf_counter() - t:.3f}s, launches "
@@ -1401,6 +1459,15 @@ def phase_reference_k():
             raise AssertionError(f"k={REF_K} proof hash {digest} != JAX "
                                  f"reference {REF_SHA256['bench', REF_K]}")
         log(f"[ref-k] proof bytes equal the JAX reference's at k={REF_K}")
+    launches = launch_counts()
+    log(f"[ref-k] launches in keygen and the four proves {launches}; the "
+        f"last prove's transforms (route, columns, n): {dict(shapes)}")
+    results["mxu"]["launches"] = launches["mxu"]
+    results["ntt"]["ref_k_launches"] = launches["ntt"]
+    if not launches["mxu"] or launches["ntt"]:
+        raise AssertionError(f"[ref-k] K1 {launches['mxu']} and B7 "
+                             f"{launches['ntt']} launches: every transform "
+                             f"at k={REF_K} is of 2^16 or more")
     for label, kw in schedules[2:]:
         log(f"[ref-k] profiled: {label.split(',')[0]}")
         profile_prove("ref-k", params, pk_, circuit, out, **kw)
@@ -1497,37 +1564,210 @@ def phase_ntt(results):
 
 
 def phase_ntt_main(results, shapes):
-    """B7 timed at every (columns, n) the main path's warm
-    prove transforms (from [main]), forward, on the PALLAS scalar field,
-    against the plain version at that shape."""
+    """The main path's warm prove's transforms (from [main]), forward, on
+    the PALLAS scalar field, each timed on its route at its (columns, n)
+    from a CUDA graph: B7 below 2^16 (and by the profiler), against the
+    plain version; the four-step from 2^16, against B7, with B7 timed
+    beside it."""
     import torch
     from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import mxu_field as mxu
     from halo2_tpu_torch.ops import ntt
     dev = torch.device("cuda")
     df = FQ_DEV
-    r = results["ntt"]
     bad = 0
-    for (m, n), count in sorted(shapes.items()):
+    for (route, m, n), count in sorted(shapes.items()):
         log_n = n.bit_length() - 1
         plan = ntt.make_plan(df, n, pow(df.spec.root_of_unity,
                                         1 << (df.spec.s - log_n),
                                         df.spec.modulus))
         x = rand_field(df, m * n, 40 + log_n, dev).view(m, n, 16)
+        key = f"main_n{log_n}_m{m}"
+        if route == "mxu":
+            r = results["mxu"]
+            bad += int((mxu.ntt_mxu_b(df, x, plan) !=
+                        ntt.ntt_many(df, x, plan)).any(dim=-1).sum())
+            four = graph_ms(lambda: mxu.ntt_mxu_b(df, x, plan), 10)
+            b7 = graph_ms(lambda: ntt.ntt_many(df, x, plan), 10)
+            k1 = graph_ms(mxu_stage_calls(df, m, n, plan)[0], 10) / log_n
+            bd, by = mxu_stage_bound(m, n)
+            log(f"[ntt-main] {count}x four-step (m={m}, n=2^{log_n}): "
+                f"{four:.5f} ms a transform from a CUDA graph, B7 "
+                f"{b7:.5f} ms; K1 {k1:.5f} ms a launch (stage bound "
+                f"{bd:.5f} ms by {by})")
+            r.update({f"four_step_ms_{key}": four, f"b7_ms_{key}": b7,
+                      f"ms_{key}": k1, f"bound_ms_{key}": bd})
+            continue
+        r = results["ntt"]
         bad += int((ntt.ntt_many(df, x, plan) !=
                     ntt.ntt_many_plain(df, x, plan)).any(dim=-1).sum())
         t = ntt_times(df, x, plan)
         bd, by = ntt_bound(m, n, log_n)
-        log(f"[ntt-main] {count}x (m={m}, n=2^{log_n}): "
+        log(f"[ntt-main] {count}x B7 (m={m}, n=2^{log_n}): "
             f"{t['graph_ms']:.5f} ms from a CUDA graph, "
             f"{t['profiler_ms']:.5f} ms by the profiler (bound {bd:.5f} ms "
             f"by {by})")
-        key = f"main_n{log_n}_m{m}"
         r.update({f"{k}_{key}": v for k, v in t.items()})
         r[f"bound_ms_{key}"] = bd
-    r["mismatches"] += bad
+    results["ntt"]["mismatches"] += bad
     if bad:
-        raise AssertionError(f"NTT kernel mismatches at the main path's "
-                             f"shapes: {bad}")
+        raise AssertionError(f"NTT mismatches at the main path's shapes: "
+                             f"{bad}")
+
+
+def mxu_stage_bound(m, n):
+    """One K1 stage of a four-step transform of m columns of n: every
+    element read and written once, 96 multiply-adds of reduction a
+    butterfly (the tensor-core digit products not counted)."""
+    from halo2_tpu_torch.ops.mxu_field import REDC_MULADDS
+    return bound_ms(2 * m * n * 64, m * (n // 2) * REDC_MULADDS)
+
+
+def mxu_stage_calls(df, m, n, plan, plain=False):
+    """The K1 stages of a four-step transform of m columns of n alone, on
+    scratch buffers of the axis NTTs' shapes ([R, m C] and [C, m R]), in
+    place: (a function running all log2 n stages, the list of (groups,
+    lanes) of each stage, a function running each stage's digit product
+    alone as a float32 torch.bmm of [groups, lanes, 32] @ [groups, 32,
+    63])."""
+    import torch
+    from halo2_tpu_torch.ops import mxu_field as mxu
+    p4 = mxu._mxu4_plan(df, plan)
+    t = p4.on("cuda")
+    R, C = p4.R, p4.C
+    axes = [(rand_field(df, R * m * C, 71, "cuda").view(R, m * C, 16),
+             t["col_tw"]),
+            (rand_field(df, C * m * R, 72, "cuda").view(C, m * R, 16),
+             t["row_tw"])]
+    stages, mats = [], []
+    for buf, tws in axes:
+        N, L = buf.shape[0], buf.shape[1]
+        # every stage's digit operands fill one buffer: (N/2) L lanes
+        a8 = torch.rand((N // 2) * L * 32, device="cuda")
+        p8 = torch.empty((N // 2) * L * 63, device="cuda")
+        for s, tw in enumerate(tws, start=1):
+            half = 1 << (s - 1)
+            lanes = (N >> s) * L
+            stages.append((buf, tw, half, lanes, L))
+            mats.append((a8.view(half, lanes, 32),
+                         torch.rand(half, 32, 63, device="cuda"),
+                         p8.view(half, lanes, 63)))
+
+    def run():
+        for buf, tw, half, lanes, L in stages:
+            mxu._launch(df, buf, buf, tw, half, lanes, L, 2 * half * L, L,
+                        half * L, True)
+
+    def bmm():
+        for a, w, out in mats:
+            torch.bmm(a, w, out=out)
+    return run, [(st[2], st[3]) for st in stages], bmm
+
+
+def phase_mxu(results):
+    """[mxu] K1 (csrc/mxu_kernels.cu) against its plain version, bit for
+    bit: products by 5 constants (p - 1, p - 2, 0, 1 and 2^254 - 1, whose
+    8-bit digits are 0xFF but the top one) at 1, 15, 16, 17 and 2^12
+    lanes a group, both fields; the four-step (ops/mxu_field.py::
+    ntt_mxu_b) against B7 at n = 2^16, 2^17 and 2^20 with 1 and 4
+    columns, forward and inverse, both fields, and against the plain
+    four-step at 2^10 and 2^16. Times on the PALLAS scalar field, from
+    CUDA graphs: K1 a launch (its stages alone) beside one stage's bound,
+    the four-step a transform beside B7's, and the stages' digit products
+    alone as float32 torch.bmm with TF32 off (the yardstick)."""
+    import torch
+    from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
+    from halo2_tpu_torch.ops import mxu_field as mxu
+    from halo2_tpu_torch.ops import ntt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    r = results["mxu"]
+    mism, err = 0, 0
+    for df in (FP_DEV, FQ_DEV):
+        p = df.spec.modulus
+        edge = [p - 1, p - 2, 0, 1, (1 << 254) - 1]
+        consts = torch.from_numpy(ints_to_digits(
+            [v * (1 << 256) % p for v in edge[:4]] + [edge[4]])).to(dev)
+        for lanes in (1, 15, 16, 17, 1 << 12):
+            x = rand_field(df, 5 * lanes, lanes, dev).view(5, lanes, 16)
+            x[:, :1] = consts[4]                  # 0xFF bytes
+            got = mxu.mul_const_grouped(df, x, consts)
+            want = mxu.mul_const_grouped_plain(df, x, consts)
+            bad = int((got != want).any(dim=-1).sum())
+            mism += bad
+            err = max(err, max_abs(got, want))
+            if bad:
+                log(f"[mxu] K1 field {df.field_id}, {lanes} lanes a group: "
+                    f"{bad} mismatches")
+        for log_n in (10, 16, 17, 20):
+            n = 1 << log_n
+            omega = pow(df.spec.root_of_unity, 1 << (df.spec.s - log_n), p)
+            for w in (omega, pow(omega, p - 2, p)):
+                plan = ntt.make_plan(df, n, w)
+                for m in (1, 4):
+                    x = rand_field(df, m * n, log_n + m, dev).view(m, n, 16)
+                    before = mxu.LAUNCHES["mxu"]
+                    got = mxu.ntt_mxu_b(df, x, plan)
+                    if mxu.LAUNCHES["mxu"] - before != log_n:
+                        raise AssertionError(
+                            f"[mxu] {mxu.LAUNCHES['mxu'] - before} K1 "
+                            f"launches for a transform of 2^{log_n}")
+                    wants = [ntt.ntt_many(df, x, plan)] if log_n > 10 else []
+                    if log_n <= 16 and m == 1:
+                        wants.append(mxu.ntt_mxu_b_plain(df, x, plan))
+                    for want in wants:
+                        bad = int((got != want).any(dim=-1).sum())
+                        mism += bad
+                        err = max(err, max_abs(got, want))
+                        if bad:
+                            log(f"[mxu] four-step n=2^{log_n} m={m} field "
+                                f"{df.field_id}: {bad} mismatches")
+                    del got, wants, x
+    r.update(mismatches=mism, max_abs_err=err)
+    log(f"[mxu] K1 and the four-step: mismatches {mism}, max abs error "
+        f"{err} (K1 at 1, 15, 16, 17 and 4,096 lanes a group; four-step "
+        f"against B7 at 2^16, 2^17, 2^20 and against the plain four-step "
+        f"at 2^10 and 2^16)")
+    if mism:
+        raise AssertionError(f"[mxu] K1 mismatches: {mism}")
+    df = FQ_DEV
+    p = df.spec.modulus
+    for log_n in (16, 17, 20):
+        n = 1 << log_n
+        plan = ntt.make_plan(df, n, pow(df.spec.root_of_unity,
+                                        1 << (df.spec.s - log_n), p))
+        for m in (1, 4):
+            x = rand_field(df, m * n, 90 + log_n, dev).view(m, n, 16)
+            four = graph_ms(lambda: mxu.ntt_mxu_b(df, x, plan), 10)
+            b7 = graph_ms(lambda: ntt.ntt_many(df, x, plan), 10)
+            run, shape, bmm = mxu_stage_calls(df, m, n, plan)
+            k1 = graph_ms(run, 10) / log_n
+            lib = graph_ms(bmm, 10) / log_n
+            bd, by = mxu_stage_bound(m, n)
+            key = f"n{log_n}_m{m}"
+            r.update({f"ms_{key}": k1, f"four_step_ms_{key}": four,
+                      f"b7_ms_{key}": b7, f"bound_ms_{key}": bd,
+                      f"library_ms_{key}": lib})
+            log(f"[mxu] n=2^{log_n} m={m}: four-step {four:.5f} ms a "
+                f"transform ({log_n} K1 launches, one B1, the gathers and "
+                f"transposes), B7 {b7:.5f} ms; K1 {k1:.5f} ms a launch "
+                f"(stage bound {bd:.5f} ms by {by}, "
+                f"{100 * bd / k1:.0f}%); float32 bmm of a stage's digit "
+                f"products {lib:.5f} ms")
+            if (log_n, m) == (16, 1):
+                xs = x.clone()
+                t = time.perf_counter()
+                mxu.ntt_mxu_b_plain(df, xs, plan)
+                torch.cuda.synchronize()
+                pms = (time.perf_counter() - t) * 1e3 / log_n
+                r.update(ms=k1, call_ms=timed(
+                    lambda: mxu.ntt_mxu_b(df, x, plan), 10) / log_n,
+                    plain_ms=pms, bound_ms=bd, bound_by=by,
+                    library_ms=lib, shape=[1, n, 16],
+                    stage_groups_lanes=shape)
+                log(f"[mxu] n=2^16 m=1: the plain four-step {pms:.3f} ms a "
+                    f"stage")
+            del x
 
 
 def phase_layout(results):
@@ -1865,11 +2105,12 @@ def phase_srs(results, ks=(K, REF_K)):
     """[srs] Params.new(PALLAS, k, use_cache=False) on the card at k=14 and
     k=REF_K, counts set to 0 just before each and read just after: g from
     the native library, g_lagrange by the device group iNTT (the scalar
-    ladder, one launch a stage and one for the 1/n scale). Its write()
-    bytes must equal those of the same Params with g_lagrange from the
-    native library's group iNTT (the route before, the oracle here); the
-    native library's g, its group iNTT and the device group iNTT timed
-    apart."""
+    ladder, one launch a stage and one for the 1/n scale). At k=14 its
+    write() bytes must equal those of the same Params with g_lagrange
+    from the native library's group iNTT (the route before, the oracle
+    here), timed; at k=REF_K, where that iNTT takes minutes on the host,
+    their sha256 must equal the JAX reference's (REF_PARAMS_SHA256). The
+    native library's g and the device group iNTT timed apart."""
     import copy
     import torch
     from halo2_tpu_torch.curves import native
@@ -1893,10 +2134,12 @@ def phase_srs(results, ks=(K, REF_K)):
         omega = pow(fs.root_of_unity, 1 << (fs.s - k), fs.modulus)
         omega_inv = pow(omega, fs.modulus - 2, fs.modulus)
         minv = pow(n, fs.modulus - 2, fs.modulus)
-        t = time.perf_counter()
-        native_gl = native.native_group_ntt(PALLAS, params.g, omega_inv,
-                                            minv)
-        t_native = time.perf_counter() - t
+        native_gl, t_native = None, None
+        if k not in REF_PARAMS_SHA256:
+            t = time.perf_counter()
+            native_gl = native.native_group_ntt(PALLAS, params.g, omega_inv,
+                                                minv)
+            t_native = time.perf_counter() - t
         t = time.perf_counter()
         native.native_srs_g(PALLAS, "Halo2-Parameters", n)
         t_g = time.perf_counter() - t
@@ -1926,21 +2169,27 @@ def phase_srs(results, ks=(K, REF_K)):
         t_dev = time.perf_counter() - t
         kern_dev = device_ms(transform, 1, "scalar_mul_ladder_kernel",
                              per_call=True) / 1e3
-        oracle = copy.copy(params)
-        oracle.g_lagrange = native_gl
-        same = oracle.write() == params.write()
+        if native_gl is None:
+            got = hashlib.sha256(params.write()).hexdigest()
+            same = got == REF_PARAMS_SHA256[k]
+            oracle = f"the JAX reference's sha256 {REF_PARAMS_SHA256[k]}"
+        else:
+            oracle = copy.copy(params)
+            oracle.g_lagrange = native_gl
+            same = oracle.write() == params.write()
+            oracle = "the native g_lagrange's"
         log(f"[srs] k={k}: Params.new(use_cache=False) {total:.3f}s; "
             f"launches {launches}")
+        native_s = ("not run" if t_native is None else f"{t_native:.3f}s")
         log(f"[srs] k={k}: native_srs_g {t_g:.3f}s, native_group_ntt "
-            f"{t_native:.3f}s, device group iNTT and 1/n scale "
+            f"{native_s}, device group iNTT and 1/n scale "
             f"{t_dev:.3f}s ({launches['scalar_mul_ladder']} ladder "
             f"launches, {kern_dev:.4f}s of ladder device time by the "
             f"profiler); the plan's tables {t_plan:.3f}s, g's upload "
-            f"{t_proj:.3f}s; write() bytes equal the native g_lagrange's: "
-            f"{same}")
+            f"{t_proj:.3f}s; write() bytes equal {oracle}: {same}")
         if not same:
             raise AssertionError(f"k={k}: the device g_lagrange differs from "
-                                 f"the native library's")
+                                 f"{oracle}")
         if launches["scalar_mul_ladder"] != k + 1:
             raise AssertionError(f"k={k}: {launches['scalar_mul_ladder']} "
                                  f"ladder launches, want {k + 1}")
@@ -2327,13 +2576,17 @@ class path_calls:
     the shared ones): the first and last `slice_lanes` lanes of B1, the
     add/subtract, B3 (its offset form by whole rows), B4 and both ladders,
     the first and last window rows of the bucket-run kernel, the first and
-    last columns of B7. Without it (the default) every call is recorded
-    whole."""
+    last columns of B7 and of the four-step (K1), K2's first and last
+    rows (its plain tape reads those rows of each column by index; the
+    columns themselves are kept, not copied). Without it (the default)
+    every call is recorded whole. `kernels` limits the recording to
+    those kernels' sites."""
 
-    def __init__(self, slice_lanes=None):
+    def __init__(self, slice_lanes=None, kernels=None):
         self.calls = {}
         self.slice = slice_lanes
         self.sliced = 0
+        self.kernels = kernels            # record only these (None: all)
 
     @staticmethod
     def _sites():
@@ -2343,8 +2596,11 @@ class path_calls:
         from halo2_tpu_torch.ops import msm_pippenger as mp
         from halo2_tpu_torch.ops import ntt
         from halo2_tpu_torch.parallel import mesh
+        from halo2_tpu_torch.plonk import prover
         from halo2_tpu_torch.poly import domain
         return (("field", fk, "_launch"), ("ntt", domain, "ntt_many"),
+                ("mxu", domain, "ntt_mxu_b"),
+                ("gate_chunk", prover, "run_chunk"),
                 ("ntt", ntt, "ntt_many"), ("ntt", mesh, "ntt_many"),
                 ("scalar_mul_ladder", ntt, "scalar_mul_ladder_flat"),
                 ("scalar_mul_ladder", curves_device,
@@ -2362,6 +2618,8 @@ class path_calls:
     def __enter__(self):
         self.saved = []
         for kernel, module, attr in self._sites():
+            if self.kernels is not None and kernel not in self.kernels:
+                continue
             orig = getattr(module, attr)
             self.saved.append((module, attr, orig))
             setattr(module, attr, self._recording(kernel, orig))
@@ -2410,7 +2668,17 @@ class path_calls:
                      y_.reshape(-1, fk.NLIMBS)[sel % yp], *extra),
                     out.reshape(-1, fk.NLIMBS)[sel])
         a = dict(a)
-        if kernel == "ntt":
+        if kernel == "gate_chunk":
+            # rows: the plain tape reads each query's rows by index
+            sel = self._ends(a["n"])
+            if sel is None:
+                return a, out
+            sel = sel.to(out.device)
+            a["rows"] = sel
+            if a["h_prev"] is not None:
+                a["h_prev"] = a["h_prev"].index_select(0, sel)
+            return a, out.index_select(0, sel)
+        if kernel in ("ntt", "mxu"):
             m = a["x"].shape[0]
             if m <= 2:
                 return a, out
@@ -2470,6 +2738,8 @@ class path_calls:
                     getattr(v, "n", None))
 
         def clone(v, memo):
+            if isinstance(v, list):       # K2's columns: kept, not copied
+                return v
             if isinstance(v, torch.Tensor):
                 if id(v) not in memo:     # an operand given twice, once
                     memo[id(v)] = v.clone()
@@ -2479,16 +2749,25 @@ class path_calls:
             return v
 
         def recording(*args, **kw):
-            out = orig(*args, **kw)
             key = (kernel, tuple(map(sig, args)),
                    tuple((k, sig(v)) for k, v in sorted(kw.items())
                          if k != "shift"))
+            if kernel == "gate_chunk":
+                # K2 updates h_prev in place: its value before the launch;
+                # the columns are the prove's own and stay as they are
+                bound = params.bind(*args, **kw)
+                key += (id(bound.arguments["tape"]),)
+                h = bound.arguments["h_prev"]
+                before = None if h is None else h.clone()
+            out = orig(*args, **kw)
             if key not in self.calls:
                 if kernel == "field":
                     a, got = self._sliced(kernel, args, out)
                     k = {}
                 else:
                     bound = params.bind(*args, **kw)
+                    if kernel == "gate_chunk":
+                        bound.arguments["h_prev"] = before
                     k, got = self._sliced(kernel, bound.arguments, out)
                     a = ()
                 self.sliced += got is not out
@@ -2509,6 +2788,8 @@ class path_calls:
         import inspect
         import torch
         from halo2_tpu_torch.ops import field_kernels as fk
+        from halo2_tpu_torch.ops import gate_kernels as gk
+        from halo2_tpu_torch.ops import mxu_field as mxu
         from halo2_tpu_torch.ops import ntt
         from halo2_tpu_torch.ops import point_kernels as pk
 
@@ -2518,6 +2799,8 @@ class path_calls:
             return (fk.fsub_plain if extra[0] else fk.fadd_plain)(df, a, b)
 
         plain = {"field": field_plain, "ntt": ntt.ntt_many_plain,
+                 "mxu": mxu.ntt_mxu_b_plain,
+                 "gate_chunk": gk.run_chunk_plain,
                  "pmixed_bucket_runs": pk.pmixed_bucket_runs_plain,
                  "padd_masked": pk.padd_masked_plain,
                  "padd": pk.padd_plain, "glv_ladder": pk.glv_ladder_plain}
@@ -3134,17 +3417,24 @@ def phase_sha256(results):
     if proofs[0] != proofs[1]:
         raise AssertionError("[sha256] cold and warm proofs differ")
     launches = launch_counts()
-    path = MAIN_PATH_KERNELS + ("padd", "glv_ladder", "scalar_mul_ladder")
-    for name in path:
+    # k = 17: every transform is of 2^17 or 2^20, so K1's and no B7's
+    path = tuple(k for k in MAIN_PATH_KERNELS if k != "ntt") + (
+        "mxu", "padd", "glv_ladder", "scalar_mul_ladder")
+    for name in path + ("ntt",):
         results[name]["sha256_launches"] = launches[name]
     log(f"[sha256] launches in Params.new, the keygens, the two proves and "
         f"the verifiers {launches}")
     idle = [k for k in path if launches[k] == 0]
+    if launches["ntt"]:
+        raise AssertionError(f"[sha256] {launches['ntt']} B7 launches: "
+                             f"every transform at k = 17 is of 2^16 or more")
     if idle:
         raise AssertionError(f"kernels of the SHA-256 path not launched: "
                              f"{idle}")
     shapes.check("sha256", results)
     del shapes
+    phase_gate_chunks(results, params, pk_, circuit, digest,
+                      dict(pv.LAST_PHASES)["h terms build"], h_build)
     profile_call("sha256", lambda: pv.create_proof(
         params, pk_, [circuit], [[]], random.Random(PROOF_SEED),
         TranscriptWrite(PALLAS)))
@@ -3152,6 +3442,100 @@ def phase_sha256(results):
         raise AssertionError(f"[sha256] proof hash {digest} != JAX reference "
                              f"{REF_SHA256['sha256', sc.K_TABLE16]}")
     log("[sha256] proof bytes equal the JAX reference's")
+
+
+def phase_gate_chunks(results, params, pk_, circuit, digest, eager_s,
+                      eager_launches):
+    """[sha256] the gate-chunk branch on the bench circuit (k = 17): for
+    the whole gate set as one chunk and for chunks of 400 nodes, a first
+    prove with K2's calls recorded (path_calls, rows sliced) and a warm
+    prove timed, each byte-equal to the eager one (`digest`); `h terms
+    build`'s time and launches beside the eager fold's. Counts set to 0
+    just before the proves and read just after. Then K2 alone on the
+    whole gate set at the extended domain's rows, from a CUDA graph,
+    beside its bound and the plain tape's time on 2^16 of the rows."""
+    import torch
+    from halo2_tpu_torch.bench_circuit import PROOF_SEED
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.ops import gate_kernels as gk
+    from halo2_tpu_torch.plonk import prover as pv
+    from halo2_tpu_torch.transcript import TranscriptWrite
+    cs = pk_.vk.cs
+    whole = sum(pv._expr_nodes(e) for g in cs.gates for e in g.polys)
+    r = results["gate_chunk"]
+    log(f"[sha256] eager h terms build {eager_s:.4f}s, launches "
+        f"{eager_launches}")
+    r["eager_h_build_s"] = eager_s
+    reset_counts()                        # the gate-chunk path's count
+    calls = path_calls(slice_lanes=1024, kernels=("gate_chunk",))
+    for nodes in (whole, 400):
+        for label in ("first", "warm"):
+            tw = TranscriptWrite(PALLAS)
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (calls if label == "first" else contextlib.nullcontext()), \
+                    phase_launches() as per_phase:
+                pv.create_proof(params, pk_, [circuit], [[]],
+                                random.Random(PROOF_SEED), tw,
+                                h_chunk_nodes=nodes)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = hashlib.sha256(tw.finalize()).hexdigest()
+            if got != digest:
+                raise AssertionError(f"[sha256] the proof with h_chunk_nodes="
+                                     f"{nodes} hashes to {got}, not {digest}")
+        h = dict(pv.LAST_PHASES)["h terms build"]
+        hl = next(c for name, c, _ in per_phase if name == "h terms build")
+        tapes = pk_._h_gate_tapes[nodes]
+        log(f"[sha256] h_chunk_nodes={nodes}: {len(tapes)} chunks, at most "
+            f"{max(t.n_slots for t in tapes)} slots; warm prove {wall:.3f}s "
+            f"(byte-equal); h terms build {h:.4f}s (eager {eager_s:.4f}s), "
+            f"launches {hl} (eager {eager_launches})")
+        r[f"chunked_h_build_s_{nodes}"] = h
+        r[f"chunked_h_build_launches_{nodes}"] = hl
+        r[f"chunked_warm_prove_s_{nodes}"] = wall
+    launches = launch_counts()
+    r["launches"] = launches["gate_chunk"]
+    log(f"[sha256] launches in the four gate-chunk proves {launches}")
+    if launches["gate_chunk"] != 2 * (1 + len(pk_._h_gate_tapes[400])):
+        raise AssertionError(f"[sha256] {launches['gate_chunk']} K2 launches"
+                             f" in the gate-chunk proves")
+    calls.check("sha256_chunks", results)
+    del calls
+    # K2 alone: the whole gate set on random columns of the path's shape
+    n = pk_.vk.domain.extended_n
+    df = params.scalar_df
+    tape = pk_._h_gate_tapes[whole][0]
+    dev = torch.device("cuda")
+    cols = [[rand_field(df, n, 200 + 10 * kind + i, dev) for i in range(c)]
+            for kind, c in enumerate((cs.num_advice_columns,
+                                      cs.num_fixed_columns,
+                                      cs.num_instance_columns))]
+    y_m = df.scalar(0x1234567, dev)
+    fn = lambda: gk.run_chunk(df, tape, None, *cols, 8, y_m, y_m, n)
+    ms = graph_ms(fn, 5)
+    call = timed(fn, 5)
+    rows = torch.arange(1 << 16, device=dev)
+    t = time.perf_counter()
+    gk.run_chunk_plain(df, tape, None, *cols, 8, y_m, y_m, n, rows=rows)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t) * 1e3
+    queried = {x for op, _, x, _ in tape.code if op == gk.OP_QUERY}
+    bd, by = bound_ms((len(queried) + 1) * n * 64,
+                      tape.muls() * n * MONT_MULADDS)
+    r.update(ms=ms, call_ms=call, plain_ms=pms, plain_rows=1 << 16,
+             bound_ms=bd, bound_by=by, shape=[n, 16],
+             instructions=len(tape.code), slots=tape.n_slots,
+             columns_queried=len(queried), products_a_row=tape.muls())
+    r["mismatches"] = r.get("sha256_chunks_mismatches", 0)
+    r["max_abs_err"] = r.get("sha256_chunks_max_abs_err", 0)
+    log(f"[sha256] K2, the whole gate set ({len(tape.code)} instructions, "
+        f"{tape.n_slots} slots, {len(queried)} columns queried, "
+        f"{tape.muls()} products a row) at {n} rows: {ms:.4f} ms from a "
+        f"CUDA graph, {call:.4f} ms a wrapper call (bound {bd:.4f} ms by "
+        f"{by}, {100 * bd / ms:.0f}%); the plain tape on 2^16 rows "
+        f"{pms:.1f} ms")
 
 
 # [mesh]: the spawned worlds share the one card over gloo; each rank
@@ -3313,24 +3697,10 @@ def run_phase(phase, *args):
     return ret
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("PyTorch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
-        return 2
-    try:
-        import halo2_tpu_torch  # noqa: F401
-    except ImportError:
-        print("halo2_tpu_torch not found: run from the repository root",
-              file=sys.stderr)
-        return 2
-    global HBM_BYTES_PER_S, MULADD_PER_S, MONT_MULADDS, bound_ms
-    from halo2_tpu_torch.parallel.profiling import (
-        HBM_BYTES_PER_S, MULADD_PER_S, MONT_MULADDS, bound_ms)
+def kernel_records() -> tuple:
+    """(results, paths): each kernel's record (route, source, the TPU
+    kernel it replaces; the phases add its numbers) and the path whose
+    launches its `launches` counts."""
     src = "halo2_tpu_torch/csrc/"
     results = {
         "fmul": {"route": "cuda", "source": src + "field_kernels.cu",
@@ -3369,18 +3739,50 @@ def main() -> int:
         "fmul_limbs_first": {"route": "cuda",
                              "source": src + "field_kernels.cu",
                              "replaces": "scripts/bench_fmul3d.py:29"},
+        "mxu": {"route": "cuda", "source": src + "mxu_kernels.cu",
+                "replaces": "halo2_tpu/ops/mxu_field.py:98 (mul_const_"
+                            "grouped, an XLA dot_general on the MXU, and "
+                            "the butterfly around it, :175-194; no Pallas "
+                            "kernel)"},
+        "gate_chunk": {"route": "cuda", "source": src + "gate_kernels.cu",
+                       "replaces": "halo2_tpu/plonk/prover.py:220-255 (a "
+                                   "jitted gate chunk; no Pallas kernel)"},
     }
     paths = {name: "main" for name in MAIN_PATH_KERNELS}
     paths.update(padd="ipa", glv_ladder="ipa", scalar_mul_ladder="srs",
+                 mxu="ref-k", gate_chunk="sha256",
                  pdouble=None,
                  pdouble_masked=None, fmul_limbs_first=None,
                  pmixed_masked=None)
+    return results, paths
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
+        return 2
+    try:
+        import halo2_tpu_torch  # noqa: F401
+    except ImportError:
+        print("halo2_tpu_torch not found: run from the repository root",
+              file=sys.stderr)
+        return 2
+    global HBM_BYTES_PER_S, MULADD_PER_S, MONT_MULADDS, bound_ms
+    from halo2_tpu_torch.parallel.profiling import (
+        HBM_BYTES_PER_S, MULADD_PER_S, MONT_MULADDS, bound_ms)
+    results, paths = kernel_records()
     t_all = time.perf_counter()
     phase_card()
     run_phase(phase_build)
     run_phase(phase_peak)
     run_phase(phase_field, results)
     run_phase(phase_ntt, results)
+    run_phase(phase_mxu, results)
     run_phase(phase_layout, results)
     *state, shapes = run_phase(phase_main_path, results)
     run_phase(phase_ntt_main, results, shapes)
@@ -3397,7 +3799,7 @@ def main() -> int:
     run_phase(phase_mock, results)
     run_phase(phase_gadgets, results, state)
     run_phase(phase_sha256, results)
-    params_ref_k = run_phase(phase_reference_k)
+    params_ref_k = run_phase(phase_reference_k, results)
     run_phase(phase_bucket, results, state[0], params_ref_k)
     widths = run_phase(phase_lookup, results, state[0], params_ref_k)
     del params_ref_k
@@ -3411,13 +3813,16 @@ def main() -> int:
                 "mismatches": r["mismatches"], "ms": r["ms"],
                 "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None,
+                "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms"),
                 "shape": r["shape"],
                 **{k: v for k, v in r.items() if k.startswith(
                     ("ms_", "bound_ms_", "call_ms_", "b1_ms_", "lookup_",
                      "graph_ms", "profiler_ms", "srs_", "verify_", "v1_",
                      "mock_", "gadgets_", "sha256_", "mesh_",
-                     "launches_offset_", "forms", "form_", "horner_"))}}
+                     "launches_offset_", "forms", "form_", "horner_",
+                     "four_step_", "b7_ms_", "library_ms_", "eager_",
+                     "chunked_", "stage_", "plain_rows"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

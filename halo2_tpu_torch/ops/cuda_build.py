@@ -30,6 +30,8 @@ SOURCES = {
     "point_kernels": "point_kernels.cu",
     "ntt_kernels": "ntt_kernels.cu",
     "peak_kernels": "peak_kernels.cu",
+    "mxu_kernels": "mxu_kernels.cu",
+    "gate_kernels": "gate_kernels.cu",
 }
 _HEADERS = ("field.cuh",)
 
@@ -59,6 +61,14 @@ _ARGTYPES = {
         "h2t_pdouble_form": [_I, _I, _P, _P, _P, _LL, _P],
         "h2t_glv_ladder": [_I, _P, _P, _P, _P, _U32P, _U32P, _I, _LL, _P],
         "h2t_scalar_mul_ladder": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _P],
+    },
+    "mxu_kernels": {
+        "h2t_mxu_const_mul": [_I, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
+                              _I, _P],
+    },
+    "gate_kernels": {
+        "h2t_gate_chunk": [_I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I,
+                           _P, _LL, _LL, _P],
     },
     "peak_kernels": {
         "h2t_peak": [_I, _P, _I, ctypes.c_uint, ctypes.c_uint, _I, _I, _P],

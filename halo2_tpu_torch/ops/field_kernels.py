@@ -107,8 +107,16 @@ def fmul_plain(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reference's word-by-word CIOS result."""
     a64, b64 = torch.broadcast_tensors(a.to(torch.float64),
                                        b.to(torch.float64))
-    p, p_f, npr_f, sel, sel_lo = _consts(df, a.device)
+    sel = _consts(df, a.device)[3]
     t = torch.nn.functional.pad(_cols(a64, b64, sel), (0, 2))   # 33 cols
+    return redc_cols_plain(df, t)
+
+
+def redc_cols_plain(df, t: torch.Tensor) -> torch.Tensor:
+    """The Montgomery reduction of fmul_plain: T given as 33 int64
+    columns of weight 2^16 (any non-negative sizes below 2^40, T < p^2)
+    -> T R^-1 mod p, fully reduced, as int32 digits."""
+    p, p_f, npr_f, sel, sel_lo = _consts(df, t.device)
     t_lo, _ = _norm(t[..., :NLIMBS + 1])                        # T mod R
     m, _ = _norm(_with_top(_cols(t_lo.to(torch.float64), npr_f, sel_lo)))
     mp = torch.nn.functional.pad(

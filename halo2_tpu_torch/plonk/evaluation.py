@@ -163,3 +163,93 @@ def coset_points(domain: EvaluationDomain) -> torch.Tensor:
     from ..poly.utils import powers
     return powers(domain.df, domain.extended_omega, domain.extended_n,
                   domain.device, start=domain.g_coset)
+
+
+# ---------------------------------------------------------------------------
+# gate-chunk tapes (kernel K2, ops/gate_kernels.py)
+# ---------------------------------------------------------------------------
+
+def compile_chunk(chunk) -> "GateTape":
+    """A chunk of gate polynomials as a tape for kernel K2: the
+    instructions that evaluate each polynomial and fold it into the
+    chunk's accumulator (acc = acc * y + t, in the chunk's order), one
+    instruction per distinct node. The chunk is hash-consed with
+    expression_share_counts as the reference's jitted chunk is
+    (halo2_tpu/plonk/prover.py:226-233), in the evaluation order of
+    evaluate_expression. Slots are given by liveness over the emitted
+    instructions: a value holds its slot from the instruction that makes
+    it to the last instruction that reads it (a shared node's first
+    reader may come after its last: a parent reads its first operand
+    only once its second is made), and the slot is then free for the
+    next value."""
+    from ..ops.gate_kernels import (GateTape, OP_QUERY, OP_CONST, OP_NEG,
+                                    OP_ADD, OP_MUL, OP_SCALE, OP_FOLD,
+                                    KIND_ADVICE, KIND_FIXED, KIND_INSTANCE)
+    from .circuit import (Constant, SelectorExpr, FixedQuery, AdviceQuery,
+                          InstanceQuery, Negated, Sum, Product, Scaled)
+    kinds = {AdviceQuery: KIND_ADVICE, FixedQuery: KIND_FIXED,
+             InstanceQuery: KIND_INSTANCE}
+    shared = expression_share_counts(chunk)
+    made: dict = {}               # shared node -> its value
+    consts: dict = {}             # constant -> index in the constant table
+    code: list = []               # (op, value made or None, x, y, reads)
+
+    def const_index(v: int) -> int:
+        return consts.setdefault(v, len(consts))
+
+    def go(e) -> int:
+        """The value (the index of the instruction that makes it) of e."""
+        v = made.get(e)
+        if v is not None:
+            return v
+        if isinstance(e, Constant):
+            ins = (OP_CONST, const_index(e.value), 0, ())
+        elif isinstance(e, (FixedQuery, AdviceQuery, InstanceQuery)):
+            ins = (OP_QUERY, (kinds[type(e)] << 16) | e.column_index,
+                   e.rotation.value, ())
+        elif isinstance(e, Negated):
+            a = go(e.expr)
+            ins = (OP_NEG, a, 0, (a,))
+        elif isinstance(e, Scaled):
+            a = go(e.expr)
+            ins = (OP_SCALE, a, const_index(e.scalar), (a,))
+        elif isinstance(e, (Sum, Product)):
+            a, b = go(e.a), go(e.b)
+            ins = (OP_ADD if isinstance(e, Sum) else OP_MUL, a, b, (a, b))
+        elif isinstance(e, SelectorExpr):
+            raise RuntimeError(
+                "virtual selectors are removed during optimization")
+        else:
+            raise TypeError(f"unknown expression node {type(e)}")
+        code.append(ins)
+        v = len(code) - 1
+        if e in shared:
+            made[e] = v
+        return v
+
+    for i, e in enumerate(chunk):
+        v = go(e)
+        code.append((OP_FOLD, v, int(i == 0), (v,)))
+    last = {}
+    for i, (*_, reads) in enumerate(code):
+        for v in reads:
+            last[v] = i
+    slot, free, out, n_slots = {}, [], [], 0
+    for i, (op, x, y, reads) in enumerate(code):
+        for v in set(reads):      # read before the result is written
+            if last[v] == i:
+                free.append(slot[v])
+        sx = slot[x] if op in (OP_NEG, OP_SCALE, OP_ADD, OP_MUL,
+                               OP_FOLD) else x
+        sy = slot[y] if op in (OP_ADD, OP_MUL) else y
+        dst = 0
+        if op != OP_FOLD:
+            if free:
+                free.sort()
+                dst = free.pop(0)
+            else:
+                dst, n_slots = n_slots, n_slots + 1
+            slot[i] = dst
+        out.append((op, dst, sx, sy))
+    return GateTape(code=out, consts=list(consts), n_slots=n_slots,
+                    n_polys=len(chunk))

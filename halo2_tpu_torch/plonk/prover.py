@@ -1,9 +1,9 @@
 """The PLONK prover: the Fiat-Shamir proof construction.
 
 Port of halo2_tpu/plonk/prover.py (halo2_proofs/src/plonk/prover.rs:
-35-725) without the jitted gate chunks. The phase order
--- and therefore the proof byte layout and the order of every draw from
-the caller's `rng` -- is the reference's exactly:
+35-725); its jitted gate chunks are kernel K2 (`h_chunk_nodes`). The
+phase order -- and therefore the proof byte layout and the order of
+every draw from the caller's `rng` -- is the reference's exactly:
   vk.hash_into -> instance commitments -> witness synthesis -> advice
   commitments -> theta -> lookup permuted commitments -> beta, gamma ->
   permutation z commitments -> lookup product commitments -> vanishing
@@ -32,6 +32,7 @@ import time
 import torch
 
 from ..ops.field_kernels import fadd, fmul
+from ..ops.gate_kernels import run_chunk
 from ..parallel import context
 from ..poly.commitment import Params, DEFAULT_BLIND, NATIVE_IPA_THRESHOLD
 from ..poly.multiopen import ProverQuery, multiopen_create_proof
@@ -43,7 +44,7 @@ from .assigned import Assigned, batch_evaluate_assigned
 from .keys import ProvingKey
 from .keygen import NotEnoughRowsAvailable
 from .evaluation import (evaluate_expression, coset_points,
-                         expression_share_counts, fresh_memo)
+                         expression_share_counts, fresh_memo, compile_chunk)
 from .permutation import (permutation_commit, permutation_h_terms,
                           permutation_evaluate, permutation_pk_evaluate)
 from .lookup import (lookup_commit_permuted, lookup_commit_product,
@@ -157,23 +158,76 @@ class WitnessCollection:
         pass
 
 
-def _gates_h_fold(pk, cs, df, rot_scale: int, y_m, h_acc, advice_c,
-                  fixed_c, instance_c):
+# Max expression-AST nodes of a gate chunk; 0 evaluates the gates
+# eagerly, one field-kernel launch a distinct node (the reference's
+# default, halo2_tpu/plonk/prover.py:150-160). Above 0 each chunk is one
+# launch of kernel K2 (ops/gate_kernels.py) on the card.
+H_CHUNK_NODES = 0
+
+
+def _expr_nodes(e) -> int:
+    return e.evaluate(
+        constant=lambda v: 1, selector_fn=lambda s: 1,
+        fixed_fn=lambda q: 1, advice_fn=lambda q: 1,
+        instance_fn=lambda q: 1, negated=lambda a: a + 1,
+        sum_fn=lambda a, b: a + b + 1, product=lambda a, b: a + b + 1,
+        scaled=lambda a, v: a + 1)
+
+
+def gate_chunks(cs, max_nodes: int) -> list:
+    """The gate polynomials in order, cut into chunks of at most
+    max_nodes AST nodes (a polynomial larger than that is a chunk of its
+    own): the reference's partition (halo2_tpu/plonk/prover.py:204-218)."""
+    chunks, cur, cur_nodes = [], [], 0
+    for e in (e for gate in cs.gates for e in gate.polys):
+        nn = _expr_nodes(e)
+        if cur and cur_nodes + nn > max_nodes:
+            chunks.append(cur)
+            cur, cur_nodes = [], 0
+        cur.append(e)
+        cur_nodes += nn
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _gates_h_fold(pk, cs, df, rot_scale: int, ext_n: int, y: int, y_m,
+                  h_acc, advice_c, fixed_c, instance_c,
+                  h_chunk_nodes: int = H_CHUNK_NODES):
     """Fold every gate polynomial into the quotient accumulator,
-    h = h*y + t, one field op per distinct expression node: the
-    use-counted memo hash-conses repeated subtrees across the gate set and
-    frees each shared value after its last use."""
-    tmpl = getattr(pk, "_h_share_counts", None)
-    if tmpl is None:
-        tmpl = pk._h_share_counts = expression_share_counts(
-            [e for g in cs.gates for e in g.polys])
-    memo = fresh_memo(tmpl)
-    for gate in cs.gates:
-        for expr in gate.polys:
-            t = evaluate_expression(
-                df, expr, advice=advice_c, fixed=fixed_c,
-                instance=instance_c, rot_scale=rot_scale, memo=memo)
-            h_acc = t if h_acc is None else fadd(df, fmul(df, h_acc, y_m), t)
+    h = h*y + t in the gates' order. With h_chunk_nodes <= 0, one field
+    op per distinct expression node: the use-counted memo hash-conses
+    repeated subtrees across the gate set and frees each shared value
+    after its last use. Above 0, the gates in chunks of at most that
+    many nodes, each compiled once into a tape (cached on the pk by chunk
+    size) and run as h = h*y^k + sum t_i y^(k-i), one K2 launch a chunk
+    on the card (the reference's jitted chunks, :241-255)."""
+    if h_chunk_nodes <= 0:
+        tmpl = getattr(pk, "_h_share_counts", None)
+        if tmpl is None:
+            tmpl = pk._h_share_counts = expression_share_counts(
+                [e for g in cs.gates for e in g.polys])
+        memo = fresh_memo(tmpl)
+        for gate in cs.gates:
+            for expr in gate.polys:
+                t = evaluate_expression(
+                    df, expr, advice=advice_c, fixed=fixed_c,
+                    instance=instance_c, rot_scale=rot_scale, memo=memo)
+                h_acc = (t if h_acc is None
+                         else fadd(df, fmul(df, h_acc, y_m), t))
+        return h_acc
+    cache = getattr(pk, "_h_gate_tapes", None)
+    if cache is None:
+        cache = pk._h_gate_tapes = {}
+    tapes = cache.get(h_chunk_nodes)
+    if tapes is None:
+        tapes = cache[h_chunk_nodes] = [
+            compile_chunk(c) for c in gate_chunks(cs, h_chunk_nodes)]
+    p = df.spec.modulus
+    for tape in tapes:
+        yk_m = df.scalar(pow(y, tape.n_polys, p), y_m.device)
+        h_acc = run_chunk(df, tape, h_acc, advice_c, fixed_c, instance_c,
+                          rot_scale, y_m, yk_m, ext_n)
     return h_acc
 
 
@@ -194,7 +248,8 @@ def check_ranks_agree(ctx, proof: bytes) -> None:
 def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
                  instances: list[list[list[int]]], rng, transcript,
                  native_ipa_threshold: int = NATIVE_IPA_THRESHOLD,
-                 sanity: bool = False) -> None:
+                 sanity: bool = False,
+                 h_chunk_nodes: int = H_CHUNK_NODES) -> None:
     """prover.rs:35-725. `instances[i][j]` is the j-th instance column of
     the i-th circuit instance. IPA rounds with half > native_ipa_threshold
     run on the device, the rest in the native host library
@@ -202,7 +257,9 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     `sanity` runs the reference's debug checks (its HALO2_TPU_SANITY):
     each permuted lookup pair is well formed, each lookup product and the
     permutation product telescope; a failed check raises AssertionError.
-    The proof is the same with them on."""
+    The proof is the same with them on. `h_chunk_nodes` > 0 folds the
+    gates in chunks of at most that many expression nodes, one kernel
+    launch a chunk (_gates_h_fold); the proof is the same."""
     if len(circuits) != len(instances):
         raise ValueError("circuits/instances length mismatch")
     cs = pk.vk.cs
@@ -312,9 +369,9 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     for inst_s, adv_s, perm_sets, lk_committed in zip(
             instance_singles, advice_singles, permutations_committed,
             lookups_committed):
-        h_acc = _gates_h_fold(pk, cs, df, rot_scale, y_m, h_acc,
+        h_acc = _gates_h_fold(pk, cs, df, rot_scale, ext_n, y, y_m, h_acc,
                               adv_s["cosets"], pk.fixed_cosets,
-                              inst_s["cosets"])
+                              inst_s["cosets"], h_chunk_nodes)
         terms = permutation_h_terms(
             cs, domain, pk.permutation, perm_sets,
             adv_s["cosets"], pk.fixed_cosets, inst_s["cosets"],

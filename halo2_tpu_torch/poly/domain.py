@@ -2,8 +2,12 @@
 
 Port of halo2_tpu/poly/domain.py (the math of halo2_proofs/src/poly/
 domain.rs:19-498) with device-resident tables. Every transform runs on
-the domain's device through ops/ntt.py: there is no native-NTT
-crossover. Under a ProverMesh whose D^2 divides both domain sizes, the
+the domain's device: there is no native-NTT crossover. On the card a
+transform of n >= MXU_NTT_MIN runs through the four-step NTT on the
+tensor cores (ops/mxu_field.py, kernel K1), a smaller one through B7
+(ops/ntt.py), as the reference routes them on an accelerator
+(halo2_tpu/poly/domain.py:52-74); on the CPU every transform takes B7's
+plain version. Under a ProverMesh whose D^2 divides both domain sizes, the
 transforms run as four-step NTTs over the mesh
 (parallel/mesh.py::sharded_ntt) on the rank's rows, and return whole
 tensors, as the reference routes them.
@@ -15,6 +19,7 @@ import torch
 
 from ..fields.device import DeviceField, NLIMBS, int_to_limbs
 from ..ops.field_kernels import fmul
+from ..ops.mxu_field import ntt_mxu_b
 from ..ops.ntt import make_plan, ntt_many
 from ..parallel import context
 from ..parallel.mesh import ShardedNttPlan, sharded_ntt
@@ -23,6 +28,25 @@ from ..parallel.mesh import ShardedNttPlan, sharded_ntt
 # [m, extended_n, 16] int32 intermediates (64 B per element each); 2^24
 # elements per chunk keeps it near 4 GiB on an 80 GB card.
 NTT_BATCH_ELEMS = 1 << 24
+
+# At or above this size, on the card, a transform runs through the
+# four-step NTT with its twiddle products on the tensor cores (the
+# reference's MXU threshold, halo2_tpu/poly/domain.py:63)
+MXU_NTT_MIN = 1 << 16
+
+
+def _use_mxu(n: int, device) -> bool:
+    """The four-step route: on CUDA from MXU_NTT_MIN, never on the CPU
+    (the reference: on accelerator backends only)."""
+    return torch.device(device).type == "cuda" and n >= MXU_NTT_MIN
+
+
+def _ntt_dispatch(df: DeviceField, x: torch.Tensor, plan) -> torch.Tensor:
+    """[m, n, 16] through the four-step NTT (K1) or B7, by size and
+    device."""
+    if _use_mxu(plan.n, x.device):
+        return ntt_mxu_b(df, x, plan)
+    return ntt_many(df, x, plan)
 
 
 class EvaluationDomain:
@@ -147,8 +171,9 @@ class EvaluationDomain:
     def lagrange_to_coeff_extended_many(self, values_list: list):
         """m Lagrange vectors -> (m coeff polys, m extended-coset vectors):
         iNTT, 1/n scale, coset zeta powers, zero pad, extended NTT, all m
-        columns per launch (in chunks of NTT_BATCH_ELEMS); on a mesh, the
-        two four-step NTTs."""
+        columns per launch (in chunks of NTT_BATCH_ELEMS), each transform
+        routed by its size (_ntt_dispatch); on a mesh, the two sharded
+        four-step NTTs."""
         m = len(values_list)
         if m == 0:
             return [], []
@@ -161,9 +186,10 @@ class EvaluationDomain:
                 pc = self._mesh_l2c(ctx, vals)
                 ext = self._mesh_c2e(ctx, pc)
             else:
-                x = ntt_many(self.df, vals, self.plan_inv)
+                x = _ntt_dispatch(self.df, vals, self.plan_inv)
                 pc = fmul(self.df, x, self._ifft_divisor)
-                ext = ntt_many(self.df, self._pad_coset(pc), self.plan_ext)
+                ext = _ntt_dispatch(self.df, self._pad_coset(pc),
+                                    self.plan_ext)
             polys.extend(pc.unbind(0))
             cosets.extend(ext.unbind(0))
         return polys, cosets
@@ -173,22 +199,22 @@ class EvaluationDomain:
         ctx = self._mesh_ctx()
         if ctx is not None:
             return self._mesh_l2c(ctx, values.unsqueeze(0))[0]
-        x = ntt_many(self.df, values.unsqueeze(0), self.plan_inv)[0]
+        x = _ntt_dispatch(self.df, values.unsqueeze(0), self.plan_inv)[0]
         return fmul(self.df, x, self._ifft_divisor)
 
     def coeff_to_lagrange(self, coeffs: torch.Tensor) -> torch.Tensor:
         ctx = self._mesh_ctx()
         if ctx is not None:
             return self._mesh_ntt(ctx, "fwd", coeffs.unsqueeze(0))[0]
-        return ntt_many(self.df, coeffs.unsqueeze(0), self.plan)[0]
+        return _ntt_dispatch(self.df, coeffs.unsqueeze(0), self.plan)[0]
 
     def coeff_to_extended(self, coeffs: torch.Tensor) -> torch.Tensor:
         assert coeffs.shape[0] == self.n
         ctx = self._mesh_ctx()
         if ctx is not None:
             return self._mesh_c2e(ctx, coeffs.unsqueeze(0))[0]
-        return ntt_many(self.df, self._pad_coset(coeffs.unsqueeze(0)),
-                        self.plan_ext)[0]
+        return _ntt_dispatch(self.df, self._pad_coset(coeffs.unsqueeze(0)),
+                             self.plan_ext)[0]
 
     def extended_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
         """iNTT + un-coset; returns all extended_n coefficients (caller
@@ -197,7 +223,8 @@ class EvaluationDomain:
         ctx = self._mesh_ctx()
         if ctx is not None:
             return self._mesh_e2c(ctx, values.unsqueeze(0))[0]
-        x = ntt_many(self.df, values.unsqueeze(0), self.plan_ext_inv)[0]
+        x = _ntt_dispatch(self.df, values.unsqueeze(0),
+                          self.plan_ext_inv)[0]
         x = fmul(self.df, x, self._ext_ifft_divisor)
         return fmul(self.df, x, self._coset_out_ext)
 

@@ -11,7 +11,10 @@ package's gadgets (`--circuit ecc|sinsemilla|merkle|lookup-range-check`:
 ecc_chip, sinsemilla_chip, merkle_chip, lookup_range_check; `--k` does
 not apply); or halo2's SHA-256 bench circuit of
 halo2_tpu_torch/sha256_circuits.py (`--circuit sha256`: Table16 hashing
-31 words, at k = 17 over PALLAS Params; `--k` does not apply). It lives
+31 words, at k = 17 over PALLAS Params; `--k` does not apply); or,
+with `--circuit params`, no proof: the sha256 of
+`Params.new(PALLAS, k, use_cache=False).write()`, the bytes of g, its
+Lagrange basis (the native library's group iNTT), w and u. It lives
 outside halo2_tpu_torch because it imports the reference, which the port
 never does. Run on a CPU, from the repository root:
 
@@ -28,6 +31,7 @@ never does. Run on a CPU, from the repository root:
     JAX_PLATFORMS=cpu python reference_proof_hash.py \
         --circuit lookup-range-check
     JAX_PLATFORMS=cpu python reference_proof_hash.py --circuit sha256
+    JAX_PLATFORMS=cpu python reference_proof_hash.py --circuit params --k 18
 
 On an 8-core CPU `--circuit sha256` takes about 68 minutes (4,068 s:
 Params.new and the circuit 61 s, the keygens 23 s, the prove 3,983 s).
@@ -96,7 +100,8 @@ def reference_circuit(name: str, k: int, planner: str = "simple"):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--circuit",
-                    choices=("bench", "dev-lookup", "sha256", *GADGETS),
+                    choices=("bench", "dev-lookup", "sha256", "params",
+                             *GADGETS),
                     default="bench")
     ap.add_argument("--k", type=int, default=14)
     ap.add_argument("--planner", choices=("simple", "v1"),
@@ -117,6 +122,13 @@ def main() -> None:
     from halo2_tpu.plonk import keygen_vk, keygen_pk, create_proof
 
     t0 = time.perf_counter()
+    if args.circuit == "params":
+        from halo2_tpu.curves import PALLAS
+        data = Params.new(PALLAS, args.k, use_cache=False).write()
+        print(f"params k={args.k} bytes={len(data)} "
+              f"seconds={time.perf_counter() - t0:.1f}")
+        print(hashlib.sha256(data).hexdigest())
+        return
     curve, k, circuit, instances, what = reference_circuit(
         args.circuit, args.k, args.planner)
     if args.circuit == "bench":

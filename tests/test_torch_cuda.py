@@ -591,3 +591,75 @@ def test_sharded_ntt_over_gloo_on_one_card(cuda, world):
         assert r["ntt"]["single"] and r["intt"]["single"]
         assert r["device"].startswith("cuda") and r["staged_bytes"] > 0
     assert len({r["ntt"]["out"].tobytes() for r in ranks}) == 1
+
+
+@pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
+@pytest.mark.parametrize("lanes", [1, 15, 16, 17, 4096])
+def test_mxu_kernel_matches_plain(cuda, df, lanes):
+    """K1's products by 4 constants (0, 1, p - 1 and 2^254 - 1, whose
+    bytes are 0xFF but the top one) at `lanes` lanes a group, padded
+    tiles included, against mul_const_grouped_plain."""
+    from halo2_tpu_torch.ops import mxu_field as mxu
+    p = df.spec.modulus
+    consts = torch.from_numpy(np.concatenate([
+        df.to_mont_np([0, 1, p - 1]), ints_to_digits([(1 << 254) - 1])]))
+    x = _field_operands(df, 4 * lanes + 3, 11)[:4 * lanes].view(4, lanes, 16)
+    x[:, 0] = consts[3]
+    before = mxu.LAUNCHES["mxu"]
+    got = mxu.mul_const_grouped(df, x.to(cuda), consts.to(cuda)).cpu()
+    assert mxu.LAUNCHES["mxu"] == before + 1
+    assert torch.equal(got, mxu.mul_const_grouped_plain(df, x, consts))
+
+
+@pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
+@pytest.mark.parametrize("log_n,m", [(12, 3), (16, 1), (17, 2)])
+def test_four_step_matches_b7(cuda, df, log_n, m):
+    """ntt_mxu_b (K1, log2 n launches) against B7, forward and inverse,
+    and against the plain four-step at 2^12."""
+    from halo2_tpu_torch.ops import mxu_field as mxu
+    spec = df.spec
+    n = 1 << log_n
+    x = _field_operands(df, m * n, 12).view(m, n, 16).to(cuda)
+    omega = pow(spec.root_of_unity, 1 << (spec.s - log_n), spec.modulus)
+    for w in (omega, pow(omega, spec.modulus - 2, spec.modulus)):
+        plan = ntt_ops.make_plan(df, n, w)
+        before = mxu.LAUNCHES["mxu"]
+        got = mxu.ntt_mxu_b(df, x, plan)
+        assert mxu.LAUNCHES["mxu"] == before + log_n
+        assert torch.equal(got, ntt_ops.ntt_many(df, x, plan))
+        if log_n == 12:
+            assert torch.equal(got.cpu(),
+                               mxu.ntt_mxu_b_plain(df, x.cpu(), plan))
+
+
+@pytest.mark.parametrize("nodes", [8, 400, 1 << 20])
+def test_gate_chunk_kernel_matches_tape(cuda, nodes):
+    """K2 over Table16's gate set (selectors compressed over 64 rows of no
+    activations) in chunks of `nodes`, on 2^12 random rows at rot_scale
+    8, with and without an accumulator, against the plain tape."""
+    from halo2_tpu_torch import sha256_circuits
+    from halo2_tpu_torch.ops import gate_kernels as gk
+    from halo2_tpu_torch.plonk import prover
+    from halo2_tpu_torch.plonk.circuit import ConstraintSystem
+    from halo2_tpu_torch.plonk.compress_selectors import compress_selectors
+    from halo2_tpu_torch.plonk.evaluation import compile_chunk
+    cs = ConstraintSystem()
+    sha256_circuits.port_namespace().classes.Table16.configure(cs)
+    compress_selectors(cs, [[False] * 64] * cs.num_selectors)
+    df, n, y = FP_DEV, 1 << 12, 987654321
+    counts = (cs.num_advice_columns, cs.num_fixed_columns,
+              cs.num_instance_columns)
+    cols = [[_field_operands(df, n, 100 * kind + i) for i in range(c)]
+            for kind, c in enumerate(counts)]
+    cols_d = [[c.to(cuda) for c in group] for group in cols]
+    tapes = [compile_chunk(c) for c in prover.gate_chunks(cs, nodes)]
+    for h0 in (None, _field_operands(df, n, 7)):
+        hc = None if h0 is None else h0.clone()
+        hg = None if h0 is None else h0.to(cuda)
+        for tape in tapes:
+            yk = df.scalar(pow(y, tape.n_polys, df.spec.modulus), "cpu")
+            hc = gk.run_chunk(df, tape, hc, *cols, 8, df.scalar(y, "cpu"), yk,
+                              n)
+            hg = gk.run_chunk(df, tape, hg, *cols_d, 8, df.scalar(y, cuda),
+                              yk.to(cuda), n)
+        assert torch.equal(hg.cpu(), hc)
