@@ -381,6 +381,7 @@ def phase_build():
     # the redesigned kernels' code size (instruction fetch, as the ladder
     # showed)
     for name, key in (("point_kernels", "pmixed_bucket_runs"),
+                      ("point_kernels", "glv_ladder"),
                       ("point_kernels", "pmixed_masked_kernel"),
                       ("point_kernels", "scalar_mul_ladder"),
                       ("point_kernels", "padd_kernel"),
@@ -671,17 +672,41 @@ def b2_round_loop(df, aff, gidx, valid, sig, acc):
     return acc
 
 
+def edge_runs(aff, L, gen):
+    """Bucket runs over L lanes in one window row (BL = L) of n = 2 L + 16
+    packed bases (aff's points repeated), the row's members a random
+    permutation with a random third negated, cut into runs at random
+    (empty ones among them): (packed, members, starts, counts)."""
+    import torch
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = aff.device
+    n = 2 * L + 16
+    packed = pk.pack_affine(aff[:, torch.arange(n, device=dev)
+                                % aff.shape[1]])
+    order = torch.randperm(n, generator=gen, device=dev)[None]
+    signs = (torch.rand((1, n), generator=gen, device=dev) < 0.33).long()
+    cuts = torch.sort(torch.randint(0, n + 1, (L - 1,), generator=gen,
+                                    device=dev)).values
+    edges = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), n)])
+    return (packed, pk.bucket_members(order, signs),
+            edges[:-1].to(torch.int32), edges.diff().to(torch.int32))
+
+
 def phase_bucket(results, params, params_ref_k):
-    """[bucket] The bucket-run kernel against its plain version and
-    against the one-step B2
-    kernel run round by round over the gathered bases, on two columns of
-    random scalars: at a k = 14 advice commit's 26,624 lanes (2^14 bases)
-    and a k = 18 commit's 163,840 lanes (2^18 bases), on the PALLAS base
-    field (the SRS) and the VESTA one (native SRS points; at 2^18, 2^14 of
-    them repeated). Then, on PALLAS at both widths: device time from a
-    CUDA graph and by the profiler, and the wrapper's time, of the
-    kernel and of the B2 round loop (its gathers and launches)
-    replayed from a graph and called; the bound over the whole commit."""
+    """[bucket] The bucket-run kernel, in both forms (one thread a lane,
+    one lane a group of four threads, through pmixed_bucket_runs_form) and
+    through its wrapper (the form picked by lane count), against its plain
+    version and against the one-step B2 kernel run round by round over the
+    gathered bases, on two columns of random scalars: at a k = 14 advice
+    commit's 26,624 lanes (2^14 bases) and a k = 18 commit's 163,840 lanes
+    (2^18 bases), on the PALLAS base field (the SRS) and the VESTA one
+    (native SRS points; at 2^18, 2^14 of them repeated); then every form
+    against the plain version at kBucketLaneFrom and one lane either side
+    (edge_runs). Then, on PALLAS at both commit widths: each form's device
+    time a launch from a CUDA graph, the wrapper's from a graph and by the
+    profiler and per call, and those of the B2 round loop (its gathers and
+    launches) replayed from a graph and called; the bound over the whole
+    commit."""
     import torch
     from halo2_tpu_torch.curves.host import PALLAS, VESTA
     from halo2_tpu_torch.curves.native import native_srs_g
@@ -727,21 +752,34 @@ def phase_bucket(results, params, params_ref_k):
             # the kernel takes the int64 run bounds, as the MSM passes them
             starts64 = runs.starts_e.reshape(-1)
             counts64 = runs.counts_e.reshape(-1)
-            got = pk.pmixed_bucket_runs(df, packed, members, starts64,
-                                        counts64, runs.BL)
-            bad += int((got != want).any(dim=0).sum())
-            err = max(err, max_abs(got, want))
+            outs = [pk.pmixed_bucket_runs(df, packed, members, starts64,
+                                          counts64, runs.BL)]
+            outs += [pk.pmixed_bucket_runs_form(df, packed, members,
+                                                starts64, counts64, runs.BL,
+                                                t)
+                     for t in pk.FORMS.values()]
+            for got in outs:
+                bad += int((got != want).any(dim=0).sum())
+                err = max(err, max_abs(got, want))
             mism += bad
             log(f"[bucket] k={k} {curve.name}: {L} lanes, runs up to {maxc}"
-                f": kernel against its plain version and the B2 round loop, "
-                f"{bad} mismatches")
+                f": the wrapper ({form_picked('kBucketLaneFrom', L)}) and "
+                f"both forms against the plain version and the B2 round "
+                f"loop, {bad} mismatches")
             if curve is not PALLAS:
                 continue
             # timing on PALLAS: the whole commit's bucket phase
+            forms = r.setdefault("forms", {})
+            parts = []
+            for form, t in pk.FORMS.items():
+                ms = graph_ms(lambda t=t: pk.pmixed_bucket_runs_form(
+                    df, packed, members, starts64, counts64, runs.BL, t), 5)
+                forms.setdefault(form, {"threads": t})[f"ms_L{L}"] = ms
+                parts.append(f"{form} {ms:.5f}")
             fn = lambda: pk.pmixed_bucket_runs(
                 df, packed, members, starts64, counts64, runs.BL)
             g_ms, p_ms, c_ms = (graph_ms(fn, 5),
-                                device_ms(fn, 5, "pmixed_bucket_runs_kernel"),
+                                device_ms(fn, 5, "pmixed_bucket_runs_"),
                                 timed(fn, 5))
             loop_fn = lambda: b2_round_loop(df, aff, gidx, valid, sig, ident)
             loop_graph = graph_ms(loop_fn, 3)
@@ -755,11 +793,13 @@ def phase_bucket(results, params, params_ref_k):
             bd, by = bound_ms(members_total * (64 + 4) + L * (8 + 192),
                               live * 11 * MONT_MULADDS)
             key = f"k{k}"
-            log(f"[bucket] k={k} L={L} kernel: {g_ms:.5f} ms from a CUDA "
-                f"graph, {p_ms:.5f} ms by the profiler, {c_ms:.4f} ms per "
-                f"wrapper call")
+            picked = form_picked("kBucketLaneFrom", L)
+            log(f"[bucket] k={k} L={L}: " + ", ".join(parts) + " ms a "
+                f"launch from a graph; the wrapper ({picked}) {g_ms:.5f} ms "
+                f"from a CUDA graph, {p_ms:.5f} ms by the profiler, "
+                f"{c_ms:.4f} ms per wrapper call")
             r.update({f"graph_ms_{key}": g_ms, f"profiler_ms_{key}": p_ms,
-                      f"call_ms_{key}": c_ms})
+                      f"call_ms_{key}": c_ms, f"form_L{L}": picked})
             log(f"[bucket] k={k} L={L}: the B2 round loop ({maxc} gathers "
                 f"and launches) {loop_graph:.5f} ms from a CUDA graph, its "
                 f"B2 launches {loop_b2:.5f} ms by the profiler, "
@@ -777,6 +817,27 @@ def phase_bucket(results, params, params_ref_k):
                          plain_ms=pms, bound_ms=bd, bound_by=by,
                          shape=[48, L])
                 log(f"[bucket] k={k}: plain {pms:.3f} ms")
+    # each form at the threshold and one lane either side, both fields
+    at = lane_from()["kBucketLaneFrom"]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    bad = 0
+    for df, aff in ((params.base_df, params.g_dev[:32]), (FQ_DEV, vesta14)):
+        for L in (at - 1, at, at + 1):
+            packed, members, starts, counts = edge_runs(aff, L, gen)
+            want = pk.pmixed_bucket_runs_plain(df, packed, members, starts,
+                                               counts, L)
+            outs = [pk.pmixed_bucket_runs(df, packed, members, starts,
+                                          counts, L)]
+            outs += [pk.pmixed_bucket_runs_form(df, packed, members, starts,
+                                                counts, L, t)
+                     for t in pk.FORMS.values()]
+            for got in outs:
+                bad += int((got != want).any(dim=0).sum())
+                err = max(err, max_abs(got, want))
+    mism += bad
+    r["forms_lane_from"] = at
+    log(f"[bucket] the wrapper and both forms at kBucketLaneFrom = {at} "
+        f"and one lane either side, both fields: {bad} mismatches")
     torch.cuda.synchronize()
     r.update(mismatches=mism, max_abs_err=err)
     log(f"[bucket] mismatches {mism}")
@@ -814,11 +875,15 @@ def unfused_ladder(df, t1, t2, t12, bits1, bits2, consts):
 
 
 def phase_ladder(results, params, lanes=(1 << 13, 1 << 17)):
-    """The fused GLV ladder against the B5/B3 kernel loop at 2^13 (k=14's
-    first IPA fold) and 2^17 lanes (k=18's) and against its plain version
-    at 256 lanes, on both fields, 130 random bit pairs; then on the base
-    field of the PALLAS Params the device time per round beside the
-    bound, the wrapper's time, the loop's time (its wall time, and its
+    """The fused GLV ladder, in both forms (one thread a lane, one lane a
+    group of four threads, through glv_ladder_form) and through its
+    wrapper (the form picked by lane count), against the B5/B3 kernel
+    loop at 2^13 (k=14's first IPA fold) and 2^17 lanes (k=18's) and
+    against its plain version at 256 lanes and at kGlvLaneFrom and one
+    lane either side, on both fields, 130 random bit pairs; then on the
+    base field of the PALLAS Params at 2^13 and 2^17 lanes each form's
+    device time a launch from a CUDA graph beside the bound, the wrapper's
+    by the profiler and per call, the loop's time (its wall time, and its
     device time from a CUDA graph replay) and the plain version's."""
     import torch
     from halo2_tpu_torch.curves.host import VESTA
@@ -835,6 +900,7 @@ def phase_ladder(results, params, lanes=(1 << 13, 1 << 17)):
     gen = torch.Generator(device=dev).manual_seed(16)
     vesta = pk.points_to_proj(FQ_DEV, native_srs_g(
         VESTA, "chip-smoke-ladder", 1024), dev)
+    at = lane_from()["kGlvLaneFrom"]
 
     def consts(df, L):
         ident = pk.ident_col(df, dev)[:, None].expand(48, L).contiguous()
@@ -848,42 +914,65 @@ def phase_ladder(results, params, lanes=(1 << 13, 1 << 17)):
         return ipd.glv_table(df, g, 1, 0)
 
     mism, err = 0, 0
+    plain_widths = (256, at - 1, at, at + 1)
     for df, pts in ((params.base_df, params.g_dev), (FQ_DEV, vesta)):
-        for L in lanes + (256,):
-            t = table(df, pts, L)
-            got = pk.glv_ladder_flat(df, *t, *bits)
-            if L == 256:
-                want = pk.glv_ladder_plain(df, *t, *bits)
-            else:
-                want = unfused_ladder(df, *t, *bits, consts(df, L))
-            bad = int((got != want).any(dim=0).sum())
+        tables, outs = {}, {}
+        for L in lanes + plain_widths:
+            t = tables[L] = table(df, pts, L)
+            outs[L] = [pk.glv_ladder_flat(df, *t, *bits)]
+            outs[L] += [pk.glv_ladder_form(df, *t, *bits, th)
+                        for th in pk.FORMS.values()]
+        # the plain version walks the bits a launch at a time, seconds a
+        # call at any width: one call on the plain-checked widths' lanes
+        plain = pk.glv_ladder_plain(df, *(torch.cat(
+            [tables[L][i] for L in plain_widths], 1) for i in range(3)),
+            *bits).split(plain_widths, 1)
+        wants = dict(zip(plain_widths, plain))
+        for L in lanes + plain_widths:
+            want = wants.get(L)
+            if want is None:
+                want = unfused_ladder(df, *tables[L], *bits, consts(df, L))
+            bad = 0
+            for got in outs[L]:
+                bad += int((got != want).any(dim=0).sum())
+                err = max(err, max_abs(got, want))
             mism += bad
-            err = max(err, max_abs(got, want))
-            log(f"[ladder] field {df.field_id} L={L}: against the "
-                f"{'plain version' if L == 256 else 'B5/B3 kernel loop'}, "
-                f"{bad} mismatches")
+            log(f"[ladder] field {df.field_id} L={L}: the wrapper "
+                f"({form_picked('kGlvLaneFrom', L)}) and both forms against "
+                f"the {'B5/B3 kernel loop' if L in lanes else 'plain version'}"
+                f", {bad} mismatches")
     torch.cuda.synchronize()
     r = results["glv_ladder"]
+    r["forms_lane_from"] = at
+    forms = r.setdefault("forms", {})
     df = params.base_df
     for L in lanes:
         t = table(df, params.g_dev, L)
         c = consts(df, L)
+        parts = []
+        for form, th in pk.FORMS.items():
+            ms = graph_ms(lambda th=th: pk.glv_ladder_form(df, *t, *bits, th),
+                          3)
+            forms.setdefault(form, {"threads": th})[f"ms_L{L}"] = ms
+            parts.append(f"{form} {ms:.5f}")
         fn = lambda: pk.glv_ladder_flat(df, *t, *bits)
         loop = lambda: unfused_ladder(df, *t, *bits, c)
-        ms = device_ms(fn, 5, "glv_ladder_kernel")
+        ms = device_ms(fn, 5, "glv_ladder_")
         call_ms = timed(fn, 5)
         loop_ms = timed(loop, 3)
         loop_dev = graph_ms(loop, 3)
         bd, by = bound_ms(L * 4 * 192,
                           L * (8 * nb + 12 * nsel) * MONT_MULADDS)
-        log(f"[ladder] L={L}: {ms:.5f} ms on the device per round, "
-            f"{call_ms:.4f} ms per wrapper call (bound {bd:.5f} ms by "
+        picked = form_picked("kGlvLaneFrom", L)
+        log(f"[ladder] L={L}: " + ", ".join(parts) + " ms a launch from a "
+            f"graph; the wrapper ({picked}) {ms:.5f} ms on the device per "
+            f"round, {call_ms:.4f} ms per wrapper call (bound {bd:.5f} ms by "
             f"{by}); the B5/B3 loop {loop_dev:.5f} ms replayed from a CUDA "
             f"graph, {loop_ms:.4f} ms per round with its {2 * nb} "
             f"launches")
         r.update({f"ms_L{L}": ms, f"bound_ms_L{L}": bd,
                   f"call_ms_L{L}": call_ms, f"call_ms_loop_L{L}": loop_ms,
-                  f"ms_loop_L{L}": loop_dev})
+                  f"ms_loop_L{L}": loop_dev, f"form_L{L}": picked})
         if L == lanes[0]:
             pms = timed(lambda: pk.glv_ladder_plain(df, *t, *bits), 1,
                         warm=False)
@@ -960,17 +1049,24 @@ PDOUBLE_WIDTHS = (1, 2, 8191, 8192, 1 << 17)
 PDOUBLE_TIMED = (1, 2, 8192, 1 << 17)
 
 
-def pdouble_lane_from() -> dict:
-    """csrc/point_kernels.cu's kPdouble* constants: from that many lanes
-    B5 (kPdoubleLaneFrom) and B6 (kPdoubleMaskedLaneFrom) run one thread a
-    lane, below it one lane a group of four threads."""
+def lane_from() -> dict:
+    """csrc/point_kernels.cu's k*LaneFrom constants: from that many lanes
+    B5 (kPdoubleLaneFrom), B6 (kPdoubleMaskedLaneFrom), the GLV ladder
+    (kGlvLaneFrom) and the bucket-run kernel (kBucketLaneFrom) run one
+    thread a lane, below it one lane a group of four threads."""
     import os
     import re
     from halo2_tpu_torch.ops import cuda_build
     with open(os.path.join(cuda_build.CSRC, "point_kernels.cu")) as fh:
         src = fh.read()
     return {k: int(v) for k, v in re.findall(
-        r"static constexpr int (kPdouble\w+) = (\d+);", src)}
+        r"static constexpr int (k\w+LaneFrom) = (\d+);", src)}
+
+
+def form_picked(name: str, L: int) -> str:
+    """The form (a key of point_kernels.FORMS) the wrapper picks at L
+    lanes, by the threshold `name` of lane_from()."""
+    return "lane" if L >= lane_from()[name] else "group"
 
 
 def phase_pdouble_forms(results, params):
@@ -990,8 +1086,9 @@ def phase_pdouble_forms(results, params):
     from halo2_tpu_torch.fields.device import FQ_DEV
     from halo2_tpu_torch.ops import point_kernels as pk
     dev = params.device
-    lane_from = pdouble_lane_from()
-    widths = sorted(set(PDOUBLE_WIDTHS) | {t + d for t in lane_from.values()
+    thresholds = {k: v for k, v in lane_from().items()
+                  if k.startswith("kPdouble")}
+    widths = sorted(set(PDOUBLE_WIDTHS) | {t + d for t in thresholds.values()
                                            for d in (-1, 0, 1)})
     gen = torch.Generator(device=dev).manual_seed(17)
     vesta = pk.points_to_proj(FQ_DEV, native_srs_g(
@@ -1010,7 +1107,7 @@ def phase_pdouble_forms(results, params):
                 want = (pk.pdouble_plain(df, a) if mask is None
                         else pk.pdouble_masked_plain(df, a, mask))
                 outs = [pk.pdouble_form(df, a, t, mask)
-                        for t in pk.PDOUBLE_FORMS.values()]
+                        for t in pk.FORMS.values()]
                 outs.append(pk.pdouble_flat(df, a) if mask is None
                             else pk.pdouble_masked_flat(df, a, mask))
                 for got in outs:
@@ -1038,7 +1135,7 @@ def phase_pdouble_forms(results, params):
             r = results[name]
             forms = r.setdefault("forms", {})
             parts = []
-            for form, t in pk.PDOUBLE_FORMS.items():
+            for form, t in pk.FORMS.items():
                 ms = graph_ms(lambda t=t, mask=mask: pk.pdouble_form(
                     df, a, t, mask), 10, calls=20)
                 forms.setdefault(form, {"threads": t})[f"ms_L{L}"] = ms
@@ -1054,7 +1151,7 @@ def phase_pdouble_forms(results, params):
             prof = device_ms(fn, 50, "pdouble_")
             key = "kPdoubleLaneFrom" if mask is None else \
                 "kPdoubleMaskedLaneFrom"
-            picked = "lane" if L >= lane_from[key] else "group"
+            picked = form_picked(key, L)
             r.update({f"ms_L{L}": ms, f"profiler_ms_L{L}": prof,
                       f"bound_ms_L{L}": bd, f"form_L{L}": picked})
             log(f"[points] {name} L={L}: " + ", ".join(parts) + f" ms a "
@@ -1066,7 +1163,7 @@ def phase_pdouble_forms(results, params):
                 pms = timed(plain, 3)
                 r.update(ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bd,
                          bound_by=by, shape=[48, L],
-                         forms_lane_from=lane_from[key])
+                         forms_lane_from=thresholds[key])
                 log(f"[points] {name} L={L}: {call_ms:.4f} ms per wrapper "
                     f"call, plain {pms:.3f} ms")
 
@@ -1300,7 +1397,8 @@ def profile_call(tag, fn, what="warm prove"):
     """fn() (one warm prove, or the call `what` names) under
     torch.profiler: device time by kernel and the busy share of the wall
     time. Reports "not measured" where the profiler sees no device
-    activity."""
+    activity. Returns the rows (device us, launches, kernel name), the
+    longest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -1324,20 +1422,22 @@ def profile_call(tag, fn, what="warm prove"):
     if not rows:
         log(f"[{tag}] {what} {wall:.3f}s; device time not measured "
             f"(the profiler saw no device activity)")
-        return
+        return rows
     log(f"[{tag}] {what} {wall:.3f}s wall, device busy {busy:.4f}s "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for dev_us, count, key in rows[:12]:
         log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    return rows
 
 
 def profile_prove(tag, params, pk_, circuit, out, **kw):
-    """One warm BenchCircuit prove under the profiler (profile_call)."""
+    """One warm BenchCircuit prove under the profiler (profile_call);
+    returns its rows."""
     from halo2_tpu_torch.bench_circuit import PROOF_SEED
     from halo2_tpu_torch.curves.host import PALLAS
     from halo2_tpu_torch.plonk import prover as pv
     from halo2_tpu_torch.transcript import TranscriptWrite
-    profile_call(tag, lambda: pv.create_proof(
+    return profile_call(tag, lambda: pv.create_proof(
         params, pk_, [circuit], [[[out]]], random.Random(PROOF_SEED),
         TranscriptWrite(PALLAS), **kw))
 
@@ -1398,7 +1498,15 @@ def phase_ipa(results, params, pk_, circuit, out):
             if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels of the IPA path not launched: {idle}")
-    profile_prove("ipa", params, pk_, circuit, out, native_ipa_threshold=0)
+    rows = profile_prove("ipa", params, pk_, circuit, out,
+                         native_ipa_threshold=0)
+    glv = [(us, n) for us, n, key in rows if "glv_ladder_" in key]
+    if glv:
+        ms, n = sum(us for us, _ in glv) / 1e3, sum(n for _, n in glv)
+        results["glv_ladder"].update(ipa_profiled_ms=ms,
+                                     ipa_profiled_launches=n)
+        log(f"[ipa] profiled warm prove: the GLV ladder {ms:.3f} ms of "
+            f"device time in {n} launches")
 
 
 def phase_reference_k(results):
@@ -2582,8 +2690,14 @@ class path_calls:
     every call is recorded whole. `kernels` limits the recording to
     those kernels' sites."""
 
+    # the kernels whose wrapper picks its form by lane count: the
+    # threshold's name and the argument that holds the lanes
+    FORMS = {"glv_ladder": ("kGlvLaneFrom", "t1", 1),
+             "pmixed_bucket_runs": ("kBucketLaneFrom", "starts", 0)}
+
     def __init__(self, slice_lanes=None, kernels=None):
         self.calls = {}
+        self.forms = {}                   # kernel -> {form: recorded calls}
         self.slice = slice_lanes
         self.sliced = 0
         self.kernels = kernels            # record only these (None: all)
@@ -2768,6 +2882,12 @@ class path_calls:
                     bound = params.bind(*args, **kw)
                     if kernel == "gate_chunk":
                         bound.arguments["h_prev"] = before
+                    if kernel in self.FORMS:
+                        name, arg, dim = self.FORMS[kernel]
+                        form = form_picked(
+                            name, bound.arguments[arg].shape[dim])
+                        count = self.forms.setdefault(kernel, {})
+                        count[form] = count.get(form, 0) + 1
                     k, got = self._sliced(kernel, bound.arguments, out)
                     a = ()
                 self.sliced += got is not out
@@ -2867,9 +2987,13 @@ class path_calls:
             r[f"{tag}_max_abs_err"] = max(r.get(f"{tag}_max_abs_err", 0),
                                           err)
         for name, (n, mism, s) in report.items():
+            forms = self.forms.get(name)
+            if forms:
+                results[name][f"{tag}_forms"] = forms
             log(f"[{tag}] {name}: {n} checks against the plain version at "
                 f"the path's shapes, {mism} mismatching words, plain "
-                f"{s:.3f}s")
+                f"{s:.3f}s" + (f"; forms launched {forms}" if forms else ""))
+        self.forms = {}
         bad = {name: m for name, (_, m, _) in report.items() if m}
         if bad:
             raise AssertionError(f"[{tag}] kernels differ from their plain "
@@ -3822,7 +3946,7 @@ def main() -> int:
                      "mock_", "gadgets_", "sha256_", "mesh_",
                      "launches_offset_", "forms", "form_", "horner_",
                      "four_step_", "b7_ms_", "library_ms_", "eager_",
-                     "chunked_", "stage_", "plain_rows"))}}
+                     "chunked_", "stage_", "plain_rows", "ipa_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

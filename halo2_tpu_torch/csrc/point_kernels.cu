@@ -50,9 +50,9 @@
 //
 // Layout: a point batch is [48, L] int32 (rows 0-15 X, 16-31 Y, 32-47 Z
 // as 16-bit Montgomery digits, lanes last); an affine batch is [32, L].
-// One thread per lane (B2, B3, the GLV ladder, the bucket-run kernel),
-// one lane a group of four threads (B4, the scalar ladder), or either by
-// lane count (B5, B6; see the last notes): neighbouring lanes read
+// One thread per lane (B2, B3), one lane a group of four threads (B4, the
+// scalar ladder), or either by lane count (B5, B6, the GLV ladder, the
+// bucket-run kernel; see the last notes): neighbouring lanes read
 // neighbouring words of each row, so every load and store coalesces (B3's
 // index form gathers). The formulas are written straight-line with the
 // coordinates in registers (8 x 32-bit limbs each).
@@ -81,9 +81,10 @@
 //   its own run bounds, members (index, sign in bit 31) and bases, the
 //   bases point-major and packed (pack_affine, built once per base
 //   tensor: four 16-byte loads a base, where the lanes-last batch needs
-//   32 strided reads). A warp runs as long as its longest run; splitting
-//   long runs over more threads would change the order of additions
-//   (ROADMAP B). At 26,624 lanes (six warps a SM) each thread is a
+//   32 strided reads). A warp runs as long as its longest run (so the
+//   lanes go longest run first; see the last note); splitting long runs
+//   over more threads would change the order of additions (ROADMAP B).
+//   One thread a lane, at 26,624 lanes (six warps a SM) each thread is a
 //   latency-bound chain of about 70 x 11 dependent products. The inlined
 //   body is 7,224 SASS instructions, the called one 2,080; the called
 //   product measured faster at both commit widths (0.79 against 0.98 ms
@@ -124,18 +125,18 @@
 //   scalars a warp runs the add on nearly every step. The fused butterfly
 //   adds two complete adds (24 products) and saves the two B4 launches and
 //   the negation of a stage.
-// - Block size (B3 and the GLV ladder): `nvcc -Xptxas -v` reports 106, 122
-//   and 124 registers for B3's lane, offset and index forms and 96 (with
-//   a 672-byte stack frame) for the ladder, no spills. A 128-thread block
-//   then holds 12-16K of an SM's 64K registers (and the ladder's 36 KB of
-//   shared memory), so every block of B3's 26,624 lanes or the ladder's
-//   8,192 is resident at once, and what the block size decides is how
-//   evenly the lanes spread over the 132 SMs. spread_threads picks, from
-//   32, 64 and 128 threads, the size that puts the fewest threads on the
-//   busiest SM (B3 at 26,624 lanes: 32, at most 224 a SM against 256;
-//   the ladder at 8,192 lanes: 64, one block on each of 128 SMs, where
-//   128 threads would fill only 64 SMs). For the ladder with inlined
-//   products, 32, 64 and 128 measured the same (ladder_variants.py).
+// - Block size (B3 and the GLV ladder one thread a lane): `nvcc -Xptxas -v`
+//   reports 106, 122 and 124 registers for B3's lane, offset and index forms
+//   and 96 (with a 672-byte stack frame) for the ladder, no spills. A
+//   128-thread block then holds 12-16K of an SM's 64K registers (and the
+//   ladder's 36 KB of shared memory), so every block of B3's 26,624 lanes or
+//   the ladder's 8,192 is resident at once, and what the block size decides
+//   is how evenly the lanes spread over the 132 SMs. spread_threads picks,
+//   from 32, 64 and 128 threads, the size that puts the fewest threads on the
+//   busiest SM (B3 at 26,624 lanes: 32, at most 224 a SM against 256; the
+//   ladder at 8,192 lanes: 64, one block on each of 128 SMs, where 128
+//   threads would fill only 64 SMs). For the ladder with inlined products,
+//   32, 64 and 128 measured the same (ladder_variants.py).
 // - B4 and the scalar ladder, one thread a lane, ran a chain of dependent
 //   products at too few warps to hide it: B4 12 inlined products in
 //   fixed 128-thread blocks (8,192 lanes filled 64 of the 132 SMs with
@@ -197,6 +198,32 @@
 //   at 2^17) and __launch_bounds__(128, 5, 6 or 8) on the one-thread form,
 //   which caps it at 96, 80 or 64 registers, each with spills, and is
 //   slower at 2^17.
+// - The GLV ladder and the bucket-run kernel run in either form as well,
+//   picked by lane count at launch: one lane a group of four threads
+//   (coop_double, coop_add, the products called) below kGlvLaneFrom
+//   (32,768) and kBucketLaneFrom (45,056) lanes, one thread a lane from
+//   there. One thread a lane, the ladder is a chain of about 20 dependent
+//   products a step at two warps a SM or fewer: 1.95-1.99 ms a launch at
+//   1 to 8,192 lanes, whatever the width. The group (95 registers and a
+//   272-byte stack frame against 96 and 672; 4,600 SASS instructions
+//   against 3,752) takes 0.645-0.671 ms at 1 to 4,096 lanes and 0.927 at
+//   8,192; from 32,768 lanes one thread wins at every width measured
+//   (9.427 against 12.259 ms at 2^17: the card is full, and the group
+//   issues more a lane). Its products inlined (9,496 instructions) won
+//   only at 1 and 2 lanes (0.550 ms) and lost from 1,024 on.
+// - A warp of the bucket-run kernel runs as long as its longest run, so
+//   both forms serve the lanes longest run first: thread (group) i takes
+//   lane lanes[i], the wrapper's argsort of the run lengths on the card.
+//   Each lane's sum is the same whichever thread makes it. That alone
+//   took one thread a lane from 0.767 to 0.707 ms at 26,624 lanes and
+//   from 5.475 to 3.886 at 163,840, the group from 0.869 to 0.562 at
+//   26,624 (the argsort adds about 0.06-0.1 ms a call, host included).
+//   Sorted, the group (84 registers, 2,920 instructions, against 96 and
+//   2,080) wins up to 39,936 lanes, one thread from 45,056 (a k = 17
+//   column) at every width measured. Loading the next member and its base
+//   word before each add measured no faster. (redesign_variants.py --only
+//   glv|bucket; NVIDIA H100 80GB HBM3, 700 W; each a launch from a CUDA
+//   graph; PERF.md.)
 #include "field.cuh"
 
 using namespace h2t;
@@ -496,9 +523,17 @@ static const int kMaxThreads = 128;
 // the most lanes a cooperative kernel takes (its thread index is 32-bit)
 static const long long kMaxGroupLanes = (1LL << 32) / 4 - kMaxThreads;
 // B5 (B6) runs one lane a group of kGroup threads below kPdoubleLaneFrom
-// (kPdoubleMaskedLaneFrom) lanes, one thread a lane from there up
+// (kPdoubleMaskedLaneFrom) lanes, one thread a lane from there up; so do
+// the GLV ladder below kGlvLaneFrom and the bucket-run kernel below
+// kBucketLaneFrom
 static constexpr int kPdoubleLaneFrom = 30720;
 static constexpr int kPdoubleMaskedLaneFrom = 30720;
+static constexpr int kGlvLaneFrom = 32768;
+static constexpr int kBucketLaneFrom = 45056;
+// words of shared memory a group of the GLV ladder's group form: its three
+// table points (72 limbs) and a pad, so that the ranks' reads of one
+// coordinate of each of the warp's eight groups fall in distinct banks
+static constexpr int kGlvTabStride = 73;
 
 // B3: out[l] = mask[l] ? a[l] + src[j(l)] : a[l]. SRC_LANE: j = l;
 // SRC_ROLL: j = the lane `shift` (0 <= shift < width) places before l
@@ -608,6 +643,71 @@ glv_ladder_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ t1,
     rcb_add<F, true>(acc, r, q);
   }
   store_pt(out + l, L, acc);
+}
+
+// glv_ladder, one lane a group of kGroup threads (coop_double, coop_add):
+// rank r keeps coordinate c(r) of acc in registers. Ranks 0-2 stage
+// coordinate c(r) of the lane's three table points once a group in dynamic
+// shared memory (kGlvTabStride words a group); at an add each rank reads
+// coordinates c(r) and c(r) + 1 of point sel - 1. The bits are the same
+// for every lane, so the add is a branch that no warp diverges on.
+template <int F>
+__global__ void __launch_bounds__(kMaxThreads)
+glv_ladder_group_kernel(int32_t* __restrict__ out,
+                        const int32_t* __restrict__ t1,
+                        const int32_t* __restrict__ t2,
+                        const int32_t* __restrict__ t12, LadderBits bits,
+                        uint32_t nbits, uint32_t L) {
+  extern __shared__ uint32_t tab[];
+  const uint32_t g = threadIdx.x / kGroup;
+  const uint32_t l = blockIdx.x * (blockDim.x / kGroup) + g;
+  if (l >= L) return;  // whole groups: kGroup divides the block
+  const int r = threadIdx.x % kGroup;
+  const unsigned gm = group_mask();
+  const int c = r == 3 ? 0 : r, cn = nib(kNext, r);
+  const size_t row = (size_t)16 * c * L + l;
+  uint32_t* T = tab + kGlvTabStride * g;
+  uint32_t acc[8], a1[8], b0[8], b1[8];
+  if (r < 3) {
+    const int32_t* srcs[3] = {t1, t2, t12};
+#pragma unroll
+    for (int k = 0; k < 3; k++) {
+      load_rows(acc, srcs[k] + row, L);
+#pragma unroll
+      for (int i = 0; i < 8; i++) T[24 * k + 8 * r + i] = acc[i];
+    }
+  }
+  __syncwarp(gm);
+#pragma unroll
+  for (int i = 0; i < 8; i++) acc[i] = c == 1 ? Field<F>::one(i) : 0u;
+  uint32_t w1 = 0, w2 = 0;
+#pragma unroll 1
+  for (uint32_t s = 0; s < nbits; s++) {
+    if ((s & 31) == 0) {
+      // the words of steps s..s+31, read by constant index from the
+      // parameters (no copy in local memory)
+#pragma unroll
+      for (int w = 0; w < 5; w++) {
+        if (w == (int)(s >> 5)) {
+          w1 = bits.b1[w];
+          w2 = bits.b2[w];
+        }
+      }
+    }
+    coop_double<F, true>(acc, acc, r, gm);
+    const uint32_t b = s & 31;
+    const uint32_t sel = ((w1 >> b) & 1u) | (((w2 >> b) & 1u) << 1);
+    if (sel == 0) continue;
+    shfl8(a1, acc, cn, gm);
+    const uint32_t* e = T + 24 * (sel - 1);
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      b0[i] = e[8 * c + i];
+      b1[i] = e[8 * cn + i];
+    }
+    coop_add<F, true>(acc, acc, a1, b0, b1, r, gm);
+  }
+  if (r < 3) store_rows(out + row, L, acc);
 }
 
 // scalar_mul_ladder: acc = O; for s = nbits - 1 down to 0: acc = 2 acc,
@@ -720,18 +820,22 @@ __global__ void pmixed_masked_kernel(int32_t* __restrict__ out,
 // m = members[row, starts[l] + r], acc = acc +/- bases[m & 0x7fffffff],
 // negated where bit 31 of m is set; identity-coded bases are skipped.
 // bases: point-major packed [n][16] words (x limbs 0-7, y limbs 0-7), 64 B
-// per point, read as four 16-byte loads. The products are called, not
-// inlined (see the design note).
+// per point, read as four 16-byte loads. Thread (or group) i serves lane
+// lanes[i], a permutation of the lanes: sorted by run length, a warp's
+// runs are alike (see the design note). The products are called, not
+// inlined.
 template <int F>
 __global__ void __launch_bounds__(kMaxThreads)
 pmixed_bucket_runs_kernel(int32_t* __restrict__ out,
                           const uint4* __restrict__ bases,
                           const int32_t* __restrict__ members,
                           const int32_t* __restrict__ starts,
-                          const int32_t* __restrict__ counts, uint32_t BL,
+                          const int32_t* __restrict__ counts,
+                          const int32_t* __restrict__ lanes, uint32_t BL,
                           uint32_t n, uint32_t L) {
-  const uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L) return;
+  const uint32_t l = (uint32_t)lanes[i];
   const size_t run = (size_t)(l / BL) * n + (uint32_t)starts[l];
   const int32_t cnt = counts[l];
   Pt acc;
@@ -764,6 +868,66 @@ pmixed_bucket_runs_kernel(int32_t* __restrict__ out,
     acc = r2;
   }
   store_pt(out + l, L, acc);
+}
+
+// pmixed_bucket_runs, one lane a group of kGroup threads: coop_add with
+// Z2 = mont(1), which gives Alg 8's field values bit for bit (t2 = Z1,
+// t4 = Y1 + Y2 Z1, xz = X1 + X2 Z1, b3z = 15 Z1), so the sums are the
+// one-thread form's. Rank r keeps coordinate c(r) of acc, loads 16-byte
+// word r of the member's packed base, and the group exchanges the four
+// words by shuffles: each base is read once a group. A whole group skips
+// an identity-coded base; a member with bit 31 set negates Y, as the
+// one-thread form does.
+template <int F>
+__global__ void __launch_bounds__(kMaxThreads)
+pmixed_bucket_runs_group_kernel(int32_t* __restrict__ out,
+                                const uint4* __restrict__ bases,
+                                const int32_t* __restrict__ members,
+                                const int32_t* __restrict__ starts,
+                                const int32_t* __restrict__ counts,
+                                const int32_t* __restrict__ lanes,
+                                uint32_t BL, uint32_t n, uint32_t L) {
+  const uint32_t i = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (i >= L) return;  // whole groups: kGroup divides the block
+  const uint32_t l = (uint32_t)lanes[i];
+  const int r = threadIdx.x % kGroup;
+  const unsigned gm = group_mask();
+  const int c = r == 3 ? 0 : r, cn = nib(kNext, r);
+  const int32_t* run = members + (size_t)(l / BL) * n + (uint32_t)starts[l];
+  const int32_t cnt = counts[l];
+  uint32_t acc[8], a1[8], b0[8], b1[8], one[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    one[i] = Field<F>::one(i);
+    acc[i] = c == 1 ? one[i] : 0u;
+  }
+#pragma unroll 1
+  for (int32_t k = 0; k < cnt; k++) {
+    const int32_t m = run[k];
+    const uint4 q = bases[(size_t)(m & 0x7fffffff) * 4 + r];
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+    uint32_t x2[8], y2[8];
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      x2[i] = __shfl_sync(gm, w[i], 0, kGroup);
+      x2[4 + i] = __shfl_sync(gm, w[i], 1, kGroup);
+      y2[i] = __shfl_sync(gm, w[i], 2, kGroup);
+      y2[4 + i] = __shfl_sync(gm, w[i], 3, kGroup);
+    }
+    // identity base marker: X == 0 and Y == mont(1), masked off as B2 does
+    if (is_zero(x2) && is_one<F>(y2)) continue;
+    if (m < 0) {
+      // -B = (x, p - y), as B2
+      uint32_t p[8];
+      load_p<F>(p);
+      sub_raw(y2, p, y2);
+    }
+    select3(b0, c, x2, y2, one);
+    select3(b1, c, y2, one, x2);
+    shfl8(a1, acc, cn, gm);
+    coop_add<F, true>(acc, acc, a1, b0, b1, r, gm);
+  }
+  if (r < 3) store_rows(out + (size_t)16 * c * L + l, L, acc);
 }
 
 // B4: out = a + b, one lane a group of kGroup threads (coop_add, the
@@ -896,28 +1060,63 @@ extern "C" int h2t_padd_masked(int field, void* out, const void* a,
   return (int)cudaGetLastError();
 }
 
+// Whether a form of `threads` threads a lane (1 or kGroup) takes L lanes
+// (its thread index is 32-bit)
+static bool form_takes(int threads, long long L) {
+  return (threads == 1 || threads == kGroup) &&
+         L <= (1LL << 32) / threads - kMaxThreads;
+}
+
+// The GLV ladder over L lanes in the form of `threads` threads a lane (1 or
+// kGroup): L x threads threads in blocks of spread_threads(L x threads).
 // bits1/bits2: host arrays of 5 words each (LadderBits); nbits <= 160
-extern "C" int h2t_glv_ladder(int field, void* out, const void* t1,
-                              const void* t2, const void* t12,
-                              const uint32_t* bits1, const uint32_t* bits2,
-                              int nbits, long long L, void* stream) {
+extern "C" int h2t_glv_ladder_form(int threads, int field, void* out,
+                                   const void* t1, const void* t2,
+                                   const void* t12, const uint32_t* bits1,
+                                   const uint32_t* bits2, int nbits,
+                                   long long L, void* stream) {
   if (L <= 0) return 0;
-  if (nbits < 0 || nbits > 160) return (int)cudaErrorInvalidValue;
+  if (!form_takes(threads, L) || nbits < 0 || nbits > 160)
+    return (int)cudaErrorInvalidValue;
   LadderBits bits;
   for (int w = 0; w < 5; w++) {
     bits.b1[w] = bits1[w];
     bits.b2[w] = bits2[w];
   }
-  const int threads = spread_threads(L);
-  dim3 grid((unsigned)((L + threads - 1) / threads));
-  const size_t shmem = (size_t)72 * sizeof(uint32_t) * threads;
-  void (*k)(int32_t*, const int32_t*, const int32_t*, const int32_t*,
-            LadderBits, uint32_t, uint32_t) =
-      field == 0 ? glv_ladder_kernel<0> : glv_ladder_kernel<1>;
-  k<<<grid, threads, shmem, (cudaStream_t)stream>>>(
-      (int32_t*)out, (const int32_t*)t1, (const int32_t*)t2,
-      (const int32_t*)t12, bits, (uint32_t)nbits, (uint32_t)L);
+  typedef void (*Kern)(int32_t*, const int32_t*, const int32_t*,
+                       const int32_t*, LadderBits, uint32_t, uint32_t);
+  static const Kern kerns[2][2] = {
+      {glv_ladder_kernel<0>, glv_ladder_group_kernel<0>},
+      {glv_ladder_kernel<1>, glv_ladder_group_kernel<1>}};
+  const long long n = L * threads;
+  const int block = spread_threads(n);
+  dim3 grid((unsigned)((n + block - 1) / block));
+  const size_t words = threads == 1
+                          ? (size_t)72 * block
+                          : (size_t)kGlvTabStride * (block / kGroup);
+  kerns[field != 0][threads == kGroup]
+      <<<grid, block, words * sizeof(uint32_t), (cudaStream_t)stream>>>(
+          (int32_t*)out, (const int32_t*)t1, (const int32_t*)t2,
+          (const int32_t*)t12, bits, (uint32_t)nbits, (uint32_t)L);
   return (int)cudaGetLastError();
+}
+
+// The form of the GLV ladder (the bucket-run kernel) at L lanes: the faster
+// one measured at that width (see the design note)
+static int glv_threads(long long L) {
+  return L >= kGlvLaneFrom ? 1 : kGroup;
+}
+
+static int bucket_threads(long long L) {
+  return L >= kBucketLaneFrom ? 1 : kGroup;
+}
+
+extern "C" int h2t_glv_ladder(int field, void* out, const void* t1,
+                              const void* t2, const void* t12,
+                              const uint32_t* bits1, const uint32_t* bits2,
+                              int nbits, long long L, void* stream) {
+  return h2t_glv_ladder_form(glv_threads(L), field, out, t1, t2, t12, bits1,
+                             bits2, nbits, L, stream);
 }
 
 // digits [T, 16] (lane l reads row l % T); nbits <= 256; lo and out2
@@ -953,22 +1152,48 @@ extern "C" int h2t_pmixed_masked(int field, void* out, const void* a,
                       (uint32_t)L);
 }
 
-// bases [n][16] packed words, members [L / BL][n], starts and counts [L]
+// The bucket-run kernel over L lanes in the form of `threads` threads a
+// lane (1 or kGroup), in blocks of spread_threads(L x threads). bases
+// [n][16] packed words, members [L / BL][n], starts and counts [L], lanes
+// [L] a permutation of 0..L-1 (thread or group i serves lane lanes[i])
+extern "C" int h2t_pmixed_bucket_runs_form(int threads, int field, void* out,
+                                           const void* bases,
+                                           const void* members,
+                                           const void* starts,
+                                           const void* counts,
+                                           const void* lanes, long long BL,
+                                           long long n, long long L,
+                                           void* stream) {
+  if (L <= 0) return 0;
+  if (!form_takes(threads, L) || BL <= 0 || L % BL != 0 || n <= 0 ||
+      lanes == nullptr)
+    return (int)cudaErrorInvalidValue;
+  typedef void (*Kern)(int32_t*, const uint4*, const int32_t*,
+                       const int32_t*, const int32_t*, const int32_t*,
+                       uint32_t, uint32_t, uint32_t);
+  static const Kern kerns[2][2] = {
+      {pmixed_bucket_runs_kernel<0>, pmixed_bucket_runs_group_kernel<0>},
+      {pmixed_bucket_runs_kernel<1>, pmixed_bucket_runs_group_kernel<1>}};
+  const long long nt = L * threads;
+  const int block = spread_threads(nt);
+  dim3 grid((unsigned)((nt + block - 1) / block));
+  kerns[field != 0][threads == kGroup]
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          (int32_t*)out, (const uint4*)bases, (const int32_t*)members,
+          (const int32_t*)starts, (const int32_t*)counts,
+          (const int32_t*)lanes, (uint32_t)BL, (uint32_t)n, (uint32_t)L);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int h2t_pmixed_bucket_runs(int field, void* out,
                                       const void* bases, const void* members,
                                       const void* starts, const void* counts,
-                                      long long BL, long long n, long long L,
+                                      const void* lanes, long long BL,
+                                      long long n, long long L,
                                       void* stream) {
-  if (L <= 0) return 0;
-  if (BL <= 0 || L % BL != 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = spread_threads(L);
-  dim3 grid((unsigned)((L + threads - 1) / threads));
-  auto kern = field ? pmixed_bucket_runs_kernel<1> : pmixed_bucket_runs_kernel<0>;
-  kern<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (int32_t*)out, (const uint4*)bases, (const int32_t*)members,
-      (const int32_t*)starts, (const int32_t*)counts, (uint32_t)BL,
-      (uint32_t)n, (uint32_t)L);
-  return (int)cudaGetLastError();
+  return h2t_pmixed_bucket_runs_form(bucket_threads(L), field, out, bases,
+                                     members, starts, counts, lanes, BL, n,
+                                     L, stream);
 }
 
 // L x kGroup threads in blocks of spread_threads(L x kGroup)
@@ -992,9 +1217,7 @@ extern "C" int h2t_pdouble_form(int threads, int field, void* out,
                                 const void* a, const void* mask, long long L,
                                 void* stream) {
   if (L <= 0) return 0;
-  if ((threads != 1 && threads != kGroup) ||
-      L > (1LL << 32) / threads - kMaxThreads)
-    return (int)cudaErrorInvalidValue;
+  if (!form_takes(threads, L)) return (int)cudaErrorInvalidValue;
   typedef void (*Kern)(int32_t*, const int32_t*, const int32_t*, uint32_t);
   static const Kern kerns[2][2][2] = {
       {{pdouble_lane_kernel<0, false>, pdouble_group_kernel<0, false>},

@@ -53,13 +53,17 @@ _ARGTYPES = {
         "h2t_padd_masked": [_I, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
                             _LL, _P],
         "h2t_pmixed_masked": [_I, _P, _P, _P, _P, _P, _LL, _P],
-        "h2t_pmixed_bucket_runs": [_I, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                                   _P],
+        "h2t_pmixed_bucket_runs": [_I, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                                   _LL, _P],
+        "h2t_pmixed_bucket_runs_form": [_I, _I, _P, _P, _P, _P, _P, _P,
+                                        _LL, _LL, _LL, _P],
         "h2t_padd": [_I, _P, _P, _P, _LL, _P],
         "h2t_pdouble": [_I, _P, _P, _LL, _P],
         "h2t_pdouble_masked": [_I, _P, _P, _P, _LL, _P],
         "h2t_pdouble_form": [_I, _I, _P, _P, _P, _LL, _P],
         "h2t_glv_ladder": [_I, _P, _P, _P, _P, _U32P, _U32P, _I, _LL, _P],
+        "h2t_glv_ladder_form": [_I, _I, _P, _P, _P, _P, _U32P, _U32P, _I,
+                                _LL, _P],
         "h2t_scalar_mul_ladder": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _P],
     },
     "mxu_kernels": {

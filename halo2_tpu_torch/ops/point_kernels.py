@@ -17,8 +17,9 @@ complete formulas for a = 0, b3 = 15 (eprint 2015/1060, Alg 7, 8 and 9).
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches csrc/point_kernels.cu or raises. `LAUNCHES` counts
 kernel launches. B4 and the scalar ladder run one lane on a group of four
-threads, B5 and B6 too below a lane count set in the .cu; their results
-are the same as one thread's, bit for bit.
+threads; B5, B6, the GLV ladder and the bucket-run kernel too below lane
+counts set in the .cu. Their results are the same as one thread's, bit
+for bit.
 """
 from __future__ import annotations
 
@@ -342,19 +343,24 @@ def _pack_bits(bits):
     return (ctypes.c_uint32 * 5)(*words)
 
 
-def glv_ladder_flat(df, t1: torch.Tensor, t2: torch.Tensor, t12: torch.Tensor,
-                    bits1, bits2) -> torch.Tensor:
-    """The GLV double-and-add ladder on [48, L] tables (one launch of the
-    fused kernel on CUDA): acc = O, then for each bit pair, most
-    significant first, acc = 2 acc (RCB Alg 9) and, where
-    sel = b1 + 2 b2 != 0, acc = acc + {t1, t2, t12}[sel] (RCB Alg 7).
-    bits1, bits2: equal-length sequences of 0/1, at most 160."""
+def _check_glv(t1, t2, t12, bits1, bits2) -> None:
     L = t1.shape[1]
     for x, what in ((t1, "t1"), (t2, "t2"), (t12, "t12")):
         _check_batch(x, 3 * NLIMBS, L, what)
     if len(bits1) != len(bits2) or len(bits1) > 160:
         raise TypeError(f"bits: {len(bits1)} and {len(bits2)} steps; "
                         f"want equal counts of at most 160")
+
+
+def glv_ladder_flat(df, t1: torch.Tensor, t2: torch.Tensor, t12: torch.Tensor,
+                    bits1, bits2) -> torch.Tensor:
+    """The GLV double-and-add ladder on [48, L] tables (one launch of the
+    fused kernel on CUDA, in the form that csrc/point_kernels.cu picks by
+    lane count): acc = O, then for each bit pair, most significant first,
+    acc = 2 acc (RCB Alg 9) and, where sel = b1 + 2 b2 != 0,
+    acc = acc + {t1, t2, t12}[sel] (RCB Alg 7). bits1, bits2: equal-length
+    sequences of 0/1, at most 160."""
+    _check_glv(t1, t2, t12, bits1, bits2)
     if not _dispatch(t1):
         return glv_ladder_plain(df, t1, t2, t12, bits1, bits2)
     return _launch("glv_ladder", df, t1.contiguous(), t2.contiguous(),
@@ -439,16 +445,7 @@ def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,
                    _flags(mask, L, "mask"), _flags(signs, L, "signs"))
 
 
-def pmixed_bucket_runs(df, bases: torch.Tensor, members: torch.Tensor,
-                       starts: torch.Tensor, counts: torch.Tensor, BL: int
-                       ) -> torch.Tensor:
-    """[48, L] bucket sums of an affine-base commit (one launch of the
-    bucket-run kernel on CUDA): lane l, bucket l % BL of window row
-    l // BL, adds +/- bases[m & 0x7fffffff] for the members m of its run
-    members[l // BL, starts[l]:starts[l] + counts[l]], negated where bit
-    31 of m is set, from the identity and in order, with RCB Alg 8;
-    identity-coded bases are skipped. bases: [n, 16] from pack_affine;
-    members: int32 [G, n] from bucket_members; starts, counts: [G * BL]."""
+def _check_bucket_runs(bases, members, starts, BL) -> None:
     n = bases.shape[0]
     L = starts.shape[0]
     _check_batch(bases, n, NLIMBS, "bases")
@@ -456,10 +453,18 @@ def pmixed_bucket_runs(df, bases: torch.Tensor, members: torch.Tensor,
             members.shape[1] != n or members.shape[0] * BL != L:
         raise TypeError(f"members: expected int32 [{L // max(BL, 1)}, {n}],"
                         f" got {members.dtype} {tuple(members.shape)}")
-    if not _dispatch(bases):
-        return pmixed_bucket_runs_plain(df, bases, members, starts, counts,
-                                        BL)
+
+
+def _launch_bucket_runs(df, bases, members, starts, counts, BL,
+                        threads=None) -> torch.Tensor:
+    """One launch of the bucket-run kernel: in the form that
+    csrc/point_kernels.cu picks by lane count (threads None) or in that of
+    `threads` threads a lane. The kernel serves the lanes longest run
+    first (a map sorted on the card), so that a warp's runs are alike;
+    each lane's sum is the same whichever thread makes it."""
     from . import cuda_build
+    n = bases.shape[0]
+    L = starts.shape[0]
     out = torch.empty((3 * NLIMBS, L), dtype=torch.int32,
                       device=bases.device)
     if L == 0:
@@ -468,12 +473,37 @@ def pmixed_bucket_runs(df, bases: torch.Tensor, members: torch.Tensor,
     # earlier could hand its memory to the next conversion
     bases, members = bases.contiguous(), members.contiguous()
     starts, counts = _flags(starts, L, "starts"), _flags(counts, L, "counts")
-    rc = cuda_build.library("point_kernels").h2t_pmixed_bucket_runs(
-        df.field_id, out.data_ptr(), bases.data_ptr(), members.data_ptr(),
-        starts.data_ptr(), counts.data_ptr(), BL, n, L,
-        cuda_build.stream_ptr(bases.device))
+    lanes = torch.argsort(counts, descending=True).to(torch.int32)
+    lib = cuda_build.library("point_kernels")
+    args = (df.field_id, out.data_ptr(), bases.data_ptr(), members.data_ptr(),
+            starts.data_ptr(), counts.data_ptr(), lanes.data_ptr(), BL, n, L,
+            cuda_build.stream_ptr(bases.device))
+    if threads is None:
+        rc = lib.h2t_pmixed_bucket_runs(*args)
+    else:
+        rc = lib.h2t_pmixed_bucket_runs_form(threads, *args)
     cuda_build.check(rc, "pmixed_bucket_runs")
-    LAUNCHES["pmixed_bucket_runs"] += 1
+    return out
+
+
+def pmixed_bucket_runs(df, bases: torch.Tensor, members: torch.Tensor,
+                       starts: torch.Tensor, counts: torch.Tensor, BL: int
+                       ) -> torch.Tensor:
+    """[48, L] bucket sums of an affine-base commit (one launch of the
+    bucket-run kernel on CUDA, in the form that csrc/point_kernels.cu picks
+    by lane count): lane l, bucket l % BL of window row l // BL, adds
+    +/- bases[m & 0x7fffffff] for the members m of its run
+    members[l // BL, starts[l]:starts[l] + counts[l]], negated where bit
+    31 of m is set, from the identity and in order, with RCB Alg 8;
+    identity-coded bases are skipped. bases: [n, 16] from pack_affine;
+    members: int32 [G, n] from bucket_members; starts, counts: [G * BL]."""
+    _check_bucket_runs(bases, members, starts, BL)
+    if not _dispatch(bases):
+        return pmixed_bucket_runs_plain(df, bases, members, starts, counts,
+                                        BL)
+    out = _launch_bucket_runs(df, bases, members, starts, counts, BL)
+    if out.shape[1]:
+        LAUNCHES["pmixed_bucket_runs"] += 1
     return out
 
 
@@ -509,24 +539,29 @@ def pdouble_masked_flat(df, a: torch.Tensor, mask: torch.Tensor
                    _flags(mask, L, "mask"))
 
 
-# the forms of B5 and B6 by threads a lane (h2t_pdouble_form)
-PDOUBLE_FORMS = {"lane": 1, "group": 4}
+# the forms of B5, B6, the GLV ladder and the bucket-run kernel by threads
+# a lane (h2t_*_form)
+FORMS = {"lane": 1, "group": 4}
+
+
+def _on_card(what: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} launches a CUDA kernel; its operand is on "
+                         f"{x.device}")
 
 
 def pdouble_form(df, a: torch.Tensor, threads: int, mask=None
                  ) -> torch.Tensor:
     """B5 (B6 given a mask) on a [48, L] batch on the card in the form of
-    `threads` threads a lane (a value of PDOUBLE_FORMS), where
-    pdouble_flat and pdouble_masked_flat take the form by lane count. On
-    no path and counted nowhere: it holds each form to the plain versions
-    at any width."""
+    `threads` threads a lane (a value of FORMS), where pdouble_flat and
+    pdouble_masked_flat take the form by lane count. On no path and
+    counted nowhere: it holds each form to the plain versions at any
+    width."""
     from . import cuda_build
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     mask = None if mask is None else _flags(mask, L, "mask")
-    if a.device.type != "cuda":
-        raise ValueError(f"pdouble_form launches a CUDA kernel; a is on "
-                         f"{a.device}")
+    _on_card("pdouble_form", a)
     a = a.contiguous()
     out = torch.empty_like(a)
     if L:
@@ -535,6 +570,41 @@ def pdouble_form(df, a: torch.Tensor, threads: int, mask=None
             _arg(mask), L, cuda_build.stream_ptr(a.device))
         cuda_build.check(rc, f"pdouble_form({threads})")
     return out
+
+
+def glv_ladder_form(df, t1: torch.Tensor, t2: torch.Tensor,
+                    t12: torch.Tensor, bits1, bits2, threads: int
+                    ) -> torch.Tensor:
+    """glv_ladder_flat on the card in the form of `threads` threads a lane
+    (a value of FORMS), where glv_ladder_flat takes the form by lane count.
+    On no path and counted nowhere: it holds each form to the plain
+    version at any width."""
+    from . import cuda_build
+    _check_glv(t1, t2, t12, bits1, bits2)
+    _on_card("glv_ladder_form", t1)
+    t1, t2, t12 = t1.contiguous(), t2.contiguous(), t12.contiguous()
+    out = torch.empty_like(t1)
+    if t1.shape[1]:
+        rc = cuda_build.library("point_kernels").h2t_glv_ladder_form(
+            threads, df.field_id, out.data_ptr(), t1.data_ptr(),
+            t2.data_ptr(), t12.data_ptr(), _pack_bits(bits1),
+            _pack_bits(bits2), len(bits1), t1.shape[1],
+            cuda_build.stream_ptr(t1.device))
+        cuda_build.check(rc, f"glv_ladder_form({threads})")
+    return out
+
+
+def pmixed_bucket_runs_form(df, bases: torch.Tensor, members: torch.Tensor,
+                            starts: torch.Tensor, counts: torch.Tensor,
+                            BL: int, threads: int) -> torch.Tensor:
+    """pmixed_bucket_runs on the card in the form of `threads` threads a
+    lane (a value of FORMS), where pmixed_bucket_runs takes the form by
+    lane count. On no path and counted nowhere: it holds each form to the
+    plain version at any width."""
+    _check_bucket_runs(bases, members, starts, BL)
+    _on_card("pmixed_bucket_runs_form", bases)
+    return _launch_bucket_runs(df, bases, members, starts, counts, BL,
+                               threads)
 
 
 # ---------------------------------------------------------------------------

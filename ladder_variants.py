@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Time design variants of the fused GLV ladder kernel on one NVIDIA GPU.
 
-The ladder (csrc/point_kernels.cu::glv_ladder_kernel) runs 130 steps of a
-doubling and an add in one launch. This script builds three variants of
-csrc/point_kernels.cu side by side and times each at 2^13, 2^15, 26,624
-and 2^17 lanes, with the standalone B5 and B3 kernels beside it:
+The ladder (csrc/point_kernels.cu::glv_ladder_kernel, its form of one
+thread a lane, launched through h2t_glv_ladder_form) runs 130 steps of a
+doubling and an add in one launch; redesign_variants.py --only glv times
+it beside the form of one lane a group of four threads. This script
+builds three variants of csrc/point_kernels.cu side by side and times
+each at 2^13, 2^15, 26,624 and 2^17 lanes, with the standalone B5 and B3
+kernels beside it:
 
   call    the source as it is: the ladder calls the Montgomery product
           (mont_mul_call) instead of inlining it;
@@ -240,8 +243,8 @@ def main() -> int:
         for name, lib in libs.items():
             out = torch.empty_like(t1)
             o2 = torch.empty_like(t1)
-            ms = timed(lambda: lib.h2t_glv_ladder(
-                0, out.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+            ms = timed(lambda: lib.h2t_glv_ladder_form(
+                1, 0, out.data_ptr(), t1.data_ptr(), t2.data_ptr(),
                 t12.data_ptr(), bits[0], bits[1], NBITS, L, stream), 3)
             ref = out.clone() if ref is None else ref
             b5 = timed(lambda: lib.h2t_pdouble(

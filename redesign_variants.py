@@ -5,15 +5,29 @@ beside the source as it is, in one process.
 Copies of csrc/ are patched and built side by side under the gitignored
 halo2_tpu_torch/_build/variants/:
 
-  the bucket-run kernel (csrc/point_kernels.cu::pmixed_bucket_runs_kernel),
-  a whole commit's bucket phase at a k = 14 advice commit's 26,624 lanes
-  and a k = 18 commit's 163,840 (two columns of random scalars over 2^k
-  PALLAS bases, 2^14 native SRS points repeated):
-    call       the source: every Montgomery product a call (mont_mul_call)
-    inline     the products inlined, as the one-step kernels have them
-    call_cc, inline_cc
-               the same with the carry-chain product MONT_MUL_CC (PTX
-               mad.lo.cc / madc.hi.cc) in place of mont_mul
+  the GLV ladder (csrc/point_kernels.cu::glv_ladder_*kernel), one IPA fold
+  round's 130 random bit pairs on tables of random PALLAS points, at
+  GLV_WIDTHS lanes (1, 2 and the halves of the device fold rounds, 2^10 to
+  2^17) and the sweep GLV_SWEEP between 2^14 and 2^17:
+    lane, group
+               the source's forms (h2t_glv_ladder_form): one thread a lane,
+               one lane a group of four threads (coop_double, coop_add)
+    group_inline
+               the group form with its products inlined (GLV_INLINE)
+  the bucket-run kernel (pmixed_bucket_runs_*kernel), a whole commit's
+  bucket phase on m columns of random scalars over 2^k PALLAS bases (2^14
+  native SRS points, repeated past 2^14) at BUCKET_COMMITS (one K = 11
+  column, 7,424 lanes, to two k = 18 columns, 163,840) and the sweep
+  BUCKET_SWEEP between them:
+    lane, group
+               the source's forms (h2t_pmixed_bucket_runs_form) on the
+               lanes sorted by run length, longest first, as the wrapper
+               sorts them (the argsort timed apart)
+    group_prefetch
+               the group form loading the next member and its base word
+               before the current add (BUCKET_PREFETCH)
+    lane_unsorted, group_unsorted
+               the source's forms on the lanes in order
   B7 (csrc/ntt_kernels.cu), forward on the PALLAS scalar field, per
   transform at 2^10, 2^16 and 2^20 with 1 and 4 columns:
     pass       the source: two passes (one up to 2^10)
@@ -65,16 +79,18 @@ halo2_tpu_torch/_build/variants/:
                resident an SM, its registers capped to fit them
   and chip_smoke.py's [horner] combine of two lanes (c B5 and one B4
   launch a window) with B5 in the fixed form and in the form h2t_pdouble
-  picks; with --json PATH, every number also in a JSON file.
+  picks. With --json PATH, every number of the glv, bucket and double
+  groups also goes to a JSON file, keyed by group.
 
-Every variant's output must equal the source's bit for bit (B7's and B5's
-and B6's also the plain version's). Each is timed from a CUDA graph and by
-torch.profiler (chip_smoke.py's graph_ms and device_ms); per variant the
-timed kernel's registers (nvcc -Xptxas -v) and SASS instructions
-(cuobjdump -sass).
+Every variant's output must equal the source's bit for bit (B7's, B5's,
+B6's, the GLV ladder's and the bucket-run kernel's also the plain
+version's). Each is timed from a CUDA graph (and, but for the GLV ladder
+and the bucket-run kernel, by torch.profiler: chip_smoke.py's graph_ms and
+device_ms); per variant the timed kernel's registers (nvcc -Xptxas -v)
+and SASS instructions (cuobjdump -sass).
 
-Run from the repository root (--only runs one of the four groups):
-    python3 redesign_variants.py [--only bucket|ntt|points|double]
+Run from the repository root (--only runs one of the six groups):
+    python3 redesign_variants.py [--only glv|bucket|ntt|points|double]
                                  [--json PATH] [OLD_CHECKOUT]
 """
 from __future__ import annotations
@@ -163,7 +179,42 @@ __device__ __forceinline__ void mont_mul_cc(uint32_t r[8], const uint32_t a[8],
 }
 '''
 
-INLINE_CALL = "rcb_mixed_add<F, true>(r2, acc, x2, y2)"
+# the GLV ladder's group form with its step's products inlined
+GLV_INLINE = (
+    ("    coop_double<F, true>(acc, acc, r, gm);\n"
+     "    const uint32_t b = s & 31;\n",
+     "    coop_double<F, false>(acc, acc, r, gm);\n"
+     "    const uint32_t b = s & 31;\n"),
+    ("    coop_add<F, true>(acc, acc, a1, b0, b1, r, gm);\n  }\n"
+     "  if (r < 3) store_rows(out + row, L, acc);\n",
+     "    coop_add<F, false>(acc, acc, a1, b0, b1, r, gm);\n  }\n"
+     "  if (r < 3) store_rows(out + row, L, acc);\n"))
+
+# the bucket-run kernel's group form with a prefetch: the next member and
+# its base word loaded before the current add, so that the add's latency
+# hides theirs
+BUCKET_PREFETCH = ((
+    """#pragma unroll 1
+  for (int32_t k = 0; k < cnt; k++) {
+    const int32_t m = run[k];
+    const uint4 q = bases[(size_t)(m & 0x7fffffff) * 4 + r];
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+""", """  int32_t mn = 0;
+  uint4 qn = make_uint4(0u, 0u, 0u, 0u);
+  if (cnt > 0) {
+    mn = run[0];
+    qn = bases[(size_t)(mn & 0x7fffffff) * 4 + r];
+  }
+#pragma unroll 1
+  for (int32_t k = 0; k < cnt; k++) {
+    const int32_t m = mn;
+    const uint32_t w[4] = {qn.x, qn.y, qn.z, qn.w};
+    if (k + 1 < cnt) {
+      mn = run[k + 1];
+      qn = bases[(size_t)(mn & 0x7fffffff) * 4 + r];
+    }
+"""),)
+
 
 # B4 and the scalar-multiplication ladder one thread a lane, as they were
 # before the group of four threads replaced them
@@ -628,12 +679,11 @@ LADDER_INLINE = tuple(
 
 
 def make_variant(name: str, src: str, source: str, cc: bool = False,
-                 inline: bool = False, patches=(), append: str = "") -> str:
+                 patches=(), append: str = "") -> str:
     """Copy field.cuh and `source` from the directory src to OUT/name,
     patched: cc puts MONT_MUL_CC in place of every mont_mul of the source,
-    inline inlines the bucket-run kernel's products, each (old, new) of
-    `patches` replaces old (which must be there) with new, and `append`
-    goes at the end."""
+    each (old, new) of `patches` replaces old (which must be there) with
+    new, and `append` goes at the end."""
     d = os.path.join(OUT, name)
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(src, "field.cuh")) as fh:
@@ -646,9 +696,6 @@ def make_variant(name: str, src: str, source: str, cc: bool = False,
         hdr = hdr.replace(end, MONT_MUL_CC + "\n" + end)
         assert "mont_mul<F>(" in s
         s = s.replace("mont_mul<F>(", "mont_mul_cc<F>(")
-    if inline:
-        assert INLINE_CALL in s
-        s = s.replace(INLINE_CALL, INLINE_CALL.replace("true", "false"))
     for a, b in patches:
         assert a in s, a
         s = s.replace(a, b)
@@ -660,10 +707,16 @@ def make_variant(name: str, src: str, source: str, cc: bool = False,
     return os.path.join(d, source)
 
 
+# {variant: {kernel: {"ptxas": registers line, "sass": instructions}}} of
+# every library build() made
+BUILD_INFO: dict = {}
+
+
 def build(variants: dict, kernel) -> dict:
     """{name: .cu path} -> {name: loaded library}, one nvcc each started
-    together; prints the registers and SASS size of the Fp instance of each
-    kernel whose name holds `kernel` (a fragment or a tuple of them)."""
+    together; prints (and keeps in BUILD_INFO) the registers and SASS size
+    of the Fp instance of each kernel whose name holds `kernel` (a fragment
+    or a tuple of them)."""
     kernel = (kernel,) if isinstance(kernel, str) else kernel
     import chip_smoke as cs
     from halo2_tpu_torch.ops import cuda_build as cb
@@ -683,14 +736,19 @@ def build(variants: dict, kernel) -> dict:
         if pr.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         lines = log.splitlines()
+        info = BUILD_INFO.setdefault(name, {})
         for i, line in enumerate(lines):
             if "entry function" in line and "ILi0E" in line and \
                     any(k in line for k in kernel):
-                print(f"[{name}] " + "; ".join(
-                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                    if "Compiling" not in x))
+                fn = line.split("'")[1] if "'" in line else line
+                regs = "; ".join(x.split(":", 1)[-1].strip()
+                                 for x in lines[i + 1:i + 4]
+                                 if "Compiling" not in x)
+                info.setdefault(fn, {})["ptxas"] = regs
+                print(f"[{name}] {regs}")
         for fn, count in cs.sass_counts(so).items():
             if "ILi0E" in fn and any(k in fn for k in kernel):
+                info.setdefault(fn, {})["sass"] = count
                 print(f"[{name}] {fn}: {count} SASS instructions")
         libs[name] = ctypes.CDLL(so)
     return libs
@@ -706,34 +764,147 @@ def check(rc: int) -> None:
         raise RuntimeError(f"CUDA launch failed: cudaError {rc}")
 
 
-def bucket_variants(dev) -> None:
+def _form_row(tag, L, variants, call, want, bound, reps, extra=""):
+    """Run each (name, launch) of `variants` once into the tensor call
+    returns, hold it to `want` bit for bit, time it from a CUDA graph
+    (reps replays) and print one line: {"L", "bound_ms", "bound_by",
+    "graph_ms": {name: ms}}."""
+    import torch
+    import chip_smoke as cs
+    bd, by = bound
+    row = {"L": L, "bound_ms": bd, "bound_by": by, "graph_ms": {}}
+    for name, launch in variants:
+        out = call(launch)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"[{tag}] {name} differs from the plain "
+                                 f"version at L={L}")
+        row["graph_ms"][name] = cs.graph_ms(lambda: call(launch), reps)
+    best = min(row["graph_ms"], key=row["graph_ms"].get)
+    print(f"[{tag}] L={L}{extra}: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in row["graph_ms"].items())
+        + f" ms a launch from a graph (bound {bd:.5f} ms by {by}); "
+        f"fastest {best}", flush=True)
+    return row
+
+
+# the GLV ladder's widths: 1 and 2 lanes (the last device fold rounds),
+# 2^10 to 2^17 (the first fold round at k = 11 to 18), and the sweep
+# between 2^14 and 2^17 that places kGlvLaneFrom
+GLV_WIDTHS = (1, 2, 1 << 10, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16,
+              1 << 17)
+GLV_SWEEP = (5 << 12, 3 << 13, 7 << 12, 5 << 13, 3 << 14, 7 << 13,
+             5 << 14, 3 << 15, 7 << 14)
+
+
+def glv_variants(dev) -> dict:
+    """The GLV ladder in both forms of the source and the group form with
+    inlined products, against glv_ladder_plain bit for bit at every width
+    of GLV_WIDTHS and GLV_SWEEP, each timed a launch from a CUDA graph
+    beside the bound chip_smoke.py counts (L x 4 x 192 bytes against
+    8 products a step and 12 an add)."""
+    import random
     import torch
     import chip_smoke as cs
     from halo2_tpu_torch.curves.host import PALLAS
     from halo2_tpu_torch.curves.native import native_srs_g
-    from halo2_tpu_torch.fields.device import DeviceField
+    from halo2_tpu_torch.fields.device import FP_DEV
+    from halo2_tpu_torch.ops import cuda_build as cb
+    from halo2_tpu_torch.ops import ipa_device as ipd
+    from halo2_tpu_torch.ops import point_kernels as pk
+    src = "point_kernels.cu"
+    libs = build({"source": make_variant("source", CSRC, src),
+                  "inline": make_variant("inline", CSRC, src,
+                                         patches=GLV_INLINE)},
+                 "glv_ladder")
+    for lib in libs.values():
+        f = lib.h2t_glv_ladder_form
+        f.argtypes = cb._ARGTYPES["point_kernels"]["h2t_glv_ladder_form"]
+        f.restype = ctypes.c_int
+    variants = [("lane", (libs["source"], 1)), ("group", (libs["source"], 4)),
+                ("group_inline", (libs["inline"], 4))]
+    df = FP_DEV
+    g = pk.points_to_proj(df, native_srs_g(PALLAS, "glv-variants", 1024),
+                          dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rng = random.Random(18)
+    nb = ipd.GLV_BITS
+    bits = ([rng.randrange(2) for _ in range(nb)],
+            [rng.randrange(2) for _ in range(nb)])
+    nsel = sum(1 for b1, b2 in zip(*bits) if b1 or b2)
+    packed = (pk._pack_bits(bits[0]), pk._pack_bits(bits[1]))
+    record = []
+    for L in sorted(GLV_WIDTHS + GLV_SWEEP):
+        pts, _ = cs._ladder_inputs(df, g, L, gen, edge=False)
+        t = ipd.glv_table(df, pts, 1, 0)
+        want = pk.glv_ladder_plain(df, *t, *bits)
+        out = torch.empty_like(pts)
+
+        def call(launch, t=t, out=out, L=L):
+            lib, threads = launch
+            check(lib.h2t_glv_ladder_form(
+                threads, df.field_id, out.data_ptr(), t[0].data_ptr(),
+                t[1].data_ptr(), t[2].data_ptr(), *packed, nb, L, stream()))
+            return out
+        bound = cs.bound_ms(L * 4 * 192,
+                            L * (8 * nb + 12 * nsel) * cs.MONT_MULADDS)
+        record.append(_form_row("glv", L, variants, call, want, bound, 5))
+    return {"widths": record, "nbits": nb, "adds": nsel}
+
+
+# the bucket-run kernel's widths: (k, columns) of commits, 2^k bases and
+# the window of pick_c(2^k): one K = 11 column (7,424 lanes, runs of 8 on
+# average), one and two k = 14 columns (13,312 and 26,624, runs of 32), one
+# k = 17 column (45,056, runs of 64), one and two k = 18 columns (81,920
+# and 163,840), and the sweep between them
+BUCKET_COMMITS = ((11, 1), (14, 1), (14, 2), (17, 1), (18, 1), (18, 2))
+BUCKET_SWEEP = ((11, 2), (11, 3), (16, 1), (14, 3), (16, 2), (14, 4),
+                (16, 3), (17, 2), (17, 3))
+
+
+def bucket_variants(dev) -> dict:
+    """The bucket-run kernel in both forms of the source on the lanes
+    sorted by run length (the map the wrapper builds) and in order, and
+    the group form with a prefetch, against pmixed_bucket_runs_plain bit
+    for bit at every (k, columns) of BUCKET_COMMITS and BUCKET_SWEEP, each
+    timed a launch from a CUDA graph beside the bound chip_smoke.py counts
+    (68 bytes a member and 200 a lane against 11 products a live member);
+    the sort's own time (CUDA events) beside them."""
+    import torch
+    import chip_smoke as cs
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FP_DEV
     from halo2_tpu_torch.ops import cuda_build as cb
     from halo2_tpu_torch.ops import msm_pippenger as mp
     from halo2_tpu_torch.ops import point_kernels as pk
     src = "point_kernels.cu"
-    libs = build({"call": make_variant("call", CSRC, src),
-                  "inline": make_variant("inline", CSRC, src, inline=True),
-                  "call_cc": make_variant("call_cc", CSRC, src, cc=True),
-                  "inline_cc": make_variant("inline_cc", CSRC, src, cc=True,
-                                            inline=True)},
-                 "pmixed_bucket_runs_kernel")
+    libs = build({"source": make_variant("source", CSRC, src),
+                  "prefetch": make_variant("prefetch", CSRC, src,
+                                           patches=BUCKET_PREFETCH)},
+                 "pmixed_bucket_runs")
     for lib in libs.values():
-        f = lib.h2t_pmixed_bucket_runs
-        f.argtypes = cb._ARGTYPES["point_kernels"]["h2t_pmixed_bucket_runs"]
+        f = lib.h2t_pmixed_bucket_runs_form
+        f.argtypes = cb._ARGTYPES["point_kernels"][
+            "h2t_pmixed_bucket_runs_form"]
         f.restype = ctypes.c_int
-    df = DeviceField(PALLAS.base)
+    # (library, threads a lane, the lanes sorted by run length or not)
+    variants = [("lane", (libs["source"], 1, True)),
+                ("group", (libs["source"], 4, True)),
+                ("group_prefetch", (libs["prefetch"], 4, True)),
+                ("lane_unsorted", (libs["source"], 1, False)),
+                ("group_unsorted", (libs["source"], 4, False))]
+    df = FP_DEV
     aff14 = pk.points_to_proj(df, native_srs_g(PALLAS, "bucket-variants",
                                                1 << 14), dev)[:32]
-    for k in (14, 18):
+    one = pk.mont_one(df, dev)[:, None]
+    record = []
+    for k, m in sorted(BUCKET_COMMITS + BUCKET_SWEEP,
+                       key=lambda km: cs.commit_lanes(*km)):
         n = 1 << k
-        aff = aff14.repeat(1, n >> 14).contiguous()
-        gen = torch.Generator(device=dev).manual_seed(k)
-        digits = torch.randint(0, 1 << 16, (2, n, 16), generator=gen,
+        aff = aff14.repeat(1, max(n >> 14, 1))[:, :n].contiguous()
+        gen = torch.Generator(device=dev).manual_seed(k * 8 + m)
+        digits = torch.randint(0, 1 << 16, (m, n, 16), generator=gen,
                                device=dev, dtype=torch.int32)
         digits[..., 15] >>= 2                    # below 2^254 < q
         runs = mp.bucket_runs(PALLAS, digits, mp.pick_c(n))
@@ -742,25 +913,44 @@ def bucket_variants(dev) -> None:
         starts = runs.starts_e.reshape(-1).to(torch.int32).contiguous()
         counts = runs.counts_e.reshape(-1).to(torch.int32).contiguous()
         L = starts.shape[0]
-        want = None
-        for name, lib in libs.items():
-            out = torch.empty((48, L), dtype=torch.int32, device=dev)
+        want = pk.pmixed_bucket_runs_plain(df, packed, members, starts,
+                                           counts, runs.BL)
+        out = torch.empty((48, L), dtype=torch.int32, device=dev)
+        # the lane maps: longest run first (as the wrapper sorts them),
+        # and the lanes in order
+        order = lambda counts=counts: torch.argsort(
+            counts, descending=True).to(torch.int32)
+        maps = {True: order(), False: torch.arange(
+            L, dtype=torch.int32, device=dev)}
+        sort_ms = cs.timed(order, 20)
 
-            def fn(lib=lib, out=out):
-                check(lib.h2t_pmixed_bucket_runs(
-                    df.field_id, out.data_ptr(), packed.data_ptr(),
-                    members.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                    runs.BL, n, L, stream()))
-            g = cs.graph_ms(fn, 5)
-            p = cs.device_ms(fn, 5, "pmixed_bucket_runs_kernel")
-            torch.cuda.synchronize()
-            want = out.clone() if want is None else want
-            same = torch.equal(out, want)
-            print(f"[bucket] k={k} L={L} runs up to {int(counts.max())} "
-                  f"{name}: {g:.5f} ms from a CUDA graph, {p:.5f} ms by the "
-                  f"profiler (equal to call: {same})")
-            if not same:
-                raise AssertionError(f"{name} differs at k={k}")
+        def call(launch, packed=packed, members=members, starts=starts,
+                 counts=counts, out=out, BL=runs.BL, n=n, L=L, maps=maps):
+            lib, threads, by_length = launch
+            check(lib.h2t_pmixed_bucket_runs_form(
+                threads, df.field_id, out.data_ptr(), packed.data_ptr(),
+                members.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                maps[by_length].data_ptr(), BL, n, L, stream()))
+            return out
+        total = int(counts.sum())
+        rows = torch.arange(L, device=dev) // runs.BL * n
+        r = torch.arange(int(counts.max()), device=dev)[:, None]
+        valid = r < counts[None]
+        mem = members.reshape(-1).long()[
+            rows + torch.where(valid, starts.long() + r, 0)] & 0x7FFFFFFF
+        ident = (aff[:16] == 0).all(0) & (aff[16:] == one).all(0)
+        live = total - int(ident[mem][valid].sum())
+        bound = cs.bound_ms(total * (64 + 4) + L * (8 + 192),
+                            live * 11 * cs.MONT_MULADDS)
+        row = _form_row("bucket", L, variants, call, want, bound, 5,
+                        f" (k={k}, {m} column{'s' if m > 1 else ''}, runs "
+                        f"up to {int(counts.max())}, mean "
+                        f"{total / L:.1f}; the argsort of the sorted map "
+                        f"{sort_ms:.5f} ms a call, not in the graph)")
+        row.update(k=k, columns=m, max_run=int(counts.max()),
+                   members=total, live=live, sort_ms=sort_ms)
+        record.append(row)
+    return {"widths": record}
 
 
 def ntt_variants(dev, old) -> None:
@@ -944,7 +1134,7 @@ DOUBLE_SWEEP = (1 << 10, 1 << 11, 1 << 12, 3 << 11, 3 << 12, 1 << 14,
                 1 << 19)
 
 
-def double_variants(dev, json_path=None) -> None:
+def double_variants(dev) -> dict:
     """B5 and B6 in every form (csrc/point_kernels.cu's lane and group
     through h2t_pdouble_form, the fixed form, the pair, B6's branch and
     vote builds and the one-thread form with a minimum of blocks) against
@@ -952,9 +1142,8 @@ def double_variants(dev, json_path=None) -> None:
     from a CUDA graph of 20 launches (and by the profiler at
     DOUBLE_WIDTHS), beside its bound; the launches of chip_smoke.py's
     [horner] combine (two lanes) from a graph, with B5 in the fixed form
-    and in the form h2t_pdouble picks. One line a width and kernel here,
-    every number in the JSON file at json_path if given."""
-    import json
+    and in the form h2t_pdouble picks. One line a width and kernel here;
+    returns every number."""
     import torch
     import chip_smoke as cs
     from halo2_tpu_torch.curves.host import PALLAS
@@ -988,11 +1177,11 @@ def double_variants(dev, json_path=None) -> None:
     # (name, entry, threads a lane, B5 too or B6 alone)
     variants = [("fixed", forms.h2t_pdouble_fixed, 1, True)] + [
         (name, forms.h2t_pdouble_form, t, True)
-        for name, t in pk.PDOUBLE_FORMS.items()] + [
+        for name, t in pk.FORMS.items()] + [
         ("pair", forms.h2t_pdouble_pair, 2, True)] + [
         (f"{name}_{how}", libs[how].h2t_pdouble_form, t, False)
         for how in ("branch", "vote", "vote_early")
-        for name, t in pk.PDOUBLE_FORMS.items()] + [
+        for name, t in pk.FORMS.items()] + [
         (f"lane_lb{n}", libs[f"lane_lb{n}"].h2t_pdouble_form, 1, True)
         for n in (5, 6, 8)]
     df = FP_DEV
@@ -1074,13 +1263,11 @@ def double_variants(dev, json_path=None) -> None:
           f"B5 and {W} B4 launches): " + ", ".join(
               f"{k} {v:.4f}" for k, v in horner.items())
           + " ms a combine from a graph", flush=True)
-    if json_path:
-        with open(json_path, "w") as fh:
-            json.dump({"widths": record, "horner": horner, "c": c, "W": W},
-                      fh)
+    return {"widths": record, "horner": horner, "c": c, "W": W}
 
 
 def main() -> int:
+    import json
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: redesign_variants.py needs a GPU",
@@ -1093,21 +1280,30 @@ def main() -> int:
     cs.bound_ms, cs.MONT_MULADDS = profiling.bound_ms, profiling.MONT_MULADDS
     cs.phase_card()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("bucket", "ntt", "points", "double"))
+    ap.add_argument("--only", choices=("glv", "bucket", "ntt", "points",
+                                       "double"))
     ap.add_argument("--json", default=None,
-                    help="write every number of --only double here")
+                    help="write every number of the glv, bucket and double "
+                         "groups here")
     ap.add_argument("old", nargs="?", default=None)
     args = ap.parse_args()
     shutil.rmtree(OUT, ignore_errors=True)
     dev = torch.device("cuda")
+    record = {}
+    if args.only in (None, "glv"):
+        record["glv"] = glv_variants(dev)
     if args.only in (None, "bucket"):
-        bucket_variants(dev)
+        record["bucket"] = bucket_variants(dev)
     if args.only in (None, "ntt"):
         ntt_variants(dev, args.old)
     if args.only in (None, "points"):
         point_variants(dev)
     if args.only in (None, "double"):
-        double_variants(dev, args.json)
+        record["double"] = double_variants(dev)
+    if args.json:
+        record["builds"] = BUILD_INFO
+        with open(args.json, "w") as fh:
+            json.dump(record, fh)
     return 0
 
 

@@ -7,8 +7,11 @@ version's (fmul_plain, fadd_plain, fsub_plain). The maps are read from the
 .cu, and the emulation follows its statements one by one. It must equal
 rcb_add_plain and rcb_double_plain (and so the one-thread kernels and the
 reference) bit for bit on random projective points, identity lanes and
-a == b lanes, the masked group form of B6 pdouble_masked_plain, and the
-ladder scalar_mul_ladder_plain, in both fields. The same holds for the
+a == b lanes, the masked group form of B6 pdouble_masked_plain, the
+ladder scalar_mul_ladder_plain, the GLV ladder's group form (its table
+read per rank from the staged shared-memory layout) glv_ladder_plain and
+the bucket-run kernel's group form (its four-word base load and the
+shuffles) pmixed_bucket_runs_plain, in both fields. The same holds for the
 schedule of two threads a lane that redesign_variants.py builds and times
 beside the kernels (pair_double, its maps read from that script). Inputs
 are numpy-seeded."""
@@ -235,6 +238,93 @@ def pdouble_pair(df, a, mask=None):
     return pk._join2d(o0[0], o0[1], o1[1])
 
 
+def glv_group(df, t1, t2, t12, bits1, bits2):
+    """glv_ladder_group_kernel: ranks 0-2 stage coordinate c(r) of t1, t2
+    and t12 at words 24 k + 8 r of the group's kGlvTabStride words (here
+    slot (24 k + 8 r) / 8 of a list of coordinates); acc = O on the ranks;
+    a coop_double a step and, where sel = b1 + 2 b2 (the same on every
+    lane) is not 0, a coop_add with b0 and b1 read at words
+    24 (sel - 1) + 8 c(r) and 24 (sel - 1) + 8 c(r + 1)."""
+    coord = [0, 1, 2, 0]
+    nxt = _src("kNext")
+    tab = [None] * (C["kGlvTabStride"] // 8)
+    for k, t in enumerate((t1, t2, t12)):
+        regs = _spread(t)
+        for r in range(3):
+            tab[(24 * k + 8 * r) // 8] = regs[r]
+    n = t1.shape[1]
+    acc = _spread(pk.ident_col(df, "cpu")[:, None].expand(3 * NLIMBS, n))
+    for b1, b2 in zip(bits1, bits2):
+        acc = coop_double(df, acc)
+        sel = int(b1) + 2 * int(b2)
+        if sel == 0:
+            continue
+        e = 24 * (sel - 1)
+        b0 = torch.stack([tab[(e + 8 * coord[r]) // 8] for r in range(4)])
+        bn = torch.stack([tab[(e + 8 * coord[int(nxt[r])]) // 8]
+                          for r in range(4)])
+        acc = coop_add(df, acc, _shfl(acc, nxt), b0, bn)
+    assert torch.equal(acc[3], acc[0])       # rank 3 holds X
+    return _gather(acc)
+
+
+def _words_digits(w):
+    """[..., 8] 32-bit limbs (int32 bits) -> [..., 16] 16-bit digits."""
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2).to(
+        torch.int32)
+
+
+def bucket_group(df, bases, members, starts, counts, BL, lanes):
+    """pmixed_bucket_runs_group_kernel: group i serves lane lanes[i]; per
+    member of the lane's run, rank r loads 16-byte word r (limbs 4r..4r+3)
+    of the packed base, the group takes x from ranks 0 and 1 and y from
+    ranks 2 and 3 by shuffles, skips an identity-coded base, negates y
+    where bit 31 of the member is set, and runs coop_add with
+    b0 = {x, y, 1}[c(r)] and b1 = {y, 1, x}[c(r)] (Z2 = mont 1). Groups
+    past their run keep acc (the group's loop has ended); ranks 0-2 store
+    column lanes[i]."""
+    coord = torch.tensor([0, 1, 2, 0])
+    nxt = _src("kNext")
+    n = bases.shape[0]
+    L = starts.shape[0]
+    one = pk.mont_one(df, "cpu")
+    acc = _spread(pk.ident_col(df, "cpu")[:, None].expand(3 * NLIMBS, L))
+    flat = members.reshape(-1).to(torch.int64)
+    lanes = lanes.to(torch.int64)
+    row = lanes // BL * n
+    starts, counts = starts.to(torch.int64)[lanes], counts.to(
+        torch.int64)[lanes]
+    for k in range(int(counts.max())):
+        live = k < counts
+        m = flat[row + torch.where(live, starts + k, 0)]
+        words = bases[m & 0x7FFFFFFF].view(L, 4, 4).permute(1, 0, 2)
+        x2 = _words_digits(torch.cat([words[0], words[1]], dim=-1))
+        y2 = _words_digits(torch.cat([words[2], words[3]], dim=-1))
+        ident = (x2 == 0).all(-1) & (y2 == one).all(-1)
+        # p - y as in the kernel (y is never 0 on a curve point)
+        y2 = torch.where((m < 0)[:, None],
+                         fsub_plain(df, torch.zeros_like(y2), y2), y2)
+        ones = one.expand(L, NLIMBS)
+        cands0, cands1 = (x2, y2, ones), (y2, ones, x2)
+        b0 = torch.stack([cands0[int(c)] for c in coord])
+        b1 = torch.stack([cands1[int(c)] for c in coord])
+        added = coop_add(df, acc, _shfl(acc, nxt), b0, b1)
+        acc = torch.where((live & ~ident)[None, :, None], added, acc)
+    assert torch.equal(acc[3], acc[0])       # rank 3 holds X
+    out = torch.empty(3 * NLIMBS, L, dtype=torch.int32)
+    out[:, lanes] = _gather(acc)
+    return out
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _masks(seed):
     """Masks of all ones, all zeros and a random half of the lanes."""
     half = np.random.default_rng(seed).random(L) < 0.5
@@ -347,3 +437,75 @@ def test_pdouble_form_thresholds():
     assert sorted(names) == ["kPdoubleLaneFrom", "kPdoubleMaskedLaneFrom"]
     for name in names:
         assert 0 < C[name] <= max_group_lanes, name
+
+
+@pytest.mark.parametrize("curve", CURVES.values(), ids=CURVES.keys())
+def test_glv_group_ladder_equals_plain(curve, one_thread):
+    """The GLV ladder's group form, with its table read per rank from the
+    staged layout, equals glv_ladder_plain on 9 bit pairs that take sel =
+    0, 1, 2 and 3 (twice 3 and 0 in a row), on tables with identity lanes
+    (t1, t2 or both)."""
+    df, A, B = _points(curve, 9)
+    t12 = pk.padd_plain(df, A, B)
+    bits1 = [1, 0, 1, 1, 0, 0, 1, 0, 1]
+    bits2 = [0, 1, 1, 1, 0, 0, 0, 1, 1]
+    assert {b1 + 2 * b2 for b1, b2 in zip(bits1, bits2)} == {0, 1, 2, 3}
+    assert torch.equal(glv_group(df, A, B, t12, bits1, bits2),
+                       pk.glv_ladder_plain(df, A, B, t12, bits1, bits2))
+
+
+def _bucket_case(curve, seed):
+    """Two window rows of 16 packed bases (two identity-coded) with runs of
+    0, 1 and several members, a third of them negated: (df, bases,
+    members, starts, counts, BL)."""
+    df = DeviceField(curve.base)
+    n, BL = 16, 5
+    pts = native_srs_g(curve, f"coop-bucket-{seed}", n)
+    pts[3] = pts[11] = None
+    bases = pk.pack_affine(pk.points_to_proj(df, pts, "cpu")[:32])
+    rng = np.random.default_rng(seed)
+    order = torch.from_numpy(np.stack([rng.permutation(n)
+                                       for _ in range(2)]))
+    signs = torch.from_numpy((rng.random((2, n)) < 0.33).astype(np.int64))
+    members = pk.bucket_members(order, signs)
+    counts = torch.tensor([0, 1, 3, 5, 7, 4, 0, 2, 1, 9], dtype=torch.int32)
+    starts = torch.cat([torch.cumsum(c, 0) - c
+                        for c in counts.view(2, BL)]).to(torch.int32)
+    return df, bases, members, starts, counts, BL
+
+
+@pytest.mark.parametrize("curve", CURVES.values(), ids=CURVES.keys())
+def test_bucket_group_runs_equal_plain(curve, one_thread):
+    """The bucket-run kernel's group form, with its four-word base load
+    and shuffles, equals pmixed_bucket_runs_plain (the B2 round loop) on
+    runs of 0, 1 and up to 9 members with identity-coded bases and negated
+    members, its groups serving the lanes in order and longest run first
+    (the map the wrapper sorts on the card)."""
+    df, bases, members, starts, counts, BL = _bucket_case(curve, 10)
+    assert (members < 0).any()
+    want = pk.pmixed_bucket_runs_plain(df, bases, members, starts, counts,
+                                       BL)
+    for lanes in (torch.arange(counts.shape[0]),
+                  torch.argsort(counts, descending=True)):
+        assert torch.equal(bucket_group(df, bases, members, starts, counts,
+                                        BL, lanes), want)
+
+
+def test_group_form_thresholds_and_table_banks():
+    """The GLV ladder's and the bucket-run kernel's lane counts from which
+    one thread serves a lane are positive and at most kMaxGroupLanes; the
+    group ladder's table fits its stride, and one coordinate read by the
+    ranks of a warp's eight groups falls in 24 distinct banks."""
+    src = open(CU).read()
+    max_threads = int(re.search(r"static const int kMaxThreads = (\d+);",
+                                src).group(1))
+    max_group_lanes = (1 << 32) // C["kGroup"] - max_threads
+    for name in ("kGlvLaneFrom", "kBucketLaneFrom"):
+        assert 0 < C[name] <= max_group_lanes, name
+    S = C["kGlvTabStride"]
+    assert S >= 3 * 24
+    for sel in (1, 2, 3):
+        for i in range(8):
+            banks = {(g * S + 24 * (sel - 1) + 8 * c + i) % 32
+                     for g in range(32 // C["kGroup"]) for c in range(3)}
+            assert len(banks) == 24, (sel, i)

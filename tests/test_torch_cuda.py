@@ -179,7 +179,7 @@ def _unfused_ladder(df, t1, t2, t12, bits1, bits2):
 def test_glv_ladder_matches_unfused_loop_and_plain(cuda, curve):
     """The fused ladder equals the B5/B3 kernel loop at 2^13 and 2^17
     lanes (130 random bit pairs) and its plain version at 256 lanes, in
-    one launch per call."""
+    one launch per call; so does each of its forms (glv_ladder_form)."""
     df = FP_DEV if curve is PALLAS else FQ_DEV
     rng = np.random.default_rng(11)
     bits1 = rng.integers(0, 2, ipd.GLV_BITS)
@@ -195,6 +195,9 @@ def test_glv_ladder_matches_unfused_loop_and_plain(cuda, curve):
         else:
             want = _unfused_ladder(df, *table, bits1, bits2)
         assert torch.equal(got, want), L
+        for t in pk.FORMS.values():
+            assert torch.equal(pk.glv_ladder_form(df, *table, bits1, bits2,
+                                                  t), want), (L, t)
 
 
 def test_padd_masked_operand_forms_match_plain(cuda):
@@ -225,7 +228,8 @@ def test_bucket_runs_kernel_matches_plain_and_b2_loop(cuda, curve):
     """The bucket-run kernel at a k = 14 advice commit's 26,624 lanes (two
     columns of 2^14 random scalars, c = 10, with identity bases): equal to
     its plain version and to the
-    one-step B2 kernel run round by round, in one launch."""
+    one-step B2 kernel run round by round, in one launch; so is each of
+    its forms (pmixed_bucket_runs_form)."""
     df = FP_DEV if curve is PALLAS else FQ_DEV
     n = 1 << 14
     pts = native_srs_g(curve, "torch-cuda-test", n)
@@ -263,6 +267,9 @@ def test_bucket_runs_kernel_matches_plain_and_b2_loop(cuda, curve):
         got = pk.pmixed_bucket_runs(df, packed, members, st, ct, runs.BL)
         assert pk.LAUNCHES["pmixed_bucket_runs"] == before + 1
         assert torch.equal(got, want), st.dtype
+        for t in pk.FORMS.values():
+            assert torch.equal(pk.pmixed_bucket_runs_form(
+                df, packed, members, st, ct, runs.BL, t), want), (st.dtype, t)
 
 
 def _scalar_digits(curve, L, rng, cuda):
@@ -367,7 +374,7 @@ def test_pdouble_kernels_at_group_and_block_edges(cuda, curve):
                      half):
             exp = want if mask is None else pk.pdouble_masked_plain(df, a,
                                                                     mask)
-            for t in pk.PDOUBLE_FORMS.values():
+            for t in pk.FORMS.values():
                 assert torch.equal(pk.pdouble_form(df, a, t, mask), exp), \
                     (L, t)
             name = "pdouble" if mask is None else "pdouble_masked"
@@ -376,6 +383,87 @@ def test_pdouble_kernels_at_group_and_block_edges(cuda, curve):
                    else pk.pdouble_masked_flat(df, a, mask))
             assert pk.LAUNCHES[name] == before + 1
             assert torch.equal(got, exp), (L, name)
+
+
+def _lane_from(name):
+    """csrc/point_kernels.cu's k<name>LaneFrom: from that many lanes the
+    kernel runs one thread a lane, below it one lane a group of four."""
+    src = open(os.path.join(cuda_build.CSRC, "point_kernels.cu")).read()
+    return int(re.search(rf"static constexpr int k{name}LaneFrom = (\d+);",
+                         src).group(1))
+
+
+# lane counts that end part way through a group's warp or a block
+FORM_EDGES = (1, 2, 7, 8, 9, 33)
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_glv_ladder_forms_at_group_and_block_edges(cuda, curve):
+    """The GLV ladder in each form and through its wrapper equals
+    glv_ladder_plain (130 random bit pairs, identity lanes) at 1, 2, 7, 8,
+    9 and 33 lanes, at kGlvLaneFrom and one lane either side and at 2^12
+    lanes (k = 14's second device fold round); one launch a wrapper
+    call."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(24)
+    bits1 = rng.integers(0, 2, ipd.GLV_BITS)
+    bits2 = rng.integers(0, 2, ipd.GLV_BITS)
+    at = _lane_from("Glv")
+    for L in FORM_EDGES + (at - 1, at, at + 1, 1 << 12):
+        g = _edge_points(curve, df, L, rng, cuda)
+        table = ipd.glv_table(df, g, 1, 0)
+        want = pk.glv_ladder_plain(df, *table, bits1, bits2)
+        for t in pk.FORMS.values():
+            assert torch.equal(pk.glv_ladder_form(df, *table, bits1, bits2,
+                                                  t), want), (L, t)
+        before = pk.LAUNCHES["glv_ladder"]
+        got = pk.glv_ladder_flat(df, *table, bits1, bits2)
+        assert pk.LAUNCHES["glv_ladder"] == before + 1
+        assert torch.equal(got, want), L
+
+
+def _edge_runs(curve, df, L, rng, cuda):
+    """Bucket runs over L lanes in one window row (BL = L) of n = 2 L + 16
+    packed bases (1,024 SRS points repeated, two identity-coded), the
+    row's members a permutation with a random third negated, cut into
+    runs at random: (packed, members, starts, counts)."""
+    n = 2 * L + 16
+    pts = native_srs_g(curve, "torch-cuda-test", 1024)
+    pts[5] = pts[700] = None
+    aff = pk.points_to_proj(df, pts, cuda)[:32]
+    packed = pk.pack_affine(aff[:, torch.arange(n, device=cuda) % 1024])
+    order = torch.from_numpy(rng.permutation(n)[None]).to(cuda)
+    signs = torch.from_numpy((rng.random((1, n)) < 0.33).astype(np.int64))
+    members = pk.bucket_members(order, signs.to(cuda))
+    cuts = np.sort(rng.integers(0, n + 1, L - 1))
+    edges = np.concatenate([[0], cuts, [n]])
+    starts = torch.from_numpy(edges[:-1].astype(np.int32)).to(cuda)
+    counts = torch.from_numpy(np.diff(edges).astype(np.int32)).to(cuda)
+    return packed, members, starts, counts
+
+
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_bucket_run_forms_at_group_and_block_edges(cuda, curve):
+    """The bucket-run kernel in each form and through its wrapper equals
+    pmixed_bucket_runs_plain (the B2 round loop) at 1, 2, 7, 8, 9 and 33
+    lanes and at kBucketLaneFrom and one lane either side, on runs cut at
+    random (empty ones among them) with identity-coded bases and negated
+    members; one launch a wrapper call."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(25)
+    at = _lane_from("Bucket")
+    for L in FORM_EDGES + (at - 1, at, at + 1):
+        packed, members, starts, counts = _edge_runs(curve, df, L, rng,
+                                                     cuda)
+        want = pk.pmixed_bucket_runs_plain(df, packed, members, starts,
+                                           counts, L)
+        for t in pk.FORMS.values():
+            assert torch.equal(pk.pmixed_bucket_runs_form(
+                df, packed, members, starts, counts, L, t), want), (L, t)
+        before = pk.LAUNCHES["pmixed_bucket_runs"]
+        got = pk.pmixed_bucket_runs(df, packed, members, starts, counts, L)
+        assert pk.LAUNCHES["pmixed_bucket_runs"] == before + 1
+        assert torch.equal(got, want), L
 
 
 @pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])

@@ -253,3 +253,25 @@ def test_pdouble_form_needs_the_card():
     meta = torch.zeros(48, 4, dtype=torch.int32, device="meta")
     with pytest.raises(TypeError):
         pk.pdouble_form(df, meta, 4, torch.ones(3, dtype=torch.int32))
+
+
+def test_glv_and_bucket_forms_need_the_card():
+    """glv_ladder_form and pmixed_bucket_runs_form launch the form they
+    are asked for, so they have no CPU version: CPU operands raise, as do
+    bad tables, bit lists and members."""
+    df = DeviceField(PALLAS.base)
+    t = torch.zeros(48, 4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pk.glv_ladder_form(df, t, t, t, [1, 0], [0, 1], 4)
+    with pytest.raises(TypeError):
+        pk.glv_ladder_form(df, t, t[:32], t, [1], [0], 4)
+    with pytest.raises(TypeError):
+        pk.glv_ladder_form(df, t, t, t, [1, 0], [0], 1)
+    bases = torch.zeros(8, 16, dtype=torch.int32)
+    members = torch.zeros(2, 8, dtype=torch.int32)
+    runs = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pk.pmixed_bucket_runs_form(df, bases, members, runs, runs, 2, 4)
+    with pytest.raises(TypeError):
+        pk.pmixed_bucket_runs_form(df, bases, members[:, :4], runs, runs,
+                                   2, 4)
