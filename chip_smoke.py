@@ -20,14 +20,17 @@ Phases, in this order (any failure exits non-zero):
      fields; device time per transform from a CUDA graph and by the
      profiler, wrapper time, bound;
   4b. [mxu] kernel K1 (products by a constant shared across a group of
-     lanes on the tensor cores, mma.sync on u8 digits, with the NTT
-     butterfly fused) against its plain version at 1, 15, 16, 17 and
-     4,096 lanes a group, both fields, with 0xFF bytes; the four-step
-     NTT (ops/mxu_field.py) against B7 at 2^16, 2^17 and 2^20 with 1 and
-     4 columns, forward and inverse, both fields, and against the plain
-     four-step at 2^10 and 2^16; K1's time a launch from a CUDA graph
-     beside a stage's bound, the four-step's beside B7's, and a float32
-     torch.bmm of each stage's digit products (TF32 off) as the
+     lanes on the tensor cores, mma.sync on u8 digits; the four-step
+     NTT's axis transforms as passes of up to 5 stages in shared memory,
+     the gathers, diagonal twiddles and transposes fused) against its
+     plain version at 1, 15, 16, 17 and 4,096 lanes a group, both
+     fields, with 0xFF bytes; the four-step NTT (ops/mxu_field.py)
+     against B7 at 2^16, 2^17 and 2^20 with 1 and 4 columns, forward and
+     inverse, both fields, and against the plain four-step at 2^10 and
+     2^16, in the pass plan's launches with no B1 launch (and by the
+     profiler, no kernel but K1's); each pass's time from a CUDA graph
+     beside its bound, the four-step's beside B7's and its bound, and a
+     float32 torch.bmm of each pass's digit products (TF32 off) as the
      yardstick;
   5. [layout] kernel B8 (limbs-first [16, N] multiply) beside B1
      (element-major [N, 16]) at N = 2^12 .. 2^20, both against the plain
@@ -386,10 +389,17 @@ def phase_build():
                       ("point_kernels", "scalar_mul_ladder"),
                       ("point_kernels", "padd_kernel"),
                       ("point_kernels", "pdouble_"),
-                      ("ntt_kernels", "ntt_")):
+                      ("ntt_kernels", "ntt_"),
+                      ("mxu_kernels", "mxu_"),
+                      ("gate_kernels", "gate_chunk")):
         for fn, count in sass_counts(cuda_build._so_path(name)).items():
             if key in fn:
                 log(f"[sass {name}] {fn}: {count} instructions")
+    # K2's slot file: its local-memory loads and stores in the SASS
+    for fn, ops in sass_opcodes(cuda_build._so_path("gate_kernels"),
+                                "gate_chunk").items():
+        log(f"[sass gate_kernels] {fn}: LDL {ops['LDL']}, LDL.128 "
+            f"{ops['LDL.128']}, STL {ops['STL']}, STL.128 {ops['STL.128']}")
 
 
 def rand_field(df, n, seed, device):
@@ -1357,6 +1367,15 @@ class ntt_shapes:
         return False
 
 
+def k1_launches(shapes) -> int:
+    """K1's launches for the four-step transforms in `shapes` (from
+    ntt_shapes): one a pass of each transform's plan."""
+    from halo2_tpu_torch.ops import mxu_field as mxu
+    return sum(c * len(mxu.four_step_passes(m, n))
+               for (route, m, n), c in shapes.items()
+               if route == "mxu" and m and n > 1)
+
+
 def check_routes(tag, shapes):
     """Every transform of n >= 2^16 took the four-step and every smaller
     one B7 (shapes from ntt_shapes); raises otherwise."""
@@ -1514,7 +1533,8 @@ def phase_reference_k(results):
     schedule, whose bytes must hash to the JAX reference's. Every
     transform here is of 2^18 or 2^19, so the four-step's (K1): counts set
     to 0 just before keygen and read after the proves, K1 launched and
-    B7 not, every transform on its route."""
+    B7 not, every transform on its route, each prove's K1 launches those
+    of its transforms' pass plans (28 a warm prove)."""
     import torch
     from halo2_tpu_torch.bench_circuit import (BenchCircuit, regions_for_k,
                                                expected_output, SEED_A,
@@ -1557,9 +1577,15 @@ def phase_reference_k(results):
         torch.cuda.synchronize()
         check_routes("ref-k", shapes)
         digest = hashlib.sha256(tw.finalize()).hexdigest()
+        d = diff_counts(before)
         log(f"[ref-k] create_proof, {label}: "
-            f"{time.perf_counter() - t:.3f}s, launches "
-            f"{diff_counts(before)}")
+            f"{time.perf_counter() - t:.3f}s, launches {d}; K1 "
+            f"{d['mxu']} for {sum(shapes.values())} four-step transforms")
+        if d["mxu"] != k1_launches(shapes):
+            raise AssertionError(f"[ref-k] {d['mxu']} K1 launches, the pass "
+                                 f"plans make {k1_launches(shapes)}")
+        if label.endswith("warm"):
+            results["mxu"]["launches_warm_prove_ref_k"] = d["mxu"]
         log("[ref-k] phases " + json.dumps(
             {name: round(s, 4) for name, s in pv.LAST_PHASES}))
         log(f"[ref-k] proof sha256 {digest}")
@@ -1697,12 +1723,12 @@ def phase_ntt_main(results, shapes):
                         ntt.ntt_many(df, x, plan)).any(dim=-1).sum())
             four = graph_ms(lambda: mxu.ntt_mxu_b(df, x, plan), 10)
             b7 = graph_ms(lambda: ntt.ntt_many(df, x, plan), 10)
-            k1 = graph_ms(mxu_stage_calls(df, m, n, plan)[0], 10) / log_n
-            bd, by = mxu_stage_bound(m, n)
+            npass = len(mxu.four_step_passes(m, n))
+            k1 = four / npass
+            bd, by = mxu_transform_bound(m, n)
             log(f"[ntt-main] {count}x four-step (m={m}, n=2^{log_n}): "
-                f"{four:.5f} ms a transform from a CUDA graph, B7 "
-                f"{b7:.5f} ms; K1 {k1:.5f} ms a launch (stage bound "
-                f"{bd:.5f} ms by {by})")
+                f"{four:.5f} ms a transform from a CUDA graph in {npass} K1 "
+                f"launches (bound {bd:.5f} ms by {by}), B7 {b7:.5f} ms")
             r.update({f"four_step_ms_{key}": four, f"b7_ms_{key}": b7,
                       f"ms_{key}": k1, f"bound_ms_{key}": bd})
             continue
@@ -1723,53 +1749,57 @@ def phase_ntt_main(results, shapes):
                              f"{bad}")
 
 
-def mxu_stage_bound(m, n):
-    """One K1 stage of a four-step transform of m columns of n: every
-    element read and written once, 96 multiply-adds of reduction a
-    butterfly (the tensor-core digit products not counted)."""
+def mxu_pass_bound(m, n, ps):
+    """One K1 pass of a four-step transform of m columns of n: every
+    element read and written once, its stages' twiddles read once (32
+    bytes each), the packed diagonal table where the pass takes it; 96
+    multiply-adds of reduction a butterfly of its stages, a Montgomery
+    product an element for the diagonal (the tensor-core digit products
+    not counted)."""
     from halo2_tpu_torch.ops.mxu_field import REDC_MULADDS
-    return bound_ms(2 * m * n * 64, m * (n // 2) * REDC_MULADDS)
+    tw = sum(1 << (ps.a + s - 1) for s in range(1, ps.cnt + 1)) * 32
+    return bound_ms(2 * m * n * 64 + tw + (n * 32 if ps.diag else 0),
+                    m * (n // 2) * ps.cnt * REDC_MULADDS
+                    + (m * n * MONT_MULADDS if ps.diag else 0))
 
 
-def mxu_stage_calls(df, m, n, plan, plain=False):
-    """The K1 stages of a four-step transform of m columns of n alone, on
-    scratch buffers of the axis NTTs' shapes ([R, m C] and [C, m R]), in
-    place: (a function running all log2 n stages, the list of (groups,
-    lanes) of each stage, a function running each stage's digit product
-    alone as a float32 torch.bmm of [groups, lanes, 32] @ [groups, 32,
-    63])."""
+def mxu_transform_bound(m, n):
+    """A four-step transform in K1's passes: the sum of its pass bounds
+    (each pass moves every element once)."""
+    from halo2_tpu_torch.ops import mxu_field as mxu
+    bounds = [mxu_pass_bound(m, n, ps) for ps in mxu.four_step_passes(m, n)]
+    return sum(b for b, _ in bounds), max(bounds)[1]
+
+
+def mxu_pass_calls(df, m, n, plan):
+    """K1's passes of a four-step transform of m columns of n, each alone
+    on scratch buffers of the transform's shape: [(pass, a function
+    running it, a function running its stages' digit products alone as
+    float32 torch.bmm of [half, lanes, 32] @ [half, 32, 63] a stage)]."""
     import torch
     from halo2_tpu_torch.ops import mxu_field as mxu
-    p4 = mxu._mxu4_plan(df, plan)
-    t = p4.on("cuda")
-    R, C = p4.R, p4.C
-    axes = [(rand_field(df, R * m * C, 71, "cuda").view(R, m * C, 16),
-             t["col_tw"]),
-            (rand_field(df, C * m * R, 72, "cuda").view(C, m * R, 16),
-             t["row_tw"])]
-    stages, mats = [], []
-    for buf, tws in axes:
-        N, L = buf.shape[0], buf.shape[1]
-        # every stage's digit operands fill one buffer: (N/2) L lanes
+    src = rand_field(df, m * n, 71, "cuda").view(m, n, 16)
+    out = []
+    for ps in mxu.four_step_passes(m, n):
+        N, L = 1 << ps.log_n, ps.lanes
         a8 = torch.rand((N // 2) * L * 32, device="cuda")
         p8 = torch.empty((N // 2) * L * 63, device="cuda")
-        for s, tw in enumerate(tws, start=1):
+        mats = []
+        for s in range(ps.a + 1, ps.a + ps.cnt + 1):
             half = 1 << (s - 1)
             lanes = (N >> s) * L
-            stages.append((buf, tw, half, lanes, L))
             mats.append((a8.view(half, lanes, 32),
                          torch.rand(half, 32, 63, device="cuda"),
                          p8.view(half, lanes, 63)))
 
-    def run():
-        for buf, tw, half, lanes, L in stages:
-            mxu._launch(df, buf, buf, tw, half, lanes, L, 2 * half * L, L,
-                        half * L, True)
+        def run(ps=ps):
+            mxu.run_passes(df, src, plan, (ps,))
 
-    def bmm():
-        for a, w, out in mats:
-            torch.bmm(a, w, out=out)
-    return run, [(st[2], st[3]) for st in stages], bmm
+        def bmm(mats=mats):
+            for a, w, o in mats:
+                torch.bmm(a, w, out=o)
+        out.append((ps, run, bmm))
+    return out
 
 
 def phase_mxu(results):
@@ -1777,14 +1807,19 @@ def phase_mxu(results):
     bit: products by 5 constants (p - 1, p - 2, 0, 1 and 2^254 - 1, whose
     8-bit digits are 0xFF but the top one) at 1, 15, 16, 17 and 2^12
     lanes a group, both fields; the four-step (ops/mxu_field.py::
-    ntt_mxu_b) against B7 at n = 2^16, 2^17 and 2^20 with 1 and 4
-    columns, forward and inverse, both fields, and against the plain
-    four-step at 2^10 and 2^16. Times on the PALLAS scalar field, from
-    CUDA graphs: K1 a launch (its stages alone) beside one stage's bound,
-    the four-step a transform beside B7's, and the stages' digit products
-    alone as float32 torch.bmm with TF32 off (the yardstick)."""
+    ntt_mxu_b, K1's passes) against B7 at n = 2^16, 2^17 and 2^20 with 1
+    and 4 columns, forward and inverse, both fields, and against the
+    plain four-step at 2^10 and 2^16, in the launches of the pass plan
+    with no B1 launch and, by the profiler, no kernel but K1's. Times on
+    the PALLAS scalar field, from CUDA graphs: each pass alone beside its
+    bound, the four-step a transform beside B7's and beside the sum of
+    its pass bounds, and each pass's digit products alone as float32
+    torch.bmm with TF32 off (the yardstick)."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
     from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV, ints_to_digits
+    from halo2_tpu_torch.ops import field_kernels as fk
     from halo2_tpu_torch.ops import mxu_field as mxu
     from halo2_tpu_torch.ops import ntt
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1814,12 +1849,16 @@ def phase_mxu(results):
                 plan = ntt.make_plan(df, n, w)
                 for m in (1, 4):
                     x = rand_field(df, m * n, log_n + m, dev).view(m, n, 16)
-                    before = mxu.LAUNCHES["mxu"]
+                    mxu.ntt_mxu_b(df, x, plan)     # the plan's tables made
+                    before, b1 = mxu.LAUNCHES["mxu"], fk.LAUNCHES["fmul"]
                     got = mxu.ntt_mxu_b(df, x, plan)
-                    if mxu.LAUNCHES["mxu"] - before != log_n:
+                    launched = mxu.LAUNCHES["mxu"] - before
+                    if (launched != len(mxu.four_step_passes(m, n))
+                            or launched > 4 or fk.LAUNCHES["fmul"] != b1):
                         raise AssertionError(
-                            f"[mxu] {mxu.LAUNCHES['mxu'] - before} K1 "
-                            f"launches for a transform of 2^{log_n}")
+                            f"[mxu] {launched} K1 and "
+                            f"{fk.LAUNCHES['fmul'] - b1} B1 launches for a "
+                            f"transform of 2^{log_n}")
                     wants = [ntt.ntt_many(df, x, plan)] if log_n > 10 else []
                     if log_n <= 16 and m == 1:
                         wants.append(mxu.ntt_mxu_b_plain(df, x, plan))
@@ -1833,9 +1872,9 @@ def phase_mxu(results):
                     del got, wants, x
     r.update(mismatches=mism, max_abs_err=err)
     log(f"[mxu] K1 and the four-step: mismatches {mism}, max abs error "
-        f"{err} (K1 at 1, 15, 16, 17 and 4,096 lanes a group; four-step "
-        f"against B7 at 2^16, 2^17, 2^20 and against the plain four-step "
-        f"at 2^10 and 2^16)")
+        f"{err} (K1's products at 1, 15, 16, 17 and 4,096 lanes a group; "
+        f"the four-step in its passes against B7 at 2^16, 2^17, 2^20 and "
+        f"against the plain four-step at 2^10 and 2^16; no B1 launch)")
     if mism:
         raise AssertionError(f"[mxu] K1 mismatches: {mism}")
     df = FQ_DEV
@@ -1848,33 +1887,53 @@ def phase_mxu(results):
             x = rand_field(df, m * n, 90 + log_n, dev).view(m, n, 16)
             four = graph_ms(lambda: mxu.ntt_mxu_b(df, x, plan), 10)
             b7 = graph_ms(lambda: ntt.ntt_many(df, x, plan), 10)
-            run, shape, bmm = mxu_stage_calls(df, m, n, plan)
-            k1 = graph_ms(run, 10) / log_n
-            lib = graph_ms(bmm, 10) / log_n
-            bd, by = mxu_stage_bound(m, n)
+            passes = []
+            for ps, run, bmm in mxu_pass_calls(df, m, n, plan):
+                bd, by = mxu_pass_bound(m, n, ps)
+                passes.append({"axis": ps.axis, "a": ps.a, "cnt": ps.cnt,
+                               "ms": graph_ms(run, 10),
+                               "library_ms": graph_ms(bmm, 10),
+                               "bound_ms": bd, "bound_by": by})
+            tb, tby = mxu_transform_bound(m, n)
+            lib = sum(q["library_ms"] for q in passes)
             key = f"n{log_n}_m{m}"
+            k1 = sum(q["ms"] for q in passes) / len(passes)
             r.update({f"ms_{key}": k1, f"four_step_ms_{key}": four,
-                      f"b7_ms_{key}": b7, f"bound_ms_{key}": bd,
-                      f"library_ms_{key}": lib})
+                      f"b7_ms_{key}": b7, f"bound_ms_{key}": tb,
+                      f"library_ms_{key}": lib, f"passes_{key}": passes})
             log(f"[mxu] n=2^{log_n} m={m}: four-step {four:.5f} ms a "
-                f"transform ({log_n} K1 launches, one B1, the gathers and "
-                f"transposes), B7 {b7:.5f} ms; K1 {k1:.5f} ms a launch "
-                f"(stage bound {bd:.5f} ms by {by}, "
-                f"{100 * bd / k1:.0f}%); float32 bmm of a stage's digit "
-                f"products {lib:.5f} ms")
+                f"transform in {len(passes)} K1 launches (bound {tb:.5f} ms "
+                f"by {tby}, {100 * tb / four:.0f}%), B7 {b7:.5f} ms; "
+                f"float32 bmm of the transform's digit products "
+                f"{lib:.5f} ms; passes " + "; ".join(
+                    f"axis {q['axis']} stages {q['a'] + 1}-"
+                    f"{q['a'] + q['cnt']} {q['ms']:.5f} ms (bound "
+                    f"{q['bound_ms']:.5f}, {100 * q['bound_ms'] / q['ms']:.0f}"
+                    f"%; bmm {q['library_ms']:.5f})" for q in passes))
             if (log_n, m) == (16, 1):
+                # no kernel but K1's inside a transform
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    mxu.ntt_mxu_b(df, x, plan)
+                    torch.cuda.synchronize()
+                names = {ev.key for ev in prof.key_averages()
+                         if ev.device_type == DeviceType.CUDA}
+                log(f"[mxu] kernels a transform by the profiler: {names}")
+                if not names or any("mxu_pass" not in k for k in names):
+                    raise AssertionError(f"[mxu] ntt_mxu_b ran {names}")
                 xs = x.clone()
                 t = time.perf_counter()
                 mxu.ntt_mxu_b_plain(df, xs, plan)
                 torch.cuda.synchronize()
-                pms = (time.perf_counter() - t) * 1e3 / log_n
+                pms = (time.perf_counter() - t) * 1e3 / len(passes)
                 r.update(ms=k1, call_ms=timed(
-                    lambda: mxu.ntt_mxu_b(df, x, plan), 10) / log_n,
-                    plain_ms=pms, bound_ms=bd, bound_by=by,
-                    library_ms=lib, shape=[1, n, 16],
-                    stage_groups_lanes=shape)
+                    lambda: mxu.ntt_mxu_b(df, x, plan), 10) / len(passes),
+                    plain_ms=pms, bound_ms=sum(
+                        q["bound_ms"] for q in passes) / len(passes),
+                    bound_by=passes[0]["bound_by"],
+                    library_ms=lib / len(passes), shape=[1, n, 16],
+                    kernels_a_transform=sorted(names))
                 log(f"[mxu] n=2^16 m=1: the plain four-step {pms:.3f} ms a "
-                    f"stage")
+                    f"pass's share")
             del x
 
 
@@ -3495,17 +3554,24 @@ def phase_sha256(results):
         torch.cuda.synchronize()
         t = time.perf_counter()
         with (shapes if label == "cold" else contextlib.nullcontext()), \
-                phase_launches() as per_phase:
+                phase_launches() as per_phase, ntt_shapes() as transforms:
             pv.create_proof(params, pk_, [circuit], [[]],
                             random.Random(PROOF_SEED), tw,
                             sanity=label == "cold")
         torch.cuda.synchronize()
         proofs.append(tw.finalize())
+        k1 = diff_counts(before)["mxu"]
+        if k1 != k1_launches(transforms):
+            raise AssertionError(f"[sha256] {k1} K1 launches, the pass "
+                                 f"plans make {k1_launches(transforms)}")
         peak = max([peak] + [gib for *_, gib in per_phase])
         log(f"[sha256] create_proof {label}"
             f"{' (debug checks on)' if label == 'cold' else ''}: "
             f"{time.perf_counter() - t:.3f}s, {len(proofs[-1])} bytes, "
             f"launches {diff_counts(before)}")
+    results["mxu"]["launches_warm_prove_sha256"] = k1
+    log(f"[sha256] K1 launches a warm prove: {k1} for "
+        f"{sum(transforms.values())} four-step transforms {dict(transforms)}")
     log(f"[sha256] card memory: max allocated {peak:.3f} GiB over the two "
         f"proves (each phase's peak beside its launches)")
     log("[sha256] warm phases " + json.dumps(
@@ -3645,18 +3711,25 @@ def phase_gate_chunks(results, params, pk_, circuit, digest, eager_s,
     gk.run_chunk_plain(df, tape, None, *cols, 8, y_m, y_m, n, rows=rows)
     torch.cuda.synchronize()
     pms = (time.perf_counter() - t) * 1e3
-    queried = {x for op, _, x, _ in tape.code if op == gk.OP_QUERY}
+    queried = {x for op, _, x, _ in tape.code
+               if (op & gk.OP_MASK) == gk.OP_QUERY}
+    flags = {name: sum(bool(op & f) for op, *_ in tape.code)
+             for name, f in (("keep", gk.OPF_KEEP),
+                             ("x_last", gk.OPF_X_LAST),
+                             ("y_last", gk.OPF_Y_LAST))}
     bd, by = bound_ms((len(queried) + 1) * n * 64,
                       tape.muls() * n * MONT_MULADDS)
     r.update(ms=ms, call_ms=call, plain_ms=pms, plain_rows=1 << 16,
              bound_ms=bd, bound_by=by, shape=[n, 16],
              instructions=len(tape.code), slots=tape.n_slots,
-             columns_queried=len(queried), products_a_row=tape.muls())
+             columns_queried=len(queried), products_a_row=tape.muls(),
+             register_flags=flags)
     r["mismatches"] = r.get("sha256_chunks_mismatches", 0)
     r["max_abs_err"] = r.get("sha256_chunks_max_abs_err", 0)
     log(f"[sha256] K2, the whole gate set ({len(tape.code)} instructions, "
         f"{tape.n_slots} slots, {len(queried)} columns queried, "
-        f"{tape.muls()} products a row) at {n} rows: {ms:.4f} ms from a "
+        f"{tape.muls()} products a row; register flags {flags}) at {n} "
+        f"rows: {ms:.4f} ms from a "
         f"CUDA graph, {call:.4f} ms a wrapper call (bound {bd:.4f} ms by "
         f"{by}, {100 * bd / ms:.0f}%); the plain tape on 2^16 rows "
         f"{pms:.1f} ms")
@@ -3946,7 +4019,9 @@ def main() -> int:
                      "mock_", "gadgets_", "sha256_", "mesh_",
                      "launches_offset_", "forms", "form_", "horner_",
                      "four_step_", "b7_ms_", "library_ms_", "eager_",
-                     "chunked_", "stage_", "plain_rows", "ipa_"))}}
+                     "chunked_", "plain_rows", "ipa_", "passes_",
+                     "launches_warm_", "kernels_a_", "register_",
+                     "instructions", "slots", "columns_", "products_"))}}
                for name, r in results.items()]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

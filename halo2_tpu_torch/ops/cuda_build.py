@@ -67,8 +67,9 @@ _ARGTYPES = {
         "h2t_scalar_mul_ladder": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _P],
     },
     "mxu_kernels": {
-        "h2t_mxu_const_mul": [_I, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
-                              _I, _P],
+        "h2t_mxu_const_mul": [_I, _P, _P, _P, _LL, _LL, _P],
+        "h2t_mxu_pass": [_I, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I,
+                         _LL, _LL, _LL, _LL, _I, _P],
     },
     "gate_kernels": {
         "h2t_gate_chunk": [_I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I,

@@ -18,13 +18,17 @@ reference's Horner order: its chunk folds the same way). The kernel
 grid-stride: every thread of a warp runs the same instruction, so the
 tape is data and nothing is generated or compiled per circuit. The
 tape, the constant table (Montgomery form) and the column pointers sit
-in shared memory; slots are 8 x 32-bit limbs in local memory. Its work
-is bound by operations (each MUL and SCALE a Montgomery product, the
-fold's two a row), unless a chunk's queries move more bytes than that.
+in shared memory; slots are 8 x 32-bit limbs in local memory, and the
+previous result stays in registers where the op word's flags say so (an
+operand the previous instruction made, a result only the next one
+reads, which is then never stored). Its work is bound by operations
+(each MUL and SCALE a Montgomery product, the fold's two a row), unless
+a chunk's queries move more bytes than that.
 
 The plain version interprets the same tape over whole tensors with the
-plain field ops (a query is a torch.roll), so the CPU tests run the
-tape the card runs. `LAUNCHES` counts K2's launches, nowhere else.
+plain field ops (a query is a torch.roll; the flags are not needed,
+since it writes every result to its slot), so the CPU tests run the tape
+the card runs. `LAUNCHES` counts K2's launches, nowhere else.
 """
 from __future__ import annotations
 
@@ -39,6 +43,12 @@ from .field_kernels import (fmul_plain, fadd_plain, fsub_plain, _dispatch)
 LAUNCHES = {"gate_chunk": 0}
 
 OP_QUERY, OP_CONST, OP_NEG, OP_ADD, OP_MUL, OP_SCALE, OP_FOLD = range(7)
+# the op word: the opcode in its low byte, then flags that let the kernel
+# keep the previous result in registers (csrc/gate_kernels.cu): the
+# result is read by the next instruction alone (not written to its slot),
+# operand x / y is the previous instruction's result
+OP_MASK = 0xFF
+OPF_KEEP, OPF_X_LAST, OPF_Y_LAST = 1 << 8, 1 << 9, 1 << 10
 KIND_ADVICE, KIND_FIXED, KIND_INSTANCE = range(3)
 # slots a thread holds at most (csrc/gate_kernels.cu's largest kSlots form)
 MAX_SLOTS = 128
@@ -72,8 +82,8 @@ class GateTape:
     def muls(self) -> int:
         """Montgomery products a row: MUL, SCALE and one a FOLD after the
         first, and the chunk's h_prev y^k."""
-        return (sum(op in (OP_MUL, OP_SCALE) for op, *_ in self.code)
-                + self.n_polys)
+        return (sum((op & OP_MASK) in (OP_MUL, OP_SCALE)
+                    for op, *_ in self.code) + self.n_polys)
 
 
 def _rot(values: torch.Tensor, rotation: int, scale: int) -> torch.Tensor:
@@ -94,7 +104,8 @@ def run_chunk_plain(df: DeviceField, tape: GateTape, h_prev, advice: list,
     code, consts = tape.on(df, y_m.device)
     slots: list = [None] * tape.n_slots
     acc = None
-    for op, dst, x, y in tape.code:
+    for word, dst, x, y in tape.code:
+        op = word & OP_MASK
         if op == OP_QUERY:
             col = columns[x >> 16][x & 0xFFFF]
             slots[dst] = (_rot(col, y, rot_scale) if rows is None else

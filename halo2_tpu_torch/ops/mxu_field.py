@@ -20,17 +20,25 @@ B1 (`fmul`) and the add/subtract: every output is the canonical value.
 
 `mul_const_grouped` is one K1 launch (products only); `ntt_mxu_b` runs a
 size-n transform as the reference's four-step n = R C: a size-R NTT down
-the columns, the diagonal twiddles w^(k_r c) (one B1 launch), a
-transpose, a size-C NTT, a transpose; each axis NTT is a bit-reversal
-gather and one K1 launch a stage (log2 n launches a transform), in
-place. On the CPU the same steps run with the plain versions, in int64
-with float64 column sums. `LAUNCHES` counts K1's launches, nowhere else.
+the columns, the diagonal twiddles w^(k_r c), a transpose, a size-C NTT,
+a transpose. On CUDA that is `four_step_passes`: each axis NTT in passes
+of at most MXU_PASS_LOG stages, each pass one K1 launch that runs its
+stages in shared memory on tiles of 2^cnt axis positions x 32 lanes (a
+warp's two m16 tiles share one twiddle), with the bit-reversal gather in
+each axis' first load, the diagonal twiddles in the column axis' last
+store and the transposes in the passes' strides: four launches a
+transform of 2^12 to 2^20 (three at 2^11), and nothing else. On the CPU
+(and as the card's oracle, `ntt_mxu_b_plain`) the steps run one stage
+at a time with the plain versions, in int64 with float64 column sums.
+`LAUNCHES` counts K1's launches, nowhere else.
 
-The bound of K1 is bytes: a stage reads and writes every element once
-(256 bytes a butterfly) against 96 multiply-adds of reduction a
-product; the tensor-core products are not counted.
+The bound of K1 is bytes: a pass reads and writes every element once
+(128 bytes an element) against 96 multiply-adds of reduction a product;
+the tensor-core products are not counted.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,7 +46,7 @@ import torch
 from ..fields.device import DeviceField, NLIMBS, R as MONT_R, ints_to_digits
 from .field_kernels import (fmul, fmul_plain, fadd_plain, fsub_plain,
                             redc_cols_plain, _dispatch)
-from .ntt import NttPlan, make_plan, bit_reverse_perm
+from .ntt import NttPlan, make_plan
 
 LAUNCHES = {"mxu": 0}
 
@@ -116,24 +124,76 @@ def mul_const_grouped_plain(df: DeviceField, x: torch.Tensor,
 # kernel K1
 # ---------------------------------------------------------------------------
 
-def _launch(df: DeviceField, dst: torch.Tensor, src: torch.Tensor,
-            consts: torch.Tensor, groups: int, lanes: int, L: int,
-            stride_b: int, stride_j: int, hi_off: int, butterfly: bool
-            ) -> None:
-    """One K1 launch over `groups` constants of `lanes` lanes each: lane
-    q of group j is element (q // L) * stride_b + j * stride_j + q % L.
-    Products: dst[e] = src[e] * c_j. Butterfly: t = src[e + hi_off] * c_j,
-    dst[e] = src[e] + t, dst[e + hi_off] = src[e] - t."""
-    from . import cuda_build
-    if groups == 0 or lanes == 0:
-        return
-    lib = cuda_build.library("mxu_kernels")
-    rc = lib.h2t_mxu_const_mul(df.field_id, dst.data_ptr(), src.data_ptr(),
-                               consts.data_ptr(), groups, lanes, L,
-                               stride_b, stride_j, hi_off, int(butterfly),
-                               cuda_build.stream_ptr(src.device))
-    cuda_build.check(rc, "h2t_mxu_const_mul")
-    LAUNCHES["mxu"] += 1
+# stages a K1 pass runs at most: a tile of 2^5 axis positions x 32 lanes
+# is 32 KB of limbs, 71 KB with eight warps' staged sums and the pass's
+# 31 twiddle bands (three blocks an SM), and an axis of up to 2^10 takes
+# two passes
+MXU_PASS_LOG = 5
+# lanes a tile, log2: a warp's two m16 tiles
+MXU_LANES_LOG = 5
+
+
+def axis_passes(log_n: int, max_log: int = MXU_PASS_LOG) -> tuple:
+    """(a, cnt) per pass of a size-2^log_n axis transform, stages a+1 ..
+    a+cnt: ceil(log_n / max_log) passes of near equal counts (4 + 4 at
+    2^8, so each pass of a 2^16 transform has 128 blocks)."""
+    if log_n <= 0:
+        return ()
+    npass = -(-log_n // max_log)
+    size, extra = divmod(log_n, npass)
+    out, a = [], 0
+    for p in range(npass):
+        cnt = size + (p < extra)
+        out.append((a, cnt))
+        a += cnt
+    return tuple(out)
+
+
+class MxuPass(NamedTuple):
+    """One K1 launch: stages a+1 .. a+cnt of the size-2^log_n transforms
+    down `axis` (0: the columns, size R; 1: the rows, size C) of the
+    [m, R, C] array. Lane q < lanes is column j = q >> lpc_log at
+    position l = q & (2^lpc_log - 1) of the other axis; element (i, q) is
+    read at j n + i s_ax + l s_ln (i bit-reversed over log_n bits if
+    gather) and written at j n + i d_ax + l d_ln, times the diagonal
+    twiddle at i d_ax + l d_ln if diag."""
+    axis: int
+    log_n: int
+    a: int
+    cnt: int
+    lanes: int
+    lpc_log: int
+    s_ax: int
+    s_ln: int
+    d_ax: int
+    d_ln: int
+    gather: bool
+    diag: bool
+
+
+def four_step_passes(m: int, n: int, max_log: int = MXU_PASS_LOG
+                     ) -> tuple:
+    """The K1 launches of a four-step transform of m columns of n = R C:
+    the column axis (lanes (j, c), contiguous) gathers in its first pass
+    and takes the diagonal twiddles in its last; the row axis (lanes
+    (j, r), C apart) gathers in its first and its last writes
+    out[j, k_c R + k_r]."""
+    k = n.bit_length() - 1
+    lr = (k + 1) // 2
+    lc = k - lr
+    R, C = 1 << lr, 1 << lc
+    out = []
+    cols = axis_passes(lr, max_log)
+    for i, (a, cnt) in enumerate(cols):
+        out.append(MxuPass(0, lr, a, cnt, m * C, lc, C, 1, C, 1, a == 0,
+                           i == len(cols) - 1))
+    rows = axis_passes(lc, max_log)
+    for i, (a, cnt) in enumerate(rows):
+        last = i == len(rows) - 1
+        out.append(MxuPass(1, lc, a, cnt, m * R, lr, 1, C,
+                           R if last else 1, 1 if last else C, a == 0,
+                           False))
+    return tuple(out)
 
 
 def mul_const_grouped(df: DeviceField, x: torch.Tensor,
@@ -156,7 +216,15 @@ def mul_const_grouped(df: DeviceField, x: torch.Tensor,
     x, consts = x.contiguous(), consts.contiguous()
     out = torch.empty_like(x)
     G, nb = x.shape[0], x.shape[1]
-    _launch(df, out, x, consts, G, nb, nb, 0, nb, 0, False)
+    if G == 0 or nb == 0:
+        return out
+    from . import cuda_build
+    lib = cuda_build.library("mxu_kernels")
+    rc = lib.h2t_mxu_const_mul(df.field_id, out.data_ptr(), x.data_ptr(),
+                               consts.data_ptr(), G, nb,
+                               cuda_build.stream_ptr(x.device))
+    cuda_build.check(rc, "h2t_mxu_const_mul")
+    LAUNCHES["mxu"] += 1
     return out
 
 
@@ -166,7 +234,7 @@ def mul_const_grouped(df: DeviceField, x: torch.Tensor,
 #
 # n = R C with R = 2^ceil(k/2):
 #   B[k_r, c]   = size-R NTT down axis 0 (root w^C)
-#   Bt[k_r, c]  = B * w^(k_r c)          (the diagonal twiddles, one B1)
+#   Bt[k_r, c]  = B * w^(k_r c)          (the diagonal twiddles)
 #   E[k_c, k_r] = size-C NTT of Bt^T down axis 0 (root w^R)
 #   out[k_r + R k_c] = E[k_c, k_r]       (row-major flatten of E)
 # Each stage of either axis NTT multiplies one twiddle across all of the
@@ -177,10 +245,11 @@ _MXU4_CACHE: dict = {}
 
 class _Mxu4Plan:
     """Host tables of a size-n four-step transform with root omega: R, C,
-    the two axis plans (ops/ntt.py plans, whose stage twiddles K1 reads
-    as Montgomery digits). `on(device)` gives the device tables, made
-    once a device: the bit-reversal perms, the stage twiddles and the
-    diagonal twiddles w^(k_r c) as [n, 16] Montgomery digits."""
+    the two axis plans (ops/ntt.py plans). `on(device)` gives the device
+    tables, made once a device: each axis' bit-reversal perm, stage
+    twiddles (the plain version's) and packed twiddle table ([N - 1, 8]
+    32-bit limbs, K1's), and the diagonal twiddles w^(k_r c) as [n, 16]
+    Montgomery digits and as [n, 8] packed limbs."""
 
     def __init__(self, df: DeviceField, n: int, omega: int):
         p = df.spec.modulus
@@ -198,14 +267,17 @@ class _Mxu4Plan:
         device = torch.device(device)
         ent = self._dev.get(device)
         if ent is None:
+            col, row = self.col_plan.on(device), self.row_plan.on(device)
+            diag = self._diag(device)
+            d = diag.to(torch.int64)
+            w = d[:, 0::2] | (d[:, 1::2] << 16)
             ent = self._dev[device] = {
-                "col_perm": torch.as_tensor(bit_reverse_perm(self.R),
-                                            device=device),
-                "row_perm": torch.as_tensor(bit_reverse_perm(self.C),
-                                            device=device),
-                "col_tw": self.col_plan.on(device)[2],
-                "row_tw": self.row_plan.on(device)[2],
-                "diag": self._diag(device)}
+                "col_perm": col[0], "row_perm": row[0],
+                "col_tw": col[2], "row_tw": row[2],
+                "col_packed": col[3], "row_packed": row[3],
+                "diag": diag,
+                "diag_packed": (w - ((w >> 31) << 32)).to(
+                    torch.int32).contiguous()}
         return ent
 
     def _diag(self, device) -> torch.Tensor:
@@ -236,21 +308,16 @@ def _mxu4_plan(df: DeviceField, plan: NttPlan) -> _Mxu4Plan:
     return ent[1]
 
 
-def _axis0_ntt(df: DeviceField, x: torch.Tensor, perm: torch.Tensor,
-               stages: tuple, plain: bool) -> torch.Tensor:
-    """Size-N NTT down axis 0 of x [N, L, 16]: the bit-reversal gather,
-    then per stage the butterflies, twiddle j shared by the (N/m) L lanes
-    of every block's position j. K1 (one launch a stage, in place on the
-    gathered copy) unless `plain`."""
+def _axis0_ntt_plain(df: DeviceField, x: torch.Tensor, perm: torch.Tensor,
+                     stages: tuple) -> torch.Tensor:
+    """Size-N NTT down axis 0 of x [N, L, 16] with the plain versions: the
+    bit-reversal gather, then per stage the butterflies, twiddle j shared
+    by the (N/m) L lanes of every block's position j."""
     N, L = x.shape[0], x.shape[1]
     x = x.index_select(0, perm)
     for s, tw in enumerate(stages, start=1):
         m = 1 << s
         half = m // 2
-        if not plain:
-            _launch(df, x, x, tw, half, (N // m) * L, L, m * L, L,
-                    half * L, True)
-            continue
         xr = x.view(N // m, m, L, NLIMBS)
         lo, hi = xr[:, :half], xr[:, half:]
         hi_g = hi.transpose(0, 1).reshape(half, (N // m) * L, NLIMBS)
@@ -261,40 +328,64 @@ def _axis0_ntt(df: DeviceField, x: torch.Tensor, perm: torch.Tensor,
     return x
 
 
-def _four_step(df: DeviceField, x: torch.Tensor, plan: NttPlan,
-               plain: bool) -> torch.Tensor:
+def _checked(x: torch.Tensor, plan: NttPlan) -> tuple:
     if x.dtype != torch.int32 or x.dim() != 3 or x.shape[2] != NLIMBS:
         raise TypeError(f"ntt_mxu_b takes int32 [m, n, 16], got {x.dtype} "
                         f"{tuple(x.shape)}")
     m, n = x.shape[0], x.shape[1]
     if n != plan.n:
         raise ValueError(f"plan of size {plan.n} for columns of {n}")
+    return m, n
+
+
+def ntt_mxu_b_plain(df: DeviceField, x: torch.Tensor, plan: NttPlan
+                    ) -> torch.Tensor:
+    """The four-step one stage at a time with the plain versions, on any
+    device (its tables, the diagonal twiddles among them, made as
+    ntt_mxu_b makes them): K1's CPU path and its oracle on the card."""
+    m, n = _checked(x, plan)
     if m == 0 or n == 1:
         return x.clone()
-    if m * n >= 1 << 31:
-        raise ValueError(f"{m} columns of {n} exceed the kernel's 2^31 "
-                         f"elements")
     p4 = _mxu4_plan(df, plan)
     R, C = p4.R, p4.C
     t = p4.on(x.device)
     # [m, R, C] -> [R, m C]: R leading, the m columns side by side
     A = x.reshape(m, R, C, NLIMBS).transpose(0, 1).reshape(R, m * C, NLIMBS)
-    B = _axis0_ntt(df, A, t["col_perm"], t["col_tw"], plain)
+    B = _axis0_ntt_plain(df, A, t["col_perm"], t["col_tw"])
     B = B.view(R, m, C, NLIMBS).transpose(0, 1).reshape(m, n, NLIMBS)
-    Bt = (fmul_plain if plain else fmul)(df, B, t["diag"])
+    Bt = fmul_plain(df, B, t["diag"])
     # [m, R, C] -> [C, m R]
     D = Bt.view(m, R, C, NLIMBS).permute(2, 0, 1, 3).reshape(C, m * R,
                                                              NLIMBS)
-    E = _axis0_ntt(df, D, t["row_perm"], t["row_tw"], plain)
+    E = _axis0_ntt_plain(df, D, t["row_perm"], t["row_tw"])
     # out[j, k_r + R k_c] = E[k_c, j, k_r]
     return E.view(C, m, R, NLIMBS).transpose(0, 1).reshape(m, n, NLIMBS)
 
 
-def ntt_mxu_b_plain(df: DeviceField, x: torch.Tensor, plan: NttPlan
-                    ) -> torch.Tensor:
-    """The four-step with the plain versions on any device (its tables,
-    the diagonal twiddles among them, made as ntt_mxu_b makes them)."""
-    return _four_step(df, x, plan, True)
+def run_passes(df: DeviceField, x: torch.Tensor, plan: NttPlan,
+               passes: tuple) -> torch.Tensor:
+    """K1's launches `passes` (four_step_passes) over x [m, n, 16] on
+    CUDA, through two buffers in turn (a pass reads one and writes the
+    other; x is not written); the last written is returned."""
+    from . import cuda_build
+    m, n = x.shape[0], x.shape[1]
+    t = _mxu4_plan(df, plan).on(x.device)
+    lib = cuda_build.library("mxu_kernels")
+    stream = cuda_build.stream_ptr(x.device)
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    src = x.contiguous()
+    for i, ps in enumerate(passes):
+        dst = bufs[i % 2]
+        tw = t["row_packed" if ps.axis else "col_packed"]
+        rc = lib.h2t_mxu_pass(
+            df.field_id, dst.data_ptr(), src.data_ptr(), tw.data_ptr(),
+            t["diag_packed"].data_ptr() if ps.diag else None, ps.lanes,
+            ps.lpc_log, n, ps.log_n, ps.a, ps.cnt, MXU_LANES_LOG, ps.s_ax,
+            ps.s_ln, ps.d_ax, ps.d_ln, int(ps.gather), stream)
+        cuda_build.check(rc, "h2t_mxu_pass")
+        LAUNCHES["mxu"] += 1
+        src = dst
+    return src
 
 
 def ntt_mxu_b(df: DeviceField, x: torch.Tensor, plan: NttPlan
@@ -302,9 +393,14 @@ def ntt_mxu_b(df: DeviceField, x: torch.Tensor, plan: NttPlan
     """Forward NTT of [m, n, 16] int32 Montgomery digits along axis 1
     through the four-step (the m columns widen every stage's lanes):
     bit-identical to ops/ntt.py's ntt_many with the same plan. K1 on
-    CUDA, log2 n launches, and one B1 launch for the diagonal twiddles;
-    the plain versions on the CPU."""
-    return _four_step(df, x, plan, not _dispatch(x))
+    CUDA, one launch a pass of four_step_passes (four from 2^12 to 2^20)
+    and nothing else; the plain version on the CPU."""
+    m, n = _checked(x, plan)
+    if not _dispatch(x):
+        return ntt_mxu_b_plain(df, x, plan)
+    if m == 0 or n == 1:
+        return x.clone()
+    return run_passes(df, x, plan, four_step_passes(m, n))
 
 
 def ntt_mxu(df: DeviceField, a: torch.Tensor, plan: NttPlan

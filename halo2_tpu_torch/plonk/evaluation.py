@@ -175,15 +175,22 @@ def compile_chunk(chunk) -> "GateTape":
     chunk's accumulator (acc = acc * y + t, in the chunk's order), one
     instruction per distinct node. The chunk is hash-consed with
     expression_share_counts as the reference's jitted chunk is
-    (halo2_tpu/plonk/prover.py:226-233), in the evaluation order of
-    evaluate_expression. Slots are given by liveness over the emitted
-    instructions: a value holds its slot from the instruction that makes
-    it to the last instruction that reads it (a shared node's first
-    reader may come after its last: a parent reads its first operand
-    only once its second is made), and the slot is then free for the
-    next value."""
+    (halo2_tpu/plonk/prover.py:226-233). A sum or product evaluates first
+    the operand that needs more slots (Sethi-Ullman labels over the DAG:
+    a leaf needs 1, a node with operands of equal need one more than
+    they); every field op is exact, so the order changes no value, only
+    the instructions' order and slots. Slots are given by liveness over
+    the emitted instructions: a value holds its slot from the instruction
+    that makes it to the last instruction that reads it (a shared node's
+    first reader may come after its last visit), and the slot is then
+    free for the next value. The op word's flag bits let the kernel keep
+    the previous result in registers: OPF_X_LAST / OPF_Y_LAST on an
+    operand that the previous instruction made, OPF_KEEP on a result that
+    only the next instruction reads (the kernel does not write its
+    slot)."""
     from ..ops.gate_kernels import (GateTape, OP_QUERY, OP_CONST, OP_NEG,
                                     OP_ADD, OP_MUL, OP_SCALE, OP_FOLD,
+                                    OPF_KEEP, OPF_X_LAST, OPF_Y_LAST,
                                     KIND_ADVICE, KIND_FIXED, KIND_INSTANCE)
     from .circuit import (Constant, SelectorExpr, FixedQuery, AdviceQuery,
                           InstanceQuery, Negated, Sum, Product, Scaled)
@@ -193,6 +200,21 @@ def compile_chunk(chunk) -> "GateTape":
     made: dict = {}               # shared node -> its value
     consts: dict = {}             # constant -> index in the constant table
     code: list = []               # (op, value made or None, x, y, reads)
+    needs: dict = {}
+
+    def need(e) -> int:
+        """Slots e's evaluation needs (its Sethi-Ullman label)."""
+        v = needs.get(e)
+        if v is None:
+            if isinstance(e, (Negated, Scaled)):
+                v = need(e.expr)
+            elif isinstance(e, (Sum, Product)):
+                la, lb = need(e.a), need(e.b)
+                v = la + 1 if la == lb else max(la, lb)
+            else:
+                v = 1
+            needs[e] = v
+        return v
 
     def const_index(v: int) -> int:
         return consts.setdefault(v, len(consts))
@@ -214,7 +236,12 @@ def compile_chunk(chunk) -> "GateTape":
             a = go(e.expr)
             ins = (OP_SCALE, a, const_index(e.scalar), (a,))
         elif isinstance(e, (Sum, Product)):
-            a, b = go(e.a), go(e.b)
+            if need(e.b) > need(e.a):
+                b = go(e.b)
+                a = go(e.a)
+            else:
+                a = go(e.a)
+                b = go(e.b)
             ins = (OP_ADD if isinstance(e, Sum) else OP_MUL, a, b, (a, b))
         elif isinstance(e, SelectorExpr):
             raise RuntimeError(
@@ -230,10 +257,11 @@ def compile_chunk(chunk) -> "GateTape":
     for i, e in enumerate(chunk):
         v = go(e)
         code.append((OP_FOLD, v, int(i == 0), (v,)))
-    last = {}
+    last, readers = {}, {}
     for i, (*_, reads) in enumerate(code):
         for v in reads:
             last[v] = i
+            readers.setdefault(v, set()).add(i)
     slot, free, out, n_slots = {}, [], [], 0
     for i, (op, x, y, reads) in enumerate(code):
         for v in set(reads):      # read before the result is written
@@ -250,6 +278,17 @@ def compile_chunk(chunk) -> "GateTape":
             else:
                 dst, n_slots = n_slots, n_slots + 1
             slot[i] = dst
-        out.append((op, dst, sx, sy))
+        # the register flags: the previous instruction's result as an
+        # operand, and a result that the next instruction alone reads
+        word = op
+        prev = i - 1 if i and code[i - 1][0] != OP_FOLD else None
+        if prev is not None and reads:
+            if reads[0] == prev:
+                word |= OPF_X_LAST
+            if len(reads) == 2 and reads[1] == prev:
+                word |= OPF_Y_LAST
+        if op != OP_FOLD and readers[i] == {i + 1}:
+            word |= OPF_KEEP
+        out.append((word, dst, sx, sy))
     return GateTape(code=out, consts=list(consts), n_slots=n_slots,
                     n_polys=len(chunk))

@@ -82,6 +82,35 @@ halo2_tpu_torch/_build/variants/:
   picks. With --json PATH, every number of the glv, bucket and double
   groups also goes to a JSON file, keyed by group.
 
+  K1's four-step NTT (csrc/mxu_kernels.cu), forward on the PALLAS scalar
+  field, a transform at 2^16, 2^17 and 2^20 with 1 and 4 columns:
+    S<s>_L<l>  the source's pass kernel in passes of at most s = 3..6
+               stages on tiles of l = 32 or 64 lanes (S5_L32 the source's
+               plan)
+    batch2, batch8, warps4, lb3
+               builds of the pass kernel in the source's plan
+               (MXU_PATCHES)
+    stagewise  the four-step of an older checkout given as the argument
+               (its csrc/mxu_kernels.cu: one K1 launch a stage, the gathers
+               and transposes as copies, the diagonal twiddles one B1)
+  K2 (csrc/gate_kernels.cu) on Table16's gate set at 2^20 rows, the whole
+  set as one chunk (60 slots) and in 400-node chunks (at most 21):
+    local      the source: the slot file in local memory, the previous
+               result in registers where the tape's flags say so
+    grid, grid_lb8, rows2, local_cc
+               the source with the grid sized to the blocks that fit at
+               once, also with 64 registers, two rows a thread, and its
+               products as MONT_MUL_CC (GATE_GRID, GATE_LB8,
+               GATE_ROWS2_LOOP; on su tapes with the flags)
+    shared     the slot file in shared memory, [slot][limb][thread]
+               (GATE_SHARED), as many threads a block as leave room for two
+               blocks an SM
+    local_old  an older checkout's kernel (the slot file in local memory,
+               no flags)
+    each on tapes in evaluation order (eval) or compile_chunk's
+    Sethi-Ullman order (su), with the register flags or without; LDL and
+    STL counted in each build's SASS.
+
 Every variant's output must equal the source's bit for bit (B7's, B5's,
 B6's, the GLV ladder's and the bucket-run kernel's also the plain
 version's). Each is timed from a CUDA graph (and, but for the GLV ladder
@@ -89,9 +118,10 @@ and the bucket-run kernel, by torch.profiler: chip_smoke.py's graph_ms and
 device_ms); per variant the timed kernel's registers (nvcc -Xptxas -v)
 and SASS instructions (cuobjdump -sass).
 
-Run from the repository root (--only runs one of the six groups):
-    python3 redesign_variants.py [--only glv|bucket|ntt|points|double]
-                                 [--json PATH] [OLD_CHECKOUT]
+Run from the repository root (--only runs one of the seven groups):
+    python3 redesign_variants.py [--only glv|bucket|ntt|points|double|
+                                         mxu|gate] [--json PATH]
+                                 [OLD_CHECKOUT]
 """
 from __future__ import annotations
 
@@ -1014,6 +1044,616 @@ def ntt_variants(dev, old) -> None:
                     raise AssertionError(f"{name} differs at 2^{log_n}")
 
 
+# K2 with its slot file in shared memory, [slot][limb][thread of the block]
+# (a warp reads one slot's limb from 32 banks), sized at launch from the
+# tape's slots; the register flags honoured as in the source. Rows a block:
+# as many warps (at most four) as leave room for two blocks an SM.
+GATE_SHARED = r'''#include "field.cuh"
+
+namespace {
+
+using namespace h2t;
+
+enum { OP_QUERY, OP_CONST, OP_NEG, OP_ADD, OP_MUL, OP_SCALE, OP_FOLD };
+constexpr int kOpMask = 0xff;
+constexpr int kKeep = 1 << 8;
+constexpr int kXLast = 1 << 9;
+constexpr int kYLast = 1 << 10;
+
+__device__ __forceinline__ void copy8(uint32_t r[8], const uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = a[i];
+}
+
+__device__ __forceinline__ void sget(uint32_t r[8], const uint32_t* sl,
+                                     int s, int T) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = sl[(s * 8 + i) * T];
+}
+
+__device__ __forceinline__ void sput(uint32_t* sl, int s, int T,
+                                     const uint32_t v[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) sl[(s * 8 + i) * T] = v[i];
+}
+
+template <int F>
+__global__ void __launch_bounds__(128)
+gate_chunk_shared_kernel(int32_t* __restrict__ out, int has_prev,
+                         const int4* __restrict__ code, int n_code,
+                         const int32_t* __restrict__ consts, int n_consts,
+                         const long long* __restrict__ ptrs, int n_ptrs,
+                         int n_adv, int n_fix, const int32_t* __restrict__ yy,
+                         long long n, long long rot_scale, size_t off_slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int32_t** s_ptr = reinterpret_cast<const int32_t**>(smem);
+  const size_t off_code = ((size_t)n_ptrs * 8 + 15) & ~(size_t)15;
+  int4* s_code = reinterpret_cast<int4*>(smem + off_code);
+  uint32_t* s_const =
+      reinterpret_cast<uint32_t*>(smem + off_code + (size_t)n_code * 16);
+  const int T = blockDim.x;
+  uint32_t* sl = reinterpret_cast<uint32_t*>(smem + off_slots) + threadIdx.x;
+  for (int i = threadIdx.x; i < n_ptrs; i += T)
+    s_ptr[i] = reinterpret_cast<const int32_t*>(ptrs[i]);
+  for (int i = threadIdx.x; i < n_code; i += T) s_code[i] = code[i];
+  for (int i = threadIdx.x; i < n_consts + 2; i += T) {
+    uint32_t v[8];
+    load_digits(v, i < n_consts ? consts + 16 * i : yy + 16 * (i - n_consts));
+#pragma unroll
+    for (int w = 0; w < 8; w++) s_const[8 * i + w] = v[w];
+  }
+  __syncthreads();
+  const uint32_t* y_m = s_const + 8 * n_consts;
+  const uint32_t* yk_m = y_m + 8;
+  const int base[3] = {0, n_adv, n_adv + n_fix};
+  const long long mask = n - 1;
+
+  for (long long r = (long long)blockIdx.x * T + threadIdx.x; r < n;
+       r += (long long)gridDim.x * T) {
+    uint32_t acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    uint32_t last[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    for (int pc = 0; pc < n_code; pc++) {
+      const int4 ins = s_code[pc];
+      const int op = ins.x & kOpMask;
+      uint32_t a[8], b[8], res[8];
+      if (op >= OP_NEG) {
+        if (ins.x & kXLast) copy8(a, last);
+        else sget(a, sl, ins.z, T);
+      }
+      if (op == OP_ADD || op == OP_MUL) {
+        if (ins.x & kYLast) copy8(b, last);
+        else sget(b, sl, ins.w, T);
+      }
+      switch (op) {
+        case OP_QUERY: {
+          const int32_t* col = s_ptr[base[ins.z >> 16] + (ins.z & 0xffff)];
+          const long long row = (r + (long long)ins.w * rot_scale) & mask;
+          load_digits(res, col + row * 16);
+          break;
+        }
+        case OP_CONST:
+          copy8(res, s_const + 8 * ins.z);
+          break;
+        case OP_NEG: {
+          const uint32_t z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+          sub<F>(res, z, a);
+          break;
+        }
+        case OP_ADD:
+          add<F>(res, a, b);
+          break;
+        case OP_MUL:
+          mont_mul<F>(res, a, b);
+          break;
+        case OP_SCALE:
+          copy8(b, s_const + 8 * ins.w);
+          mont_mul<F>(res, a, b);
+          break;
+        default: {
+          if (ins.w) {
+            copy8(acc, a);
+          } else {
+            copy8(b, y_m);
+            mont_mul<F>(res, acc, b);
+            add<F>(acc, res, a);
+          }
+          continue;
+        }
+      }
+      if (!(ins.x & kKeep)) sput(sl, ins.y, T, res);
+      copy8(last, res);
+    }
+    if (has_prev) {
+      uint32_t h[8], k[8], t[8];
+      load_digits(h, out + r * 16);
+      copy8(k, yk_m);
+      mont_mul<F>(t, h, k);
+      add<F>(h, t, acc);
+      store_digits(out + r * 16, h);
+    } else {
+      store_digits(out + r * 16, acc);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int h2t_gate_chunk_shared(int field, void* out, int has_prev,
+                                     const void* code, int n_code,
+                                     int n_slots, const void* consts,
+                                     int n_consts, const void* ptrs,
+                                     int n_ptrs, int n_adv, int n_fix,
+                                     const void* yy, long long n,
+                                     long long rot_scale, void* stream) {
+  if (n <= 0) return 0;
+  const size_t off_code = ((size_t)n_ptrs * 8 + 15) & ~(size_t)15;
+  const size_t off_slots =
+      (off_code + (size_t)n_code * 16 + (size_t)(n_consts + 2) * 32 + 15) &
+      ~(size_t)15;
+  const size_t row = (size_t)(n_slots > 0 ? n_slots : 1) * 32;
+  int warps = 4;
+  while (warps > 1 && 2 * (off_slots + row * 32 * warps) > 232448) warps--;
+  const int threads = 32 * warps;
+  const size_t bytes = off_slots + row * threads;
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  auto kern = field ? gate_chunk_shared_kernel<1> : gate_chunk_shared_kernel<0>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long per_sm = 232448 / (long long)bytes;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 132 * per_sm) blocks = 132 * per_sm;
+  kern<<<(unsigned)blocks, threads, bytes, (cudaStream_t)stream>>>(
+      (int32_t*)out, has_prev, (const int4*)code, n_code,
+      (const int32_t*)consts, n_consts, (const long long*)ptrs, n_ptrs, n_adv,
+      n_fix, (const int32_t*)yy, n, rot_scale, off_slots);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+# K2 variants patched into the source: the grid sized to the blocks that
+# fit at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), where the
+# source caps it at 132 x 8 blocks and 66 registers leave room for 7 an
+# SM; that grid with __launch_bounds__(128, 8) (registers capped at 64);
+# and two rows a thread (rows r and r + 128 of a block's 256), their
+# products independent, with that grid
+GATE_GRID = (
+    "  long long blocks = (n + kThreads - 1) / kThreads;\n"
+    "  if (blocks > 132 * 8) blocks = 132 * 8;\n",
+    "  long long blocks = (n + kThreads * kRows - 1) / (kThreads * kRows);\n"
+    "  int per_sm = 0, dev = 0, sms = 0;\n"
+    "  cudaGetDevice(&dev);\n"
+    "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+    "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,"
+    " bytes);\n"
+    "  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * "
+    "per_sm;\n")
+GATE_ROWS1 = ("constexpr int kThreads = 128;\n",
+              "constexpr int kThreads = 128;\nconstexpr int kRows = 1;\n")
+GATE_LB8 = ("__global__ void __launch_bounds__(kThreads)\n",
+            "__global__ void __launch_bounds__(kThreads, 8)\n")
+GATE_ROWS2_LOOP = r'''  for (long long r0 = (long long)blockIdx.x * blockDim.x * 2 + threadIdx.x;
+       r0 < n; r0 += (long long)gridDim.x * blockDim.x * 2) {
+    const long long rr[2] = {r0, r0 + blockDim.x};
+    uint32_t slot[kSlots][2][8];
+    uint32_t acc[2][8], last[2][8];
+#pragma unroll
+    for (int k = 0; k < 2; k++)
+#pragma unroll
+      for (int w = 0; w < 8; w++) acc[k][w] = last[k][w] = 0;
+    for (int pc = 0; pc < n_code; pc++) {
+      const int4 ins = s_code[pc];
+      const int op = ins.x & kOpMask;
+      uint32_t a[2][8], b[2][8], res[2][8];
+#pragma unroll
+      for (int k = 0; k < 2; k++) {
+        if (op >= OP_NEG) {
+          if (ins.x & kXLast) copy8(a[k], last[k]);
+          else copy8(a[k], slot[ins.z][k]);
+        }
+        if (op == OP_ADD || op == OP_MUL) {
+          if (ins.x & kYLast) copy8(b[k], last[k]);
+          else copy8(b[k], slot[ins.w][k]);
+        }
+      }
+      switch (op) {
+        case OP_QUERY: {
+          const int32_t* col = s_ptr[base[ins.z >> 16] + (ins.z & 0xffff)];
+#pragma unroll
+          for (int k = 0; k < 2; k++)
+            load_digits(res[k],
+                        col + ((rr[k] + (long long)ins.w * rot_scale) & mask)
+                                  * 16);
+          break;
+        }
+        case OP_CONST:
+#pragma unroll
+          for (int k = 0; k < 2; k++) copy8(res[k], s_const + 8 * ins.z);
+          break;
+        case OP_NEG: {
+          const uint32_t z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+          for (int k = 0; k < 2; k++) sub<F>(res[k], z, a[k]);
+          break;
+        }
+        case OP_ADD:
+#pragma unroll
+          for (int k = 0; k < 2; k++) add<F>(res[k], a[k], b[k]);
+          break;
+        case OP_MUL:
+#pragma unroll
+          for (int k = 0; k < 2; k++) mont_mul<F>(res[k], a[k], b[k]);
+          break;
+        case OP_SCALE:
+#pragma unroll
+          for (int k = 0; k < 2; k++) {
+            copy8(b[k], s_const + 8 * ins.w);
+            mont_mul<F>(res[k], a[k], b[k]);
+          }
+          break;
+        default: {  // OP_FOLD
+#pragma unroll
+          for (int k = 0; k < 2; k++) {
+            if (ins.w) {
+              copy8(acc[k], a[k]);
+            } else {
+              copy8(b[k], y_m);
+              mont_mul<F>(res[k], acc[k], b[k]);
+              add<F>(acc[k], res[k], a[k]);
+            }
+          }
+          continue;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2; k++) {
+        if (!(ins.x & kKeep)) copy8(slot[ins.y][k], res[k]);
+        copy8(last[k], res[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; k++) {
+      const long long r = rr[k];
+      if (has_prev) {
+        uint32_t h[8], kk[8], t[8];
+        load_digits(h, out + r * 16);
+        copy8(kk, yk_m);
+        mont_mul<F>(t, h, kk);
+        add<F>(h, t, acc[k]);
+        store_digits(out + r * 16, h);
+      } else {
+        store_digits(out + r * 16, acc[k]);
+      }
+    }
+  }
+}
+'''
+
+
+def _gate_rows2(text: str) -> tuple:
+    """The (old, new) patch that puts GATE_ROWS2_LOOP in place of the
+    source's row loop."""
+    a = text.index("  for (long long r = (long long)blockIdx.x")
+    b = text.index("\ntemplate <int F>\nint launch(")
+    return ((text[a:b], GATE_ROWS2_LOOP),)
+
+
+# K1 builds beside the source's pass kernel (run in the source's plan):
+# two and eight loads a thread in flight (kBatch, 4 in the source); four
+# warps a block (kPassWarps, 8; smaller blocks, more of them an SM); and
+# the source with at least three blocks an SM promised to ptxas
+MXU_PATCHES = {
+    "batch2": (("constexpr int kBatch = 4;", "constexpr int kBatch = 2;"),),
+    "batch8": (("constexpr int kBatch = 4;", "constexpr int kBatch = 8;"),),
+    "warps4": (("constexpr int kPassWarps = 8;",
+                "constexpr int kPassWarps = 4;"),),
+    "lb3": (("__global__ void __launch_bounds__(kPassWarps * 32)\n"
+             "mxu_pass_kernel(",
+             "__global__ void __launch_bounds__(kPassWarps * 32, 3)\n"
+             "mxu_pass_kernel("),),
+}
+
+
+def mxu_variants(dev, old) -> dict:
+    """The four-step NTT forward on the PALLAS scalar field at 2^16, 2^17
+    and 2^20 with 1 and 4 columns: K1's passes (the source) with passes
+    of at most S = 3..6 stages and tiles of 32 and 64 lanes, and, given an
+    older checkout, its stage-by-stage four-step (one K1 launch a stage,
+    the bit-reversal gathers and transposes as copies, the diagonal
+    twiddles as one B1 launch). Each equal to the source (S = 5, 32 lanes)
+    and to B7 bit for bit, timed a transform from a CUDA graph beside B7
+    and the sum of the source's pass bounds."""
+    import torch
+    import chip_smoke as cs
+    from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import cuda_build as cb
+    from halo2_tpu_torch.ops import field_kernels as fk
+    from halo2_tpu_torch.ops import mxu_field as mxu
+    from halo2_tpu_torch.ops import ntt
+    src = "mxu_kernels.cu"
+    variants = {"pass": make_variant("pass", CSRC, src)}
+    for name, patch in MXU_PATCHES.items():
+        variants[name] = make_variant(name, CSRC, src, patches=patch)
+    if old:
+        variants["stagewise"] = make_variant(
+            "stagewise", os.path.join(old, "halo2_tpu_torch", "csrc"), src)
+    libs = build(variants, "mxu_")
+    for name, lib in libs.items():
+        if name != "stagewise":
+            lib.h2t_mxu_pass.argtypes = cb._ARGTYPES["mxu_kernels"][
+                "h2t_mxu_pass"]
+            lib.h2t_mxu_pass.restype = ctypes.c_int
+    stage = None
+    if old:
+        stage = libs["stagewise"].h2t_mxu_const_mul
+        stage.argtypes = [cb._I, cb._P, cb._P, cb._P] + [cb._LL] * 6 + [
+            cb._I, cb._P]
+        stage.restype = ctypes.c_int
+    df = FQ_DEV
+    spec = df.spec
+
+    def stagewise(x, plan):
+        t = mxu._mxu4_plan(df, plan).on(dev)
+        m, n = x.shape[0], x.shape[1]
+        R = 1 << (((n.bit_length() - 1) + 1) // 2)
+        C = n // R
+
+        def axis(a, perm, stages):
+            N, L = a.shape[0], a.shape[1]
+            a = a.index_select(0, perm)
+            for s, tw in enumerate(stages, start=1):
+                half = 1 << (s - 1)
+                check(stage(df.field_id, a.data_ptr(), a.data_ptr(),
+                            tw.data_ptr(), half, (N >> s) * L, L,
+                            2 * half * L, L, half * L, 1, stream()))
+            return a
+        A = x.reshape(m, R, C, 16).transpose(0, 1).reshape(R, m * C, 16)
+        B = axis(A, t["col_perm"], t["col_tw"])
+        B = B.view(R, m, C, 16).transpose(0, 1).reshape(m, n, 16)
+        Bt = fk.fmul(df, B, t["diag"])
+        D = Bt.view(m, R, C, 16).permute(2, 0, 1, 3).reshape(C, m * R, 16)
+        E = axis(D, t["row_perm"], t["row_tw"])
+        return E.view(C, m, R, 16).transpose(0, 1).reshape(m, n, 16)
+
+    def run(lib, x, plan, passes, lanes_log):
+        """mxu.run_passes through the build `lib`."""
+        n = x.shape[1]
+        t = mxu._mxu4_plan(df, plan).on(dev)
+        bufs = (torch.empty_like(x), torch.empty_like(x))
+        src = x
+        for i, ps in enumerate(passes):
+            dst = bufs[i % 2]
+            tw = t["row_packed" if ps.axis else "col_packed"]
+            check(lib.h2t_mxu_pass(
+                df.field_id, dst.data_ptr(), src.data_ptr(), tw.data_ptr(),
+                t["diag_packed"].data_ptr() if ps.diag else None, ps.lanes,
+                ps.lpc_log, n, ps.log_n, ps.a, ps.cnt, lanes_log, ps.s_ax,
+                ps.s_ln, ps.d_ax, ps.d_ln, int(ps.gather), stream()))
+            src = dst
+        return src
+
+    record = []
+    for log_n in (16, 17, 20):
+        n = 1 << log_n
+        plan = ntt.make_plan(df, n, pow(spec.root_of_unity,
+                                        1 << (spec.s - log_n), spec.modulus))
+        for m in (1, 4):
+            x = cs.rand_field(df, m * n, log_n + m, dev).view(m, n, 16)
+            want = mxu.ntt_mxu_b(df, x, plan)
+            if not torch.equal(want, ntt.ntt_many(df, x, plan)):
+                raise AssertionError(f"[mxu] the source differs from B7 at "
+                                     f"2^{log_n}")
+            row = {"log_n": log_n, "m": m,
+                   "bound_ms": cs.mxu_transform_bound(m, n)[0],
+                   "b7_ms": cs.graph_ms(lambda: ntt.ntt_many(df, x, plan),
+                                        10),
+                   "graph_ms": {}, "launches": {}}
+            forms = [(f"S{s}_L{32 << lb}", ("pass", s, 5 + lb))
+                     for s in (3, 4, 5, 6) for lb in (0, 1)]
+            forms += [(name, (name, mxu.MXU_PASS_LOG, mxu.MXU_LANES_LOG))
+                      for name in MXU_PATCHES]
+            if stage is not None:
+                forms.append(("stagewise", None))
+            for name, form in forms:
+                if form is None:
+                    fn = lambda: stagewise(x, plan)
+                    launches = log_n
+                else:
+                    passes = mxu.four_step_passes(m, n, form[1])
+                    if any(form[2] + ps.cnt > 12       # kMaxTileLog
+                           for ps in passes):
+                        continue
+                    fn = (lambda lib=libs[form[0]], passes=passes,
+                          lb=form[2]: run(lib, x, plan, passes, lb))
+                    launches = len(passes)
+                got = fn()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"[mxu] {name} differs from the "
+                                         f"source at 2^{log_n} m={m}")
+                row["graph_ms"][name] = cs.graph_ms(fn, 10)
+                row["launches"][name] = launches
+            best = min(row["graph_ms"], key=row["graph_ms"].get)
+            print(f"[mxu] n=2^{log_n} m={m}: " + ", ".join(
+                f"{k} {v:.5f} ({row['launches'][k]})"
+                for k, v in row["graph_ms"].items())
+                + f" ms a transform from a graph (launches); B7 "
+                f"{row['b7_ms']:.5f}; bound {row['bound_ms']:.5f}; fastest "
+                f"{best}", flush=True)
+            record.append(row)
+            del x, want
+    return {"shapes": record}
+
+
+def _eval_order_compile():
+    """compile_chunk with the operands in evaluation order (a before b),
+    as tapes were compiled before the Sethi-Ullman order: its source
+    with the order's test taken out."""
+    import inspect
+    from halo2_tpu_torch.plonk import evaluation as ev
+    text = inspect.getsource(ev.compile_chunk)
+    old = "            if need(e.b) > need(e.a):\n"
+    assert old in text
+    ns = dict(vars(ev))
+    exec(text.replace(old, "            if False:\n"), ns)
+    return ns["compile_chunk"]
+
+
+def _strip_flags(tape):
+    """The tape with its register flags cleared: every result written to
+    its slot and every operand read from it."""
+    from halo2_tpu_torch.ops import gate_kernels as gk
+    return gk.GateTape(code=[(op & gk.OP_MASK, d, x, y)
+                             for op, d, x, y in tape.code],
+                       consts=tape.consts, n_slots=tape.n_slots,
+                       n_polys=tape.n_polys)
+
+
+def gate_variants(dev, old) -> dict:
+    """K2 on Table16's gate set (selectors compressed over 64 rows of no
+    activations, as tests/test_torch_cuda.py) at 2^20 rows, rot_scale 8,
+    after an accumulator: the whole set as one chunk (60 slots) and its
+    400-node chunks (at most 21) in turn, in the forms
+      local      the slot file in local memory (the source's kernel; with
+                 an older checkout, also that checkout's kernel as
+                 `local_old`)
+      shared     the slot file in shared memory (GATE_SHARED)
+    on tapes in evaluation order (`eval`) or Sethi-Ullman order (`su`,
+    compile_chunk's), with the register flags (`flags`) or without; each
+    equal to the source's form (local, su, flags) bit for bit and to the
+    plain tape on 2^12 of the rows; timed from a CUDA graph; registers
+    and stack (nvcc -Xptxas -v), SASS size and local loads and stores
+    (LDL, STL) of each build."""
+    import torch
+    import chip_smoke as cs
+    from halo2_tpu_torch import sha256_circuits
+    from halo2_tpu_torch.fields.device import FP_DEV
+    from halo2_tpu_torch.ops import cuda_build as cb
+    from halo2_tpu_torch.ops import gate_kernels as gk
+    from halo2_tpu_torch.plonk import prover
+    from halo2_tpu_torch.plonk.circuit import ConstraintSystem
+    from halo2_tpu_torch.plonk.compress_selectors import compress_selectors
+    from halo2_tpu_torch.plonk.evaluation import compile_chunk
+    src = "gate_kernels.cu"
+    with open(os.path.join(CSRC, src)) as fh:
+        text = fh.read()
+    grid = (GATE_ROWS1, GATE_GRID)
+    variants = {"local": make_variant("local", CSRC, src),
+                "grid": make_variant("grid", CSRC, src, patches=grid),
+                "grid_lb8": make_variant("grid_lb8", CSRC, src,
+                                         patches=grid + (GATE_LB8,)),
+                "local_cc": make_variant("local_cc", CSRC, src, cc=True),
+                "rows2": make_variant("rows2", CSRC, src, patches=(
+                    (GATE_ROWS1[0], GATE_ROWS1[0] +
+                     "constexpr int kRows = 2;\n"), GATE_GRID)
+                    + _gate_rows2(text))}
+    d = os.path.join(OUT, "shared")
+    os.makedirs(d, exist_ok=True)
+    shutil.copy(os.path.join(CSRC, "field.cuh"), d)
+    variants["shared"] = os.path.join(d, src)
+    with open(variants["shared"], "w") as fh:
+        fh.write(GATE_SHARED)
+    if old:
+        variants["local_old"] = make_variant(
+            "local_old", os.path.join(old, "halo2_tpu_torch", "csrc"), src)
+    libs = build(variants, "gate_chunk")
+    sass = {}
+    for name, cu in variants.items():
+        for fn, ops in cs.sass_opcodes(cu[:-3] + ".so", "gate_chunk").items():
+            if "ILi0E" in fn:
+                sass[name] = {k: ops[k] for k in ("LDL", "LDL.128", "STL",
+                                                  "STL.128", "LDS",
+                                                  "LDS.128", "STS",
+                                                  "STS.128")}
+                BUILD_INFO[name].setdefault(fn, {})["memory_ops"] = sass[name]
+                print(f"[gate] {name} {fn}: {sass[name]}")
+    fns = {}
+    for name, lib in libs.items():
+        entry = "h2t_gate_chunk_shared" if name == "shared" else \
+            "h2t_gate_chunk"
+        f = getattr(lib, entry)
+        f.argtypes = cb._ARGTYPES["gate_kernels"]["h2t_gate_chunk"]
+        f.restype = ctypes.c_int
+        fns[name] = f
+    cs_ = ConstraintSystem()
+    sha256_circuits.port_namespace().classes.Table16.configure(cs_)
+    compress_selectors(cs_, [[False] * 64] * cs_.num_selectors)
+    polys = [e for g in cs_.gates for e in g.polys]
+    eval_compile = _eval_order_compile()
+    df, n, rot = FP_DEV, 1 << 20, 8
+    counts = (cs_.num_advice_columns, cs_.num_fixed_columns,
+              cs_.num_instance_columns)
+    cols = [[cs.rand_field(df, n, 300 + 10 * kind + i, dev)
+             for i in range(c)] for kind, c in enumerate(counts)]
+    every = [c for group in cols for c in group]
+    ptrs = torch.tensor([c.data_ptr() for c in every],
+                        dtype=torch.int64).to(dev)
+    y = 0xC0FFEE
+    y_m = df.scalar(y, dev)
+    h0 = cs.rand_field(df, n, 299, dev)
+    rows = torch.arange(1 << 12, device=dev)
+    record = {"sass": sass}
+    for label, chunks in (("whole", [polys]),
+                          ("400", prover.gate_chunks(cs_, 400))):
+        tapes = {"su": [compile_chunk(c) for c in chunks],
+                 "eval": [eval_compile(c) for c in chunks]}
+        forms = [(k, order, flags) for k in fns for order in ("su", "eval")
+                 for flags in (True, False)
+                 if not (k == "local_old" and flags)
+                 and (k in ("local", "shared", "local_old")
+                      or (order, flags) == ("su", True))]
+
+        launches = {}
+        for order in tapes:
+            for flags in (True, False):
+                ent = launches[order, flags] = []
+                for tape in tapes[order]:
+                    tp = tape if flags else _strip_flags(tape)
+                    yk = df.scalar(pow(y, tp.n_polys, df.spec.modulus), dev)
+                    ent.append(tp.on(df, dev) + (tp.n_slots, torch.stack(
+                        [y_m.reshape(16), yk.reshape(16)]).contiguous()))
+
+        def run(form, out):
+            kern, order, flags = form
+            for code, consts, slots, yy in launches[order, flags]:
+                check(fns[kern](df.field_id, out.data_ptr(), 1,
+                                code.data_ptr(), code.shape[0], slots,
+                                consts.data_ptr(), consts.shape[0],
+                                ptrs.data_ptr(), len(every), counts[0],
+                                counts[1], yy.data_ptr(), n, rot, stream()))
+            return out
+        want = run(("local", "su", True), h0.clone())
+        plain = h0[rows]
+        for tape in tapes["su"]:
+            yk = df.scalar(pow(y, tape.n_polys, df.spec.modulus), dev)
+            plain = gk.run_chunk_plain(df, tape, plain, *cols, rot, y_m, yk,
+                                       n, rows=rows)
+        if not torch.equal(want[rows], plain):
+            raise AssertionError(f"[gate] {label}: K2 differs from the "
+                                 f"plain tape")
+        row = {"slots": {o: max(t.n_slots for t in ts)
+                         for o, ts in tapes.items()},
+               "launches": len(chunks), "graph_ms": {}}
+        scratch = h0.clone()
+        for form in forms:
+            name = f"{form[0]}_{form[1]}" + ("_flags" if form[2] else "")
+            got = run(form, h0.clone())
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"[gate] {label} {name} differs from "
+                                     f"the source's form")
+            row["graph_ms"][name] = cs.graph_ms(
+                lambda form=form: run(form, scratch), 3)
+        best = min(row["graph_ms"], key=row["graph_ms"].get)
+        print(f"[gate] {label} ({row['launches']} launches, slots "
+              f"{row['slots']}): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in row["graph_ms"].items())
+              + f" ms from a graph; fastest {best}", flush=True)
+        record[label] = row
+    return record
+
+
 def same_points(df, a, b) -> bool:
     """[96, L] pairs of [48, L] projective batches: the same points (X1 Z2
     = X2 Z1, Y1 Z2 = Y2 Z1, and Z = 0 on the same lanes)."""
@@ -1281,10 +1921,10 @@ def main() -> int:
     cs.phase_card()
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("glv", "bucket", "ntt", "points",
-                                       "double"))
+                                       "double", "mxu", "gate"))
     ap.add_argument("--json", default=None,
-                    help="write every number of the glv, bucket and double "
-                         "groups here")
+                    help="write every number of the glv, bucket, double, "
+                         "mxu and gate groups here")
     ap.add_argument("old", nargs="?", default=None)
     args = ap.parse_args()
     shutil.rmtree(OUT, ignore_errors=True)
@@ -1300,6 +1940,10 @@ def main() -> int:
         point_variants(dev)
     if args.only in (None, "double"):
         record["double"] = double_variants(dev)
+    if args.only in (None, "mxu"):
+        record["mxu"] = mxu_variants(dev, args.old)
+    if args.only in (None, "gate"):
+        record["gate"] = gate_variants(dev, args.old)
     if args.json:
         record["builds"] = BUILD_INFO
         with open(args.json, "w") as fh:

@@ -700,24 +700,41 @@ def test_mxu_kernel_matches_plain(cuda, df, lanes):
 
 
 @pytest.mark.parametrize("df", [FP_DEV, FQ_DEV], ids=["fp", "fq"])
-@pytest.mark.parametrize("log_n,m", [(12, 3), (16, 1), (17, 2)])
+@pytest.mark.parametrize("log_n,m", [(12, 3), (16, 1), (16, 3), (17, 2),
+                                     (20, 1)])
 def test_four_step_matches_b7(cuda, df, log_n, m):
-    """ntt_mxu_b (K1, log2 n launches) against B7, forward and inverse,
-    and against the plain four-step at 2^12."""
+    """ntt_mxu_b (K1's passes: ceil(log2 R / 5) + ceil(log2 C / 5)
+    launches, at most 4, and no B1 launch) against B7, forward and
+    inverse, and against the plain four-step at 2^12; at 2^16 the
+    profiler sees no kernel but K1's pass kernel in a transform."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
     from halo2_tpu_torch.ops import mxu_field as mxu
     spec = df.spec
     n = 1 << log_n
     x = _field_operands(df, m * n, 12).view(m, n, 16).to(cuda)
     omega = pow(spec.root_of_unity, 1 << (spec.s - log_n), spec.modulus)
+    lr = (log_n + 1) // 2
+    passes = -(-lr // 5) - (-(log_n - lr) // 5)
+    assert passes == len(mxu.four_step_passes(m, n)) <= 4
     for w in (omega, pow(omega, spec.modulus - 2, spec.modulus)):
         plan = ntt_ops.make_plan(df, n, w)
-        before = mxu.LAUNCHES["mxu"]
+        mxu._mxu4_plan(df, plan).on(x.device)    # the tables made first
+        before, b1 = mxu.LAUNCHES["mxu"], fk.LAUNCHES["fmul"]
         got = mxu.ntt_mxu_b(df, x, plan)
-        assert mxu.LAUNCHES["mxu"] == before + log_n
+        assert mxu.LAUNCHES["mxu"] == before + passes
+        assert fk.LAUNCHES["fmul"] == b1
         assert torch.equal(got, ntt_ops.ntt_many(df, x, plan))
         if log_n == 12:
             assert torch.equal(got.cpu(),
                                mxu.ntt_mxu_b_plain(df, x.cpu(), plan))
+        if log_n == 16 and m == 1:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                mxu.ntt_mxu_b(df, x, plan)
+                torch.cuda.synchronize()
+            names = {ev.key for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA}
+            assert names and all("mxu_pass" in k for k in names), names
 
 
 @pytest.mark.parametrize("nodes", [8, 400, 1 << 20])

@@ -26,6 +26,7 @@ from halo2_tpu_torch.circuit import Circuit, Value
 from halo2_tpu_torch.curves.host import VESTA
 from halo2_tpu_torch.fields.device import FP_DEV
 from halo2_tpu_torch.ops import gate_kernels as gk
+from halo2_tpu_torch.ops.field_kernels import fadd, fmul, fsub
 from halo2_tpu_torch.plonk import prover
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.compress_selectors import compress_selectors
@@ -161,3 +162,79 @@ def test_k4_proof_with_gate_chunks(monkeypatch):
     rproof, proof = k4_proofs(h_chunk_nodes=8)
     assert runs
     assert proof == rproof
+
+
+def _run_with_register_flags(df, tape, cols, rot_scale, y_m, n):
+    """The tape as K2 runs it (csrc/gate_kernels.cu), on all rows at once:
+    an operand flagged X_LAST / Y_LAST is read from the previous result
+    and not from its slot, and a result flagged KEEP is not written to its
+    slot (which holds a poison value instead), so a wrong flag shows."""
+    consts = tape.on(df, "cpu")[1]
+    poison = torch.full((n, 16), 0x7FFF, dtype=torch.int32)
+    slots = [poison] * tape.n_slots
+    acc = last = None
+    for word, dst, x, y in tape.code:
+        op = word & gk.OP_MASK
+        a = last if word & gk.OPF_X_LAST else (
+            slots[x] if op >= gk.OP_NEG else None)
+        b = last if word & gk.OPF_Y_LAST else (
+            slots[y] if op in (gk.OP_ADD, gk.OP_MUL) else None)
+        if op == gk.OP_FOLD:
+            acc = a if y else fadd(df, fmul(df, acc, y_m), a)
+            continue
+        if op == gk.OP_QUERY:
+            col = cols[x >> 16][x & 0xFFFF]
+            res = torch.roll(col, -y * rot_scale, dims=0)
+        elif op == gk.OP_CONST:
+            res = consts[x].expand(n, 16)
+        elif op == gk.OP_NEG:
+            res = fsub(df, torch.zeros_like(a), a)
+        elif op == gk.OP_ADD:
+            res = fadd(df, a, b)
+        elif op == gk.OP_MUL:
+            res = fmul(df, a, b)
+        else:
+            res = fmul(df, a, consts[y])
+        if not word & gk.OPF_KEEP:
+            slots[dst] = res
+        last = res
+    return acc
+
+
+def test_table16_tape_order_and_register_flags():
+    """compile_chunk on Table16's whole gate set and its 400-node chunks:
+    the tape in Sethi-Ullman order needs at most 60 slots (61 in
+    evaluation order), its register flags mark every operand that the
+    previous instruction made (and a KEEP result is read by the next
+    instruction alone), and the tape run with the flags honoured, as the
+    kernel runs it, equals the plain interpreter over 32 random rows."""
+    n, rot_scale, y = 32, 2, 0xABCDEF
+    rcs, cs = _configured("table16")
+    compress_selectors(cs, [[False] * 64] * cs.num_selectors)
+    whole = compile_chunk([e for g in cs.gates for e in g.polys])
+    assert whole.n_slots <= 60
+    df = FP_DEV
+    cols = [[torch.from_numpy(c) for c in _rand_cols(df, count, n, 40 + i)]
+            for i, count in enumerate((cs.num_advice_columns,
+                                       cs.num_fixed_columns,
+                                       cs.num_instance_columns))]
+    y_m = df.scalar(y, "cpu")
+    tapes = [whole] + [compile_chunk(c) for c in prover.gate_chunks(cs, 400)]
+    assert max(t.n_slots for t in tapes[1:]) <= 21
+    flagged = 0
+    for tape in tapes:
+        for i, (word, dst, x, y_) in enumerate(tape.code):
+            op = word & gk.OP_MASK
+            assert word & ~(gk.OP_MASK | gk.OPF_KEEP | gk.OPF_X_LAST
+                            | gk.OPF_Y_LAST) == 0 and op <= gk.OP_FOLD
+            if word & gk.OPF_KEEP:
+                nxt = tape.code[i + 1][0]
+                assert op != gk.OP_FOLD and nxt & (gk.OPF_X_LAST
+                                                   | gk.OPF_Y_LAST)
+            flagged += bool(word & (gk.OPF_X_LAST | gk.OPF_Y_LAST))
+        yk = df.scalar(pow(y, tape.n_polys, df.spec.modulus), "cpu")
+        want = gk.run_chunk_plain(df, tape, None, *cols, rot_scale, y_m, yk,
+                                  n)
+        got = _run_with_register_flags(df, tape, cols, rot_scale, y_m, n)
+        assert torch.equal(got, want)
+    assert flagged >= 700

@@ -28,7 +28,8 @@ from halo2_tpu_torch.convert import params_from_reference
 from halo2_tpu_torch.curves.host import PALLAS
 from halo2_tpu_torch.fields.device import FP_DEV, FQ_DEV
 from halo2_tpu_torch.ops import mxu_field as mxu
-from halo2_tpu_torch.ops.field_kernels import fmul
+from halo2_tpu_torch.ops.field_kernels import (fmul, fmul_plain, fadd_plain,
+                                              fsub_plain)
 from halo2_tpu_torch.ops.ntt import make_plan, ntt_many
 from halo2_tpu_torch.plonk.keygen import keygen_vk, keygen_pk
 from halo2_tpu_torch.plonk.prover import create_proof
@@ -102,9 +103,10 @@ def _plans(df, rdf, k):
 
 @pytest.mark.parametrize("k", [4, 7, 10])
 def test_ntt_mxu_matches_reference(k):
-    """ntt_mxu forward and inverse against the JAX ntt_mxu and the port's
-    B7 plain version (held to the JAX ntt by tests/test_torch_ntt.py; the
-    JAX ntt itself in the batched test below), in Fp (Fq below)."""
+    """ntt_mxu forward and inverse (and K1's emulated pass schedule,
+    below) against the JAX ntt_mxu and the port's B7 plain version (held
+    to the JAX ntt by tests/test_torch_ntt.py; the JAX ntt itself in the
+    batched test below), in Fp (Fq below)."""
     df, rdf = FP_DEV, R_FP_DEV
     n = 1 << k
     x = df.to_mont_np(_values(df.spec.modulus, n, 10 + k))
@@ -114,12 +116,15 @@ def test_ntt_mxu_matches_reference(k):
         assert np.array_equal(
             got, np.asarray(rmxu.ntt_mxu(rdf, xj, rplan)).astype(np.int32))
         assert np.array_equal(
+            got, _emulate_passes(df, torch.from_numpy(x)[None], plan)[0])
+        assert np.array_equal(
             got, ntt_many(df, torch.from_numpy(x)[None], plan)[0].numpy())
 
 
 def test_ntt_mxu_b_matches_reference():
-    """m = 3 columns at k = 8, forward and inverse, against the JAX
-    ntt_mxu_b and ntt column by column, in Fq."""
+    """m = 3 columns at k = 8, forward and inverse (and K1's emulated pass
+    schedule, below), against the JAX ntt_mxu_b and ntt column by column,
+    in Fq."""
     df, rdf = FQ_DEV, R_FQ_DEV
     k, m = 8, 3
     n = 1 << k
@@ -130,6 +135,8 @@ def test_ntt_mxu_b_matches_reference():
         got = mxu.ntt_mxu_b(df, torch.from_numpy(x), plan).numpy()
         assert np.array_equal(
             got, np.asarray(rmxu.ntt_mxu_b(rdf, xj, rplan)).astype(np.int32))
+        assert np.array_equal(
+            got, _emulate_passes(df, torch.from_numpy(x), plan).numpy())
         for j in range(m):
             assert np.array_equal(
                 got[j], np.asarray(r_ntt(rdf, xj[j], rplan)).astype(np.int32))
@@ -190,3 +197,226 @@ def test_k4_proof_through_the_four_step(monkeypatch):
     rproof, proof = k4_proofs()
     assert calls
     assert proof == rproof
+
+
+# ---------------------------------------------------------------------------
+# K1's pass kernel (csrc/mxu_kernels.cu::mxu_pass_kernel) emulated
+# ---------------------------------------------------------------------------
+
+def _bitrev(i: torch.Tensor, bits: int) -> torch.Tensor:
+    r = torch.zeros_like(i)
+    for b in range(bits):
+        r |= ((i >> b) & 1) << (bits - 1 - b)
+    return r
+
+
+def _emulate_passes(df, x, plan, max_log=mxu.MXU_PASS_LOG,
+                    lanes_log=mxu.MXU_LANES_LOG):
+    """The pass kernel's schedule over x [m, n, 16] on the CPU, launch by
+    launch of mxu.four_step_passes and every block at once: block b is
+    (residue b mod 2^a, higher group h, lane chunk); its tile of 2^cnt
+    axis positions i = res + t 2^a + h 2^(a+cnt) times 2^lanes_log lanes
+    is read through the pass's source strides (i bit-reversed where it
+    gathers), lanes past the end zero; stage a + s pairs tile rows t and
+    t + 2^(s-1) with the twiddle at row 2^(a+s-1) - 1 + res + (t mod
+    2^(s-1)) 2^a of the axis plan's table; the tile is written through the
+    destination strides, times the diagonal twiddle there on the column
+    axis' last pass. Every element of the destination is written exactly
+    once."""
+    m, n = x.shape[0], x.shape[1]
+    p4 = mxu._mxu4_plan(df, plan)
+    diag = p4.on("cpu")["diag"]
+    Lb = 1 << lanes_log
+    src = x.reshape(m * n, 16)
+    for ps in mxu.four_step_passes(m, n, max_log):
+        N = 1 << ps.log_n
+        table = (p4.row_plan if ps.axis else p4.col_plan).on("cpu")[1]
+        chunks = -(-ps.lanes // Lb)
+        n_res, highs = 1 << ps.a, N >> (ps.a + ps.cnt)
+        b = torch.arange(chunks * highs * n_res)
+        res, h = b % n_res, (b // n_res) % highs
+        q = ((b // (n_res * highs)) * Lb)[:, None, None] + torch.arange(Lb)
+        i = (res[:, None, None] + (torch.arange(1 << ps.cnt)[:, None]
+                                   << ps.a) + (h[:, None, None]
+                                               << (ps.a + ps.cnt)))
+        valid = (q < ps.lanes).expand(-1, 1 << ps.cnt, -1)
+        j, lane = q >> ps.lpc_log, q & ((1 << ps.lpc_log) - 1)
+        si = _bitrev(i, ps.log_n) if ps.gather else i
+        e = (j * n + si * ps.s_ax + lane * ps.s_ln).expand_as(valid)
+        tile = torch.where(valid[..., None], src[e.clamp(0, m * n - 1)], 0)
+        for s in range(1, ps.cnt + 1):
+            ht = 1 << (s - 1)
+            tlo = torch.tensor([t for t in range(1 << ps.cnt) if not t & ht])
+            row = ((1 << (ps.a + s - 1)) - 1 + res[:, None]
+                   + ((tlo & (ht - 1)) << ps.a))
+            lo, hi = tile[:, tlo], tile[:, tlo + ht]
+            prod = fmul_plain(df, hi, table[row][:, :, None])
+            tile[:, tlo] = fadd_plain(df, lo, prod)
+            tile[:, tlo + ht] = fsub_plain(df, lo, prod)
+        pos = (i * ps.d_ax + lane * ps.d_ln).expand_as(valid)
+        if ps.diag:
+            tile = fmul_plain(df, tile, diag[pos])
+        dst = (j * n + pos)[valid]
+        assert torch.equal(torch.sort(dst).values, torch.arange(m * n))
+        out = torch.empty_like(src)
+        out[dst] = tile[valid]
+        src = out
+    return src.view(m, n, 16)
+
+
+@pytest.mark.parametrize("fields", FIELDS, ids=["fp", "fq"])
+@pytest.mark.parametrize("k", range(4, 13))
+def test_pass_schedule_matches_b7(fields, k):
+    """The pass kernel's emulated schedule (its residues, twiddle rows,
+    fused gather, diagonal and transposes, in the plan's order) at m = 1
+    and 3, forward and inverse, against the port's B7 plain version (held
+    to the JAX ntt by tests/test_torch_ntt.py; the emulation is held to
+    the JAX ntt_mxu and ntt_mxu_b themselves in the tests above, where
+    the JAX transform is compiled anyway: 20-30 s a shape on a CPU)."""
+    df, rdf = fields
+    n = 1 << k
+    for m in (1, 3):
+        x = torch.from_numpy(df.to_mont_np(
+            [_values(df.spec.modulus, n, 30 + k + j) for j in range(m)]))
+        for plan, _ in _plans(df, rdf, k):
+            assert torch.equal(_emulate_passes(df, x, plan),
+                               ntt_many(df, x, plan))
+
+
+def test_pass_schedule_other_plans():
+    """The same emulation with passes of 3 and 6 stages and tiles of 64
+    lanes (redesign_variants.py's builds) against B7's plain version."""
+    df = FP_DEV
+    k, m = 11, 2
+    n = 1 << k
+    x = torch.from_numpy(df.to_mont_np(
+        [_values(df.spec.modulus, n, 60 + j) for j in range(m)]))
+    plan = _plans(df, R_FP_DEV, k)[0][0]
+    want = ntt_many(df, x, plan)
+    for max_log, lanes_log in ((3, 5), (6, 5), (5, 6)):
+        assert torch.equal(_emulate_passes(df, x, plan, max_log, lanes_log),
+                           want)
+
+
+def test_pass_plan_covers_every_stage():
+    """four_step_passes at 2^2 .. 2^24: each axis' passes run its stages
+    1 .. log2 N once each, in order, at most MXU_PASS_LOG a pass, so a
+    transform of 2^12 to 2^20 makes four launches (2^11 three, smaller
+    two); the first gathers, the column axis' last takes the diagonal,
+    the row axis' last transposes; every tile fits the kernel's shared
+    memory (csrc/mxu_kernels.cu::pass_smem, its constants read from the
+    source), also the passes of 6 stages and the tiles of 64 lanes that
+    redesign_variants.py builds."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(mxu.__file__), "..", "csrc",
+                            "mxu_kernels.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    def fits(cnt, lanes_log):
+        e = 1 << (lanes_log + cnt)
+        smem = 4 * (8 * e + min(const("kPassWarps"), e >> 6) * 32
+                    * const("kSumRow") + ((1 << cnt) - 1)
+                    * const("kBandWords"))
+        return (lanes_log + cnt <= const("kMaxTileLog")
+                and smem <= 232448)
+    assert mxu.MXU_PASS_LOG >= 5
+    assert fits(6, 5) and fits(5, 6)
+    for k in range(2, 25):
+        for m in (1, 3):
+            passes = mxu.four_step_passes(m, 1 << k)
+            lr = (k + 1) // 2
+            for axis, log_n in ((0, lr), (1, k - lr)):
+                mine = [ps for ps in passes if ps.axis == axis]
+                assert len(mine) == -(-log_n // mxu.MXU_PASS_LOG)
+                a = 0
+                for idx, ps in enumerate(mine):
+                    assert ps.a == a and 1 <= ps.cnt <= mxu.MXU_PASS_LOG
+                    assert ps.log_n == log_n and ps.gather == (idx == 0)
+                    assert ps.lanes == m << (k - log_n)
+                    assert fits(ps.cnt, mxu.MXU_LANES_LOG)
+                    a += ps.cnt
+                assert a == log_n
+            assert [ps.diag for ps in passes].count(True) == 1
+            assert passes[[ps.axis for ps in passes].index(1) - 1].diag
+            assert (passes[-1].d_ax, passes[-1].d_ln) == (1 << lr, 1)
+            assert len(passes) == (-(-lr // mxu.MXU_PASS_LOG)
+                                   - (-(k - lr) // mxu.MXU_PASS_LOG))
+            if k <= 20:
+                assert len(passes) == (4 if k >= 12 else 3 if k == 11
+                                       else 2)
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    b = [(x >> (8 * k)) & 0xFF for k in range(4)] + [
+        (y >> (8 * k)) & 0xFF for k in range(4)]
+    return sum(b[(s >> (4 * e)) & 7] << (8 * e) for e in range(4))
+
+
+def _limbs(v: int) -> list:
+    return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+
+
+@pytest.mark.parametrize("fields", FIELDS, ids=["fp", "fq"])
+def test_fragment_order_emulated(fields):
+    """K1's fragments on host ints, thread by thread of a warp: the B
+    fragments built from the staged constant by byte_perm
+    (band_fragments), the A fragments as limbs 2t, 2t + 1 of rows g and
+    g + 8 of each m16 tile, the products by PTX's m16n8k32 fragment
+    layout, the column pairs staged (products_to_sums) and carried into
+    limbs (reduce_sums): every lane's 512-bit sum equals a c, with
+    constants and values of 0xFF bytes."""
+    df = fields[0]
+    p = df.spec.modulus
+    top = (1 << 254) - 1
+    consts = [0, 1, p - 1, top] + _values(p, 3, 6)
+    vals = [top, p - 1, 0, 1] + _values(p, 28, 7)
+    for c in consts:
+        cz = [0] * 8 + _limbs(c) + [0] * 12
+        B = np.zeros((32, 64), np.int64)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            pw = 29 + g - 8 * t
+            w0, o = pw >> 2, pw & 3
+            sel = (o + 3) | ((o + 2) << 4) | ((o + 1) << 8) | (o << 12)
+            v = [cz[w0 - 1 + k] for k in range(18)]
+            for T in range(8):
+                for hh, word in enumerate(
+                        (_byte_perm(v[2 * T + 1], v[2 * T + 2], sel),
+                         _byte_perm(v[2 * T], v[2 * T + 1], sel))):
+                    for e in range(4):
+                        B[16 * hh + 4 * t + e, 8 * T + g] = (
+                            word >> (8 * e)) & 0xFF
+        A = np.zeros((32, 32), np.int64)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for M in range(2):
+                for rr in range(2):
+                    row = 16 * M + g + 8 * rr
+                    limbs = _limbs(vals[row])
+                    for e in range(4):
+                        A[row, 4 * t + e] = (limbs[2 * t] >> (8 * e)) & 0xFF
+                        A[row, 16 + 4 * t + e] = (
+                            limbs[2 * t + 1] >> (8 * e)) & 0xFF
+        D = A @ B
+        assert D.max() < 1 << 21
+        sums = np.full((32, 32), -1, np.int64)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for M in range(2):
+                for T in range(8):
+                    for r in (16 * M + g, 16 * M + g + 8):
+                        sums[r, 4 * T + t] = (D[r, 8 * T + 2 * t]
+                                              + (D[r, 8 * T + 2 * t + 1]
+                                                 << 8))
+        assert sums.min() >= 0 and sums.max() < 1 << 30
+        for row in range(32):
+            acc, total = 0, 0
+            for i in range(16):
+                acc += int(sums[row, 2 * i]) + (int(sums[row, 2 * i + 1])
+                                                << 16)
+                total |= (acc & 0xFFFFFFFF) << (32 * i)
+                acc >>= 32
+            assert acc == 0 and total == vals[row] * c
