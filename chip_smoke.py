@@ -385,7 +385,7 @@ def phase_build():
     # showed)
     for name, key in (("point_kernels", "pmixed_bucket_runs"),
                       ("point_kernels", "glv_ladder"),
-                      ("point_kernels", "pmixed_masked_kernel"),
+                      ("point_kernels", "pmixed_masked_"),
                       ("point_kernels", "scalar_mul_ladder"),
                       ("point_kernels", "padd_kernel"),
                       ("point_kernels", "pdouble_"),
@@ -522,7 +522,7 @@ def phase_points(results, params):
              lambda: pk.pmixed_masked_flat(df, A, aff, mask, signs),
              lambda: pk.pmixed_masked_plain(df, A, aff, mask, signs),
              L * (192 + 128 + 8 + 192), live_mixed * 11 * MONT_MULADDS)):
-        ms = device_ms(fn, 50, name + "_kernel")
+        ms = device_ms(fn, 50, name + "_")
         call_ms = timed(fn, 50)
         pms = timed(plain, 3)
         bd, by = bound_ms(nbytes, muladds)
@@ -535,6 +535,94 @@ def phase_points(results, params):
     if any(mism.values()):
         raise AssertionError(f"point kernel mismatches {mism}")
     phase_b3_forms(results, params, A, mask, signs)
+    phase_b2_forms(results, params)
+
+
+# B2's widths: 1 and 8,192 lanes, kPmixedLaneFrom and one lane either side,
+# 2^17; its forms are timed at B2_TIMED
+B2_WIDTHS = (1, 8192, 1 << 17)
+B2_TIMED = (8192, 1 << 17)
+
+
+def _b2_inputs(df, pts, L, gen):
+    """B2's operands at L lanes: [48, L] accumulators with Z != 1 and
+    identity lanes, [32, L] affine bases from pts (Z = 1) with a 64th of
+    them identity-coded, a random 80% of the lanes live and half the
+    signs set; and the lanes live with a base that is not the identity."""
+    import torch
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = pts.device
+    a, _ = _ladder_inputs(df, pts, L, gen, edge=False)
+    aff = pts[:32, torch.randint(pts.shape[1], (L,), generator=gen,
+                                 device=dev)].clone()
+    ident = pk.ident_col(df, dev)[:32, None]
+    aff[:, L // 2:L // 2 + max(1, L // 64)] = ident
+    mask = (torch.rand(L, generator=gen, device=dev) < 0.8).to(torch.int32)
+    signs = (torch.rand(L, generator=gen, device=dev) < 0.5).to(torch.int32)
+    ident_b = (aff == ident).all(0)
+    return a, aff, mask, signs, int((mask.bool() & ~ident_b).sum())
+
+
+def phase_b2_forms(results, params):
+    """B2 in both forms (pmixed_masked_form: one thread a lane, one lane a
+    group of four threads) and through its wrapper (the form picked by
+    lane count) against pmixed_masked_plain bit for bit, on both fields,
+    at B2_WIDTHS and at kPmixedLaneFrom and one lane either side. Then, on
+    the PALLAS base field at B2_TIMED and the threshold's two sides, each
+    form's device time a launch from a CUDA graph of 20 launches and the
+    wrapper's, beside the bound (520 bytes a lane against 11 products a
+    live lane)."""
+    import torch
+    from halo2_tpu_torch.curves.host import VESTA
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FQ_DEV
+    from halo2_tpu_torch.ops import point_kernels as pk
+    dev = params.device
+    at = lane_from()["kPmixedLaneFrom"]
+    widths = sorted(set(B2_WIDTHS) | {at - 1, at, at + 1})
+    gen = torch.Generator(device=dev).manual_seed(19)
+    vesta = pk.points_to_proj(FQ_DEV, native_srs_g(
+        VESTA, "chip-smoke-b2", 1024), dev)
+    r = results["pmixed_masked"]
+    bad, err = 0, 0
+    for df, pts in ((params.base_df, params.g_dev), (FQ_DEV, vesta)):
+        for L in widths:
+            a, aff, mask, signs, _ = _b2_inputs(df, pts, L, gen)
+            want = pk.pmixed_masked_plain(df, a, aff, mask, signs)
+            outs = [pk.pmixed_masked_form(df, a, aff, mask, signs, t)
+                    for t in pk.FORMS.values()]
+            outs.append(pk.pmixed_masked_flat(df, a, aff, mask, signs))
+            for got in outs:
+                bad += int((got != want).any(dim=0).sum())
+                err = max(err, max_abs(got, want))
+    torch.cuda.synchronize()
+    log(f"[points] B2 both fields: both forms and the wrapper against the "
+        f"plain version at {widths} lanes: {bad} mismatches")
+    r["mismatches"] += bad
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["forms_lane_from"] = at
+    if bad:
+        raise AssertionError(f"B2 forms: {bad} mismatches")
+    df = params.base_df
+    forms = r.setdefault("forms", {})
+    for L in sorted(set(B2_TIMED) | {at - 2048, at}):
+        a, aff, mask, signs, live = _b2_inputs(df, params.g_dev, L, gen)
+        bd, by = bound_ms(L * (192 + 128 + 8 + 192),
+                          live * 11 * MONT_MULADDS)
+        parts = []
+        for form, t in pk.FORMS.items():
+            ms = graph_ms(lambda t=t: pk.pmixed_masked_form(
+                df, a, aff, mask, signs, t), 10, calls=20)
+            forms.setdefault(form, {"threads": t})[f"ms_L{L}"] = ms
+            parts.append(f"{form} {ms:.5f}")
+        ms = graph_ms(lambda: pk.pmixed_masked_flat(df, a, aff, mask, signs),
+                      10, calls=20)
+        picked = form_picked("kPmixedLaneFrom", L)
+        r.update({f"graph_ms_L{L}": ms, f"bound_ms_L{L}": bd,
+                  f"form_L{L}": picked})
+        log(f"[points] pmixed_masked L={L} ({live} live): "
+            + ", ".join(parts) + f" ms a launch from a graph; the wrapper "
+            f"({picked}) {ms:.5f} ms (bound {bd:.5f} ms by {by})")
 
 
 def phase_b3_forms(results, params, A, mask, signs):
@@ -793,7 +881,7 @@ def phase_bucket(results, params, params_ref_k):
                                 timed(fn, 5))
             loop_fn = lambda: b2_round_loop(df, aff, gidx, valid, sig, ident)
             loop_graph = graph_ms(loop_fn, 3)
-            loop_b2 = device_ms(loop_fn, 2, "pmixed_masked_kernel",
+            loop_b2 = device_ms(loop_fn, 2, "pmixed_masked_",
                                 per_call=True)
             loop_call = timed(loop_fn, 2)
             members_total = int(counts.sum())
@@ -1062,8 +1150,9 @@ PDOUBLE_TIMED = (1, 2, 8192, 1 << 17)
 def lane_from() -> dict:
     """csrc/point_kernels.cu's k*LaneFrom constants: from that many lanes
     B5 (kPdoubleLaneFrom), B6 (kPdoubleMaskedLaneFrom), the GLV ladder
-    (kGlvLaneFrom) and the bucket-run kernel (kBucketLaneFrom) run one
-    thread a lane, below it one lane a group of four threads."""
+    (kGlvLaneFrom), the bucket-run kernel (kBucketLaneFrom) and B2
+    (kPmixedLaneFrom) run one thread a lane, below it one lane a group of
+    four threads."""
     import os
     import re
     from halo2_tpu_torch.ops import cuda_build
@@ -3755,6 +3844,33 @@ def _mesh_tasks(world: int) -> list:
     return tasks
 
 
+def _mesh_memory(pk_bytes, peak, start, staged, local) -> dict:
+    """A rank's memory figures of a warm mesh prove: its proving key's
+    bytes, the peak of allocated card memory in the prove and the part of
+    it above what the process held when the prove began (the prove's own
+    working set; the absolute peak also counts whatever else the process
+    holds), and the bytes staged through host memory."""
+    return {"pk_bytes": pk_bytes, "peak_bytes": peak,
+            "prove_peak_bytes": peak - start, "staged_bytes": staged,
+            "local": local}
+
+
+def _mesh_memory_text(mem, ref=None) -> str:
+    share = (lambda k: f" ({mem[k] / ref[k]:.4f} of world 1's)"
+             if ref else "")
+    return (f"holds its rows {mem['local']}; pk {mem['pk_bytes']} bytes"
+            f"{share('pk_bytes')}; the warm prove's peak of allocated card "
+            f"memory {mem['peak_bytes']} bytes, {mem['prove_peak_bytes']} "
+            f"above its start{share('prove_peak_bytes')}; staged "
+            f"{mem['staged_bytes']} bytes")
+
+
+def _pk_bytes(pk) -> int:
+    """Bytes of storage of the proving-key tensors the prover re-lays."""
+    from halo2_tpu_torch.parallel import programs
+    return sum(v for _, v in programs.pk_rows(pk).values())
+
+
 def _mesh_rank(tasks):
     """One rank of a spawned world (chip_smoke.py is its main module): the
     tasks of parallel/programs.py on the card, every kernel call they
@@ -3783,8 +3899,11 @@ def phase_mesh(results):
     each rank's proofs hash to the same reference, its sharded NTT of a
     2^16 column and sharded k = K commit equal the single-device ones,
     its path's kernel calls equal their plain versions; the world of 2
-    also proves dev_lookup at k = K against its JAX hash. Ranks that share
-    a card compete for it: their times show no speedup and claim none."""
+    also proves dev_lookup at k = K against its JAX hash. Every rank of
+    every world holds its rows: its proving key's bytes, its peak of
+    allocated card memory in the warm prove and the bytes it staged
+    through host memory then are printed. Ranks that share a card compete
+    for it: their times show no speedup and claim none."""
     import torch
     from halo2_tpu_torch.bench_circuit import PROOF_SEED
     from halo2_tpu_torch.curves.host import PALLAS as curve
@@ -3808,8 +3927,11 @@ def phase_mesh(results):
         with path_calls() as calls:
             for label in ("cold", "warm"):
                 before = launch_counts()
+                staged = mesh_mod.COUNTS["staged_bytes"]
                 tw = TranscriptWrite(curve)
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
                 t = time.perf_counter()
                 with ProverMesh(mesh):
                     pv.create_proof(params, pk_, [circuit], inst,
@@ -3821,8 +3943,12 @@ def phase_mesh(results):
         warm = diff_counts(before)
         launches = launch_counts()
         counts = dict(mesh_mod.COUNTS)
+        mem1 = _mesh_memory(
+            _pk_bytes(pk_), torch.cuda.max_memory_allocated(), start,
+            counts["staged_bytes"] - staged, pk_._rows.local)
     log(f"[mesh] world 1: launches {launches} (the warm prove {warm}); "
         f"mesh counts {counts}")
+    log(f"[mesh] world 1 rank 0: {_mesh_memory_text(mem1)}")
     for name in MAIN_PATH_KERNELS:
         results[name]["mesh_launches_d1"] = warm[name]
     idle = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
@@ -3853,6 +3979,14 @@ def phase_mesh(results):
             f"{time.perf_counter() - t:.1f}s with the spawn")
         for r in ranks:
             b = r["bench"]
+            mem = _mesh_memory(sum(v for _, v in b["pk_rows"].values()),
+                               b["peak_bytes"], b["start_bytes"],
+                               b["staged_bytes"], b["local"])
+            log(f"[mesh] world {world} rank {r['rank']}: "
+                f"{_mesh_memory_text(mem, mem1)}")
+            if not mem["local"]:
+                raise AssertionError(f"world {world} rank {r['rank']} kept "
+                                     f"whole tensors at k={K}")
             hashes = {hashlib.sha256(p).hexdigest() for p in b["proofs"]}
             log(f"[mesh] world {world} rank {r['rank']} ({r['backend']}, "
                 f"{r['device']}): create_proof cold {b['times'][0]:.3f}s, "

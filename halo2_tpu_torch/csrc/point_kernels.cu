@@ -50,9 +50,9 @@
 //
 // Layout: a point batch is [48, L] int32 (rows 0-15 X, 16-31 Y, 32-47 Z
 // as 16-bit Montgomery digits, lanes last); an affine batch is [32, L].
-// One thread per lane (B2, B3), one lane a group of four threads (B4, the
-// scalar ladder), or either by lane count (B5, B6, the GLV ladder, the
-// bucket-run kernel; see the last notes): neighbouring lanes read
+// One thread per lane (B3), one lane a group of four threads (B4, the
+// scalar ladder), or either by lane count (B2, B5, B6, the GLV ladder,
+// the bucket-run kernel; see the last notes): neighbouring lanes read
 // neighbouring words of each row, so every load and store coalesces (B3's
 // index form gathers). The formulas are written straight-line with the
 // coordinates in registers (8 x 32-bit limbs each).
@@ -224,6 +224,26 @@
 //   word before each add measured no faster. (redesign_variants.py --only
 //   glv|bucket; NVIDIA H100 80GB HBM3, 700 W; each a launch from a CUDA
 //   graph; PERF.md.)
+// - B2 runs in either form too, below and from kPmixedLaneFrom (26,624)
+//   lanes: one lane a group of four threads (coop_add with Z2 = mont 1,
+//   its products inlined; 80 registers, 5,376 SASS instructions) or one
+//   thread a lane (rcb_mixed_add inlined; 124 registers, 7,624), both in
+//   blocks from spread_threads. Every rank reads the mask word and the
+//   whole base, so the identity test and the sign need no exchange; a
+//   masked-off or identity lane is a branch of the group. Each a launch
+//   from a CUDA graph of 20, a random 80% of the lanes live
+//   (redesign_variants.py --only b2; NVIDIA H100 80GB HBM3, 700 W;
+//   PERF.md): the group 0.0050-0.0081 ms at 1 to 8,192 lanes against
+//   0.0114-0.0138 one thread a lane (the form in fixed 128-thread blocks
+//   the same), 0.0168 against 0.0181-0.0201 at 20,480; level at 24,576
+//   (0.0195 both); from 26,624 to 2^17 one thread wins at every width
+//   (0.0195 against 0.0233 at 26,624, 0.0860-0.0863 against 0.0945 at
+//   2^17): B2's add is Alg 8, 11 products a lane, where the group runs 16
+//   and every rank its own sums, so the group issues more a lane and
+//   loses once the lanes give the one-thread form six warps an SM. At
+//   163,840 lanes the group won (0.1124 against 0.1178-0.1211): one
+//   thread a lane at 124 registers holds 16 warps an SM, and 163,840
+//   lanes leave it a third, part-filled wave.
 #include "field.cuh"
 
 using namespace h2t;
@@ -530,6 +550,9 @@ static constexpr int kPdoubleLaneFrom = 30720;
 static constexpr int kPdoubleMaskedLaneFrom = 30720;
 static constexpr int kGlvLaneFrom = 32768;
 static constexpr int kBucketLaneFrom = 45056;
+// B2 runs one lane a group of kGroup threads below kPmixedLaneFrom lanes,
+// one thread a lane from there up
+static constexpr int kPmixedLaneFrom = 26624;
 // words of shared memory a group of the GLV ladder's group form: its three
 // table points (72 limbs) and a pad, so that the ranks' reads of one
 // coordinate of each of the warp's eight groups fall in distinct banks
@@ -781,13 +804,13 @@ scalar_mul_ladder_kernel(int32_t* __restrict__ out,
   if (r < 3) store_rows(out2 + row, L, o);
 }
 
+// B2: out = mask ? a +/- b : a, one thread a lane (rcb_mixed_add inlined)
 template <int F>
-__global__ void pmixed_masked_kernel(int32_t* __restrict__ out,
-                                     const int32_t* __restrict__ a,
-                                     const int32_t* __restrict__ b,
-                                     const int32_t* __restrict__ mask,
-                                     const int32_t* __restrict__ sign,
-                                     uint32_t L) {
+__global__ void __launch_bounds__(kMaxThreads)
+pmixed_masked_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
+                     const int32_t* __restrict__ b,
+                     const int32_t* __restrict__ mask,
+                     const int32_t* __restrict__ sign, uint32_t L) {
   uint32_t l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
   uint32_t x2[8], y2[8];
@@ -812,6 +835,57 @@ __global__ void pmixed_masked_kernel(int32_t* __restrict__ out,
   load_pt(acc, a + l, L);
   rcb_mixed_add<F>(r, acc, x2, y2);
   store_pt(out + l, L, r);
+}
+
+// B2, one lane a group of kGroup threads: coop_add with Z2 = mont(1), which
+// gives Alg 8's field values bit for bit (as the bucket-run kernel's group
+// form). Every rank reads the lane's mask word and, where it is set, the
+// whole base, so the identity test and the sign act on x and y before
+// select3 spreads them over the ranks as b0 = {x, y, 1}[c(r)] and
+// b1 = {y, 1, x}[c(r)]; a masked-off or identity lane is a branch of the
+// whole group (ranks 0-2 copy their coordinate of A). Rank r reads
+// coordinate c(r) of A and takes the next one from its neighbour; ranks
+// 0-2 write X, Y and Z.
+template <int F>
+__global__ void __launch_bounds__(kMaxThreads)
+pmixed_masked_group_kernel(int32_t* __restrict__ out,
+                           const int32_t* __restrict__ a,
+                           const int32_t* __restrict__ b,
+                           const int32_t* __restrict__ mask,
+                           const int32_t* __restrict__ sign, uint32_t L) {
+  const uint32_t l = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  if (l >= L) return;  // whole groups: kGroup divides the block
+  const int r = threadIdx.x % kGroup;
+  const int c = r == 3 ? 0 : r;
+  const size_t row = (size_t)16 * c * L + l;
+  uint32_t x2[8], y2[8];
+  bool live = mask[l] != 0;
+  if (live) {
+    load_rows(x2, b + l, L);
+    load_rows(y2, b + 16 * (size_t)L + l, L);
+    // identity base marker: X == 0 and Y == mont(1) (not a curve point)
+    live = !(is_zero(x2) && is_one<F>(y2));
+  }
+  if (!live) {
+    if (r < 3) copy_rows(out + row, a + row, L, 16);
+    return;
+  }
+  if (sign[l] != 0) {
+    // -B = (x, p - y), as the one-thread form
+    uint32_t p[8];
+    load_p<F>(p);
+    sub_raw(y2, p, y2);
+  }
+  const unsigned gm = group_mask();
+  uint32_t one[8], a0[8], a1[8], b0[8], b1[8], o[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) one[i] = Field<F>::one(i);
+  select3(b0, c, x2, y2, one);
+  select3(b1, c, y2, one, x2);
+  load_rows(a0, a + row, L);
+  shfl8(a1, a0, nib(kNext, r), gm);
+  coop_add<F, false>(o, a0, a1, b0, b1, r, gm);
+  if (r < 3) store_rows(out + row, L, o);
 }
 
 // pmixed_bucket_runs: every lane l (bucket l % BL of window row l / BL)
@@ -988,19 +1062,6 @@ pdouble_group_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
   if (r < 3) store_rows(out + row, L, d);
 }
 
-// Launch the field's instance (k0 for Fp, k1 for Fq) over L lanes, one
-// thread per lane in blocks of kMaxThreads, on `stream`; returns
-// cudaGetLastError().
-template <typename... P, typename... A>
-static int launch_lanes(int field, void (*k0)(P...), void (*k1)(P...),
-                        long long L, void* stream, A... args) {
-  if (L <= 0) return 0;
-  dim3 grid((unsigned)((L + kMaxThreads - 1) / kMaxThreads));
-  void (*k)(P...) = field == 0 ? k0 : k1;
-  k<<<grid, kMaxThreads, 0, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 static int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -1141,15 +1202,42 @@ extern "C" int h2t_scalar_mul_ladder(int field, void* out, void* out2,
   return (int)cudaGetLastError();
 }
 
+// B2 over L lanes in the form of `threads` threads a lane (1 or kGroup):
+// L x threads threads in blocks of spread_threads(L x threads)
+extern "C" int h2t_pmixed_masked_form(int threads, int field, void* out,
+                                      const void* a, const void* b,
+                                      const void* mask, const void* sign,
+                                      long long L, void* stream) {
+  if (L <= 0) return 0;
+  if (!form_takes(threads, L) || mask == nullptr || sign == nullptr)
+    return (int)cudaErrorInvalidValue;
+  typedef void (*Kern)(int32_t*, const int32_t*, const int32_t*,
+                       const int32_t*, const int32_t*, uint32_t);
+  static const Kern kerns[2][2] = {
+      {pmixed_masked_kernel<0>, pmixed_masked_group_kernel<0>},
+      {pmixed_masked_kernel<1>, pmixed_masked_group_kernel<1>}};
+  const long long n = L * threads;
+  const int block = spread_threads(n);
+  dim3 grid((unsigned)((n + block - 1) / block));
+  kerns[field != 0][threads == kGroup]
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
+          (const int32_t*)mask, (const int32_t*)sign, (uint32_t)L);
+  return (int)cudaGetLastError();
+}
+
+// The form of B2 at L lanes: the faster one measured at that width (see
+// the design note)
+static int pmixed_threads(long long L) {
+  return L >= kPmixedLaneFrom ? 1 : kGroup;
+}
+
 extern "C" int h2t_pmixed_masked(int field, void* out, const void* a,
                                  const void* b, const void* mask,
                                  const void* sign, long long L,
                                  void* stream) {
-  return launch_lanes(field, pmixed_masked_kernel<0>,
-                      pmixed_masked_kernel<1>, L, stream, (int32_t*)out,
-                      (const int32_t*)a, (const int32_t*)b,
-                      (const int32_t*)mask, (const int32_t*)sign,
-                      (uint32_t)L);
+  return h2t_pmixed_masked_form(pmixed_threads(L), field, out, a, b, mask,
+                                sign, L, stream);
 }
 
 // The bucket-run kernel over L lanes in the form of `threads` threads a

@@ -53,6 +53,7 @@ _ARGTYPES = {
         "h2t_padd_masked": [_I, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
                             _LL, _P],
         "h2t_pmixed_masked": [_I, _P, _P, _P, _P, _P, _LL, _P],
+        "h2t_pmixed_masked_form": [_I, _I, _P, _P, _P, _P, _P, _LL, _P],
         "h2t_pmixed_bucket_runs": [_I, _P, _P, _P, _P, _P, _P, _LL, _LL,
                                    _LL, _P],
         "h2t_pmixed_bucket_runs_form": [_I, _I, _P, _P, _P, _P, _P, _P,

@@ -17,8 +17,8 @@ complete formulas for a = 0, b3 = 15 (eprint 2015/1060, Alg 7, 8 and 9).
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches csrc/point_kernels.cu or raises. `LAUNCHES` counts
 kernel launches. B4 and the scalar ladder run one lane on a group of four
-threads; B5, B6, the GLV ladder and the bucket-run kernel too below lane
-counts set in the .cu. Their results are the same as one thread's, bit
+threads; B2, B5, B6, the GLV ladder and the bucket-run kernel too below
+lane counts set in the .cu. Their results are the same as one thread's, bit
 for bit.
 """
 from __future__ import annotations
@@ -432,8 +432,10 @@ def pneg_flat(df, a: torch.Tensor) -> torch.Tensor:
 def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,
                        mask: torch.Tensor, signs=None) -> torch.Tensor:
     """out = mask ? a +/- b_aff : a with a [48, L] projective and b_aff
-    [32, L] affine (kernel B2 on CUDA). Identity-coded (0, mont 1) bases
-    pass the accumulator through; signs [L] selects the negated base."""
+    [32, L] affine (kernel B2 on CUDA, in the form that
+    csrc/point_kernels.cu picks by lane count). Identity-coded (0, mont 1)
+    bases pass the accumulator through; signs [L] selects the negated
+    base."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     _check_batch(b_aff, 2 * NLIMBS, L, "b_aff")
@@ -539,8 +541,8 @@ def pdouble_masked_flat(df, a: torch.Tensor, mask: torch.Tensor
                    _flags(mask, L, "mask"))
 
 
-# the forms of B5, B6, the GLV ladder and the bucket-run kernel by threads
-# a lane (h2t_*_form)
+# the forms of B2, B5, B6, the GLV ladder and the bucket-run kernel by
+# threads a lane (h2t_*_form)
 FORMS = {"lane": 1, "group": 4}
 
 
@@ -569,6 +571,30 @@ def pdouble_form(df, a: torch.Tensor, threads: int, mask=None
             threads, df.field_id, out.data_ptr(), a.data_ptr(),
             _arg(mask), L, cuda_build.stream_ptr(a.device))
         cuda_build.check(rc, f"pdouble_form({threads})")
+    return out
+
+
+def pmixed_masked_form(df, a: torch.Tensor, b_aff: torch.Tensor,
+                       mask: torch.Tensor, signs: torch.Tensor, threads: int
+                       ) -> torch.Tensor:
+    """B2 on the card in the form of `threads` threads a lane (a value of
+    FORMS), where pmixed_masked_flat takes the form by lane count. On no
+    path and counted nowhere: it holds each form to the plain version at
+    any width."""
+    from . import cuda_build
+    L = a.shape[1]
+    _check_batch(a, 3 * NLIMBS, L, "a")
+    _check_batch(b_aff, 2 * NLIMBS, L, "b_aff")
+    mask, signs = _flags(mask, L, "mask"), _flags(signs, L, "signs")
+    _on_card("pmixed_masked_form", a)
+    a, b_aff = a.contiguous(), b_aff.contiguous()
+    out = torch.empty_like(a)
+    if L:
+        rc = cuda_build.library("point_kernels").h2t_pmixed_masked_form(
+            threads, df.field_id, out.data_ptr(), a.data_ptr(),
+            b_aff.data_ptr(), mask.data_ptr(), signs.data_ptr(), L,
+            cuda_build.stream_ptr(a.device))
+        cuda_build.check(rc, f"pmixed_masked_form({threads})")
     return out
 
 

@@ -1,5 +1,8 @@
 """The multi-device layer: sharded MSM, four-step NTT and grand products
-over a torch.distributed process group.
+over a torch.distributed process group. Each function takes the rank's
+rows and returns the rank's rows (or, for the MSM, the same points on
+every rank); parallel/context.py says which tensors the prover keeps as
+rows.
 
 Port of halo2_tpu/parallel/mesh.py. The reference shards with one
 controller (`shard_map` over a 1-D `jax.sharding.Mesh`, with
@@ -116,7 +119,8 @@ def _all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     COUNTS["all_gather"] += 1
     if stage:
         COUNTS["staged"] += 1
-        COUNTS["staged_bytes"] += (src.numel() + out.numel()) * 4
+        COUNTS["staged_bytes"] += (src.numel() + out.numel()) * \
+            src.element_size()
         out = out.to(t.device)
     return out
 
@@ -135,7 +139,7 @@ def _all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     COUNTS["all_to_all"] += 1
     if stage:
         COUNTS["staged"] += 1
-        COUNTS["staged_bytes"] += 2 * src.numel() * 4
+        COUNTS["staged_bytes"] += 2 * src.numel() * src.element_size()
         out = out.to(t.device)
     return out
 

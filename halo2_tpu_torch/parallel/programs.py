@@ -9,7 +9,7 @@ package in the parent), tests/test_torch_cuda.py and chip_smoke.py
 tasks' collectives must meet. Results are plain Python values, bytes and
 numpy arrays, sent back to the caller. Inputs are made on each rank from
 a numpy seed (`field_values`), so every rank holds the same whole
-tensors, as the prover's ranks do.
+tensors, as the prover's ranks do before they keep their rows.
 """
 from __future__ import annotations
 
@@ -181,31 +181,57 @@ def keys_for(name: str, k: int, device, **kw):
     return _CACHE[key]
 
 
+def pk_rows(pk) -> dict:
+    """{name: (row count, bytes of its storage)} of every proving-key
+    tensor the prover re-lays (plonk/prover.py::pk_row_tensors), list
+    entries as name[i]."""
+    from ..plonk.prover import pk_row_tensors
+    out = {}
+    for _, name, value in pk_row_tensors(pk):
+        for i, t in (enumerate(value) if isinstance(value, list)
+                     else [(None, value)]):
+            out[name if i is None else f"{name}[{i}]"] = (
+                t.shape[0], t.untyped_storage().nbytes())
+    return out
+
+
 def task_prove(mesh, circuit: str, k: int, seed: int, reps: int = 1,
                rank_seed: bool = False, verify: bool = False,
+               after: bool = False, h_chunk_nodes: int = 0,
                **circuit_kw) -> dict:
     """`reps` proves of the circuit under the mesh from random.Random(seed)
     (seed + rank with rank_seed, which must fail on every rank). Returns
     the proofs, their wall times (the card synchronised), the launches of
-    each kernel and the mesh's counts in the last prove, its staged bytes,
-    "verified" with verify; with rank_seed, "error": the message raised."""
+    each kernel and the mesh's counts in the last prove, the bytes staged
+    through host memory and the peak of allocated card memory in it,
+    with the bytes allocated at its start (0 on the CPU), "local":
+    whether the ranks held their rows, "pk_rows":
+    the pk's tensors after the proves (pk_rows), "verified" with verify;
+    with rank_seed, "error": the message raised. With `after`, one more
+    prove from the same seed with the mesh exited ("after": the proof
+    and the pk's tensors then). `h_chunk_nodes` as create_proof's."""
     from ..curves.host import PALLAS as curve
     from ..plonk.prover import create_proof
     from ..plonk.verifier import SingleVerifier, verify_proof
     from ..transcript import TranscriptRead, TranscriptWrite
     params, vk, pk, c, instances = keys_for(circuit, k, mesh.device,
                                             **circuit_kw)
+    cuda = mesh.device.type == "cuda"
     out = {"proofs": [], "times": []}
     for _ in range(reps):
         tw = TranscriptWrite(curve)
         before, launches = dict(mesh_mod.COUNTS), _launches()
         _sync(mesh)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            out["start_bytes"] = torch.cuda.memory_allocated(mesh.device)
         t = time.perf_counter()
         try:
             with ProverMesh(mesh):
                 create_proof(params, pk, [c], instances,
                              random.Random(seed + (mesh.rank if rank_seed
-                                                   else 0)), tw)
+                                                   else 0)), tw,
+                             h_chunk_nodes=h_chunk_nodes)
         except RuntimeError as exc:
             if not rank_seed:
                 raise
@@ -213,15 +239,39 @@ def task_prove(mesh, circuit: str, k: int, seed: int, reps: int = 1,
             return out
         _sync(mesh)
         out["times"].append(time.perf_counter() - t)
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated(mesh.device)
+                             if cuda else 0)
+        out.setdefault("start_bytes", 0)
         out["proofs"].append(tw.finalize())
         out["counts"] = _counts_since(before)
-        after = _launches()
-        out["launches"] = {n: after[n] - launches[n] for n in after}
+        after_launches = _launches()
+        out["launches"] = {n: after_launches[n] - launches[n]
+                           for n in after_launches}
+    out["staged_bytes"] = out["counts"]["staged_bytes"]
+    out["local"] = getattr(pk, "_rows", None) is not None and pk._rows.local
+    out["pk_rows"] = pk_rows(pk)
     if verify:
         verify_proof(params, vk, SingleVerifier(params), instances,
                      TranscriptRead(curve, out["proofs"][-1]))
         out["verified"] = True
+    if after:
+        tw = TranscriptWrite(curve)
+        create_proof(params, pk, [c], instances, random.Random(seed), tw)
+        out["after"] = {"proof": tw.finalize(), "pk_rows": pk_rows(pk)}
     return out
+
+
+def task_roll(mesh, log_n: int, shifts: list) -> dict:
+    """ProverMesh.roll_rows of the rank's rows of one column of 2^log_n Fq
+    elements by each shift, against the rank's rows of torch.roll of the
+    whole column: {shift: equal}."""
+    from ..fields.device import FQ_DEV as df
+    x = _upload(mesh, field_values(df.spec, 1 << log_n, log_n))
+    ctx = ProverMesh(mesh)
+    local = ctx.local_rows(x)
+    return {s: bool(torch.equal(ctx.roll_rows(local, s),
+                                ctx.local_rows(torch.roll(x, s, dims=0))))
+            for s in shifts}
 
 
 def task_routing(mesh, k: int) -> dict:
@@ -245,7 +295,7 @@ def task_routing(mesh, k: int) -> dict:
 
 
 _TASKS = {"ntt": task_ntt, "scans": task_scans, "msm": task_msm,
-          "commit": task_commit,
+          "commit": task_commit, "roll": task_roll,
           "prove": task_prove, "routing": task_routing}
 
 

@@ -5,7 +5,8 @@ halo2_proofs/src/poly/evaluator.rs:19-615): each `Expression` node is one
 whole-tensor field op (kernel launches on CUDA), evaluated eagerly with a
 use-counted memo that hash-conses repeated subtrees. Rotations are
 `torch.roll` index shifts (scale 2^(extended_k - k) on the extended
-domain, rotate_extended, domain.rs:257-275); `LinearTerm` needs the coset
+domain, rotate_extended, domain.rs:257-275), ProverMesh.roll_rows on a
+rank's rows; `LinearTerm` needs the coset
 points zeta * omega_ext^i (BasisOps::linear_term, evaluator.rs:584-604).
 """
 from __future__ import annotations
@@ -14,23 +15,28 @@ import torch
 
 from ..fields.device import DeviceField, fneg
 from ..ops.field_kernels import fadd, fmul
+from ..parallel.context import WHOLE
 from ..poly.domain import EvaluationDomain
 from .circuit import Expression
 
 
-def _rot(values: torch.Tensor, rotation: int, scale: int) -> torch.Tensor:
+def _rot(values: torch.Tensor, rotation: int, scale: int, rows
+         ) -> torch.Tensor:
     if rotation == 0:
         return values
-    return torch.roll(values, -rotation * scale, dims=0)
+    return rows.roll_rows(values, -rotation * scale)
 
 
 def evaluate_expression(df: DeviceField, expr: Expression, *,
                         advice, fixed, instance,
                         rot_scale: int = 1,
-                        selector_fn=None, memo: dict | None = None):
+                        selector_fn=None, memo: dict | None = None,
+                        rows=WHOLE):
     """Evaluate one gate Expression over arrays (Lagrange basis when
     rot_scale == 1, extended-coset basis when rot_scale == 2^(ek-k)).
-    `advice/fixed/instance` are lists of [N, 16] Montgomery tensors.
+    `advice/fixed/instance` are lists of [N, 16] Montgomery tensors: whole
+    columns, or with `rows` a ProverMesh the rank's rows of them (a
+    rotation then takes its neighbour's edge rows, ProverMesh.roll_rows).
     Constants stay [16] and broadcast through the field ops.
 
     `memo` (shared across a phase's expressions) hash-conses the
@@ -54,11 +60,11 @@ def evaluate_expression(df: DeviceField, expr: Expression, *,
             constant=lambda v: df.scalar(v, dev),
             selector_fn=selector_fn,
             fixed_fn=lambda q: _rot(fixed[q.column_index],
-                                    q.rotation.value, rot_scale),
+                                    q.rotation.value, rot_scale, rows),
             advice_fn=lambda q: _rot(advice[q.column_index],
-                                     q.rotation.value, rot_scale),
+                                     q.rotation.value, rot_scale, rows),
             instance_fn=lambda q: _rot(instance[q.column_index],
-                                       q.rotation.value, rot_scale),
+                                       q.rotation.value, rot_scale, rows),
             negated=lambda a: fneg(df, a),
             sum_fn=lambda a, b: fadd(df, a, b),
             product=lambda a, b: fmul(df, a, b),
@@ -79,12 +85,14 @@ def evaluate_expression(df: DeviceField, expr: Expression, *,
         if isinstance(e, Constant):
             r = df.scalar(e.value, dev)
         elif isinstance(e, FixedQuery):
-            r = _rot(fixed[e.column_index], e.rotation.value, rot_scale)
+            r = _rot(fixed[e.column_index], e.rotation.value, rot_scale,
+                     rows)
         elif isinstance(e, AdviceQuery):
-            r = _rot(advice[e.column_index], e.rotation.value, rot_scale)
+            r = _rot(advice[e.column_index], e.rotation.value, rot_scale,
+                     rows)
         elif isinstance(e, InstanceQuery):
             r = _rot(instance[e.column_index], e.rotation.value,
-                     rot_scale)
+                     rot_scale, rows)
         elif isinstance(e, Negated):
             r = fneg(df, go(e.expr))
         elif isinstance(e, Sum):
@@ -157,12 +165,16 @@ def evaluate_expression_host(f, expr: Expression, *,
     )
 
 
-def coset_points(domain: EvaluationDomain) -> torch.Tensor:
-    """[zeta * omega_ext^i] for the extended domain, Montgomery form -- the
-    'LinearTerm' basis array (a host powers recurrence started at zeta)."""
+def coset_points(domain: EvaluationDomain, rows=WHOLE) -> torch.Tensor:
+    """[zeta * omega_ext^i] for the extended domain (the rows of `rows`'s
+    rank), Montgomery form -- the 'LinearTerm' basis array (a host powers
+    recurrence started at zeta)."""
     from ..poly.utils import powers
-    return powers(domain.df, domain.extended_omega, domain.extended_n,
-                  domain.device, start=domain.g_coset)
+    p = domain.df.spec.modulus
+    start, count = rows.row_span(domain.extended_n)
+    return powers(domain.df, domain.extended_omega, count, domain.device,
+                  start=domain.g_coset * pow(domain.extended_omega, start,
+                                             p) % p)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ prover.rs:76-552, verifier.rs:34-208):
     permute the pair, commit A' and S';
   commit_product: the fraction batch and the running product Z (under
     a ProverMesh whose D^2 divides n, on the rank's rows through
-    parallel/mesh.py's sharded inversion and scan, gathered whole);
+    parallel/mesh.py's sharded inversion and scan);
   h terms: the 5 constraint families on the extended domain;
   evaluate: the 5 evaluations, in the reference's order.
 
@@ -17,6 +17,13 @@ the reference leaves its `lax.sort` to XLA), and the first-occurrence and
 leftover fill run as static-shape tensor ops on the column's device.
 Only the containment flag is read back. `permute_pair_oracle` is the
 reference's numpy formulation, kept as the check.
+
+In the prover's sharded state (`rows` a ProverMesh) every column here is
+the rank's rows. The compressed input and table are gathered whole for
+the permute, a sort of whole columns, and each rank keeps its rows of the
+permuted pair; Z's shift by a row and the h terms' rolls take a
+neighbour's edge rows (ProverMesh.roll_rows). Given whole columns under a
+mesh, the product narrows the rank's rows out and Z is gathered whole.
 """
 from __future__ import annotations
 
@@ -29,8 +36,7 @@ from ..fields.device import (DeviceField, NLIMBS, LIMB_BITS, batch_inv,
                              running_product, from_mont, to_mont,
                              digits_to_ints, ints_to_digits)
 from ..ops.field_kernels import fadd, fsub, fmul
-from ..parallel import context
-from ..parallel.mesh import sharded_batch_inv, sharded_inclusive_product
+from ..parallel.context import WHOLE, work_rows
 from .circuit import LookupArgument, ConstraintSystem
 from .evaluation import evaluate_expression, evaluate_expression_host
 
@@ -73,34 +79,40 @@ def _compress(df, theta_m, arrays):
 def lookup_commit_permuted(argument: LookupArgument, cs: ConstraintSystem,
                            params, domain, theta: int, advice, fixed,
                            instance, rng, transcript,
-                           sanity: bool = False) -> Permuted:
+                           sanity: bool = False, rows=WHOLE) -> Permuted:
     """prover.rs:76-243. advice/fixed/instance: lists of [n, 16] Lagrange
-    tensors. `sanity`: check the permuted pair (permute_expression_pair)."""
+    tensors (the rank's rows with `rows` a ProverMesh, as are the
+    results). `sanity`: check the permuted pair
+    (permute_expression_pair)."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
     theta_m = df.scalar(theta, params.device)
+    count = rows.row_span(n)[1]
 
     def compressed(exprs):
         acc = _compress(df, theta_m, [
             evaluate_expression(df, e, advice=advice, fixed=fixed,
-                                instance=instance, rot_scale=1)
+                                instance=instance, rot_scale=1, rows=rows)
             for e in exprs])
-        return acc.expand(n, NLIMBS)       # a constant expression broadcasts
+        return acc.expand(count, NLIMBS)   # a constant expression broadcasts
 
     compressed_input = compressed(argument.input_expressions)
     compressed_table = compressed(argument.table_expressions)
     permuted_input, permuted_table = permute_expression_pair(
-        cs, params, rng, compressed_input, compressed_table, sanity=sanity)
+        cs, params, rng, rows.gather_rows(compressed_input),
+        rows.gather_rows(compressed_table), sanity=sanity)
+    permuted_input = rows.local_rows(permuted_input)
+    permuted_table = rows.local_rows(permuted_table)
 
     pi_blind = fs.rand(rng)
     pt_blind = fs.rand(rng)
     pi_comm, pt_comm = params.commit_many(
         [permuted_input, permuted_table], [pi_blind, pt_blind],
-        lagrange=True)
+        lagrange=True, rows=rows)
     (pi_poly, pt_poly), (pi_coset, pt_coset) = (
         domain.lagrange_to_coeff_extended_many(
-            [permuted_input, permuted_table]))
+            [permuted_input, permuted_table], rows))
     transcript.write_point(pi_comm)
     transcript.write_point(pt_comm)
     return Permuted(
@@ -217,12 +229,14 @@ def check_permuted_pair(pi_body: torch.Tensor, pt_body: torch.Tensor
         raise AssertionError("permuted pair violates A'==S' or A'==A'_prev")
 
 
-def check_lookup_product(df, z: torch.Tensor, usable: int) -> None:
+def check_lookup_product(df, z: torch.Tensor, usable: int, rows=WHOLE
+                         ) -> None:
     """The debug check of a lookup product (lookup/prover.rs:339-376, the
     reference's halo2_tpu/plonk/lookup.py:372-380): Z starts at 1 and
     closes to 1 at the last usable row boundary. Two rows are read
     back."""
-    ends = df.from_mont_np(z[[0, usable]])
+    ends = df.from_mont_np(torch.stack([rows.fetch_row(z, 0),
+                                        rows.fetch_row(z, usable)]))
     if int(ends[0]) != 1:
         raise AssertionError("lookup z[0] != 1")
     if int(ends[1]) != 1:
@@ -258,11 +272,13 @@ def permute_expression_pair(cs: ConstraintSystem, params, rng,
 
 def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
                           domain, beta: int, gamma: int, rng, transcript,
-                          sanity: bool = False) -> CommittedLookup:
+                          sanity: bool = False, rows=WHOLE
+                          ) -> CommittedLookup:
     """prover.rs:253-392: Z = the exclusive running product of
     (A_c + beta)(S_c + gamma) / ((A' + beta)(S' + gamma)), then
     `blinding_factors` blinds and the product blind. `sanity`:
-    check_lookup_product."""
+    check_lookup_product. The columns are the rank's rows with `rows` a
+    ProverMesh, as are the results."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -270,29 +286,32 @@ def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
     blinding_factors = cs.blinding_factors()
     beta_m = df.scalar(beta, dev)
     gamma_m = df.scalar(gamma, dev)
-    ctx = context.active()
-    if ctx is not None and not ctx.divides(n):
-        ctx = None
-    rows = (lambda t: t) if ctx is None else ctx.shard_rows
-    denom = fmul(df, fadd(df, rows(permuted.permuted_input), beta_m),
-                 fadd(df, rows(permuted.permuted_table), gamma_m))
-    frac = fmul(df, fadd(df, rows(permuted.compressed_input), beta_m),
-                fadd(df, rows(permuted.compressed_table), gamma_m))
-    if ctx is None:
+    work, narrow = work_rows(rows, n)
+    take = work.shard_rows if narrow else (lambda t: t)
+    denom = fmul(df, fadd(df, take(permuted.permuted_input), beta_m),
+                 fadd(df, take(permuted.permuted_table), gamma_m))
+    frac = fmul(df, fadd(df, take(permuted.compressed_input), beta_m),
+                fadd(df, take(permuted.compressed_table), gamma_m))
+    if work.local:
+        incl = work.inclusive_product(
+            df, fmul(df, work.batch_inv(df, denom), frac))
+    else:
         incl = running_product(
             df, fmul(df, batch_inv(df, denom, axis=0), frac), axis=0)
-    else:
-        product = fmul(df, sharded_batch_inv(df, ctx.mesh, denom), frac)
-        incl = ctx.gather_rows(
-            sharded_inclusive_product(df, ctx.mesh, product))
+    # Z: 1, then the products of rows 0..u-1 (u usable rows), then blinds
     blinds = [fs.rand(rng) for _ in range(blinding_factors)]
-    z = torch.cat([df.scalar(1, dev)[None], incl[:n - blinding_factors - 1],
-                   df.upload_values(blinds, dev)], dim=0)
+    z = work.put_rows(work.roll_rows(incl, 1), 0, df.scalar(1, dev)[None])
+    z = work.put_rows(z, n - blinding_factors,
+                      df.upload_values(blinds, dev))
     if sanity:
-        check_lookup_product(df, z, n - (blinding_factors + 1))
+        check_lookup_product(df, z, n - (blinding_factors + 1), work)
+    if narrow:
+        z = work.gather_rows(z)
     product_blind = fs.rand(rng)
-    (commitment,) = params.commit_many([z], [product_blind], lagrange=True)
-    (z_poly,), (z_coset,) = domain.lagrange_to_coeff_extended_many([z])
+    (commitment,) = params.commit_many([z], [product_blind], lagrange=True,
+                                       rows=rows)
+    (z_poly,), (z_coset,) = domain.lagrange_to_coeff_extended_many([z],
+                                                                  rows)
     transcript.write_point(commitment)
     return CommittedLookup(permuted=permuted, product_poly=z_poly,
                            product_coset=z_coset, product_blind=product_blind)
@@ -300,13 +319,14 @@ def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
 
 def lookup_h_terms(committed: CommittedLookup, domain, theta: int,
                    beta: int, gamma: int, advice_cosets, fixed_cosets,
-                   instance_cosets, l0, l_blind, l_last) -> list:
+                   instance_cosets, l0, l_blind, l_last, rows=WHOLE
+                   ) -> list:
     """prover.rs:401-477: the 5 constraint families on the extended
-    domain."""
+    domain (the rank's rows with `rows` a ProverMesh)."""
     df = domain.df
     dev = domain.device
     rot_scale = 1 << (domain.extended_k - domain.k)
-    ext_n = domain.extended_n
+    ext_n = rows.row_span(domain.extended_n)[1]
     one = df.scalar(1, dev)
     perm = committed.permuted
     theta_m = df.scalar(theta, dev)
@@ -317,7 +337,7 @@ def lookup_h_terms(committed: CommittedLookup, domain, theta: int,
         acc = _compress(df, theta_m, [
             evaluate_expression(df, e, advice=advice_cosets,
                                 fixed=fixed_cosets, instance=instance_cosets,
-                                rot_scale=rot_scale)
+                                rot_scale=rot_scale, rows=rows)
             for e in exprs])
         return acc.expand(ext_n, NLIMBS)
 
@@ -326,10 +346,10 @@ def lookup_h_terms(committed: CommittedLookup, domain, theta: int,
 
     active = fsub(df, one, fadd(df, l_last, l_blind))
     z = committed.product_coset
-    z_next = torch.roll(z, -rot_scale, dims=0)
+    z_next = rows.roll_rows(z, -rot_scale)
     a_prime = perm.permuted_input_coset
     s_prime = perm.permuted_table_coset
-    a_prev = torch.roll(a_prime, rot_scale, dims=0)
+    a_prev = rows.roll_rows(a_prime, rot_scale)
     a_minus_s = fsub(df, a_prime, s_prime)
 
     # l_0(X) (1 - z(X))

@@ -7,7 +7,12 @@ through the host-built cycle mapping; each chunk's z is one batched
 inversion, elementwise products and an inclusive product scan scaled by
 the chained last_z. Under a ProverMesh whose D^2 divides n, each rank
 computes the chunk's fractions on its rows, inverts them and scans them
-across the ranks (parallel/mesh.py), and the z rows are gathered whole.
+across the ranks (parallel/mesh.py). In the prover's sharded state
+(`rows` a ProverMesh) the z columns stay the rank's rows: their shift by
+one row and the z rolls of the h terms take a neighbour's edge rows
+(ProverMesh.roll_rows), and each chunk's last_z, the one row gathered,
+comes from its owner (fetch_row). Given whole columns under a mesh, the
+rank's rows are narrowed out and z gathered whole.
 """
 from __future__ import annotations
 
@@ -19,8 +24,7 @@ import torch
 from ..fields.device import (DeviceField, NLIMBS, batch_inv,
                              running_product)
 from ..ops.field_kernels import fadd, fsub, fmul
-from ..parallel import context
-from ..parallel.mesh import sharded_batch_inv, sharded_inclusive_product
+from ..parallel.context import WHOLE, work_rows
 from ..poly.utils import powers, eval_poly
 from ..poly.domain import EvaluationDomain
 from .circuit import (ConstraintSystem, Column, PermutationArgument,
@@ -130,18 +134,15 @@ def _values_for(column: Column, advice, fixed, instance):
         column.column_type][column.index]
 
 
-def _z_chunk(df: DeviceField, vals, sigs, beta_m, gamma_m, lastz_m,
-             deltas_m, omega_pow, ctx=None) -> torch.Tensor:
-    """One chunk's z: the denominator fractions' batched inversion, the
-    numerator products, and the inclusive running product scaled by the
-    chained last_z. vals/sigs [cl, n, 16]; deltas_m [cl, 16] =
-    beta * delta^{global column} in Montgomery form. With ctx (a
-    ProverMesh, D^2 | n) on this rank's rows, through sharded_batch_inv
-    and sharded_inclusive_product (the reference's _z_chunk_mesh), the
-    rows gathered whole at the end."""
-    if ctx is not None:
-        vals, sigs = ctx.shard_rows(vals, dim=1), ctx.shard_rows(sigs, dim=1)
-        omega_pow = ctx.shard_rows(omega_pow)
+def _z_chunk(df: DeviceField, rows, vals, sigs, beta_m, gamma_m, lastz_m,
+             deltas_m, omega_pow) -> torch.Tensor:
+    """One chunk's z before its blinding rows: the denominator fractions'
+    batched inversion, the numerator products, and the inclusive running
+    product scaled by the chained last_z, shifted down a row with last_z
+    in row 0. vals/sigs [cl, N, 16] and omega_pow [N, 16], the rows of
+    `rows` (with a ProverMesh: sharded_batch_inv and
+    sharded_inclusive_product, the reference's _z_chunk_mesh); deltas_m
+    [cl, 16] = beta * delta^{global column} in Montgomery form."""
     cl = vals.shape[0]
     den = fadd(df, vals, fadd(df, fmul(df, sigs, beta_m), gamma_m))
     num = fadd(df, vals, fadd(df, fmul(df, omega_pow[None],
@@ -149,31 +150,29 @@ def _z_chunk(df: DeviceField, vals, sigs, beta_m, gamma_m, lastz_m,
     modified = den[0]
     for j in range(1, cl):
         modified = fmul(df, modified, den[j])
-    modified = (batch_inv(df, modified, axis=0) if ctx is None
-                else sharded_batch_inv(df, ctx.mesh, modified))
+    modified = (rows.batch_inv(df, modified) if rows.local
+                else batch_inv(df, modified, axis=0))
     for j in range(cl):
         modified = fmul(df, modified, num[j])
-    if ctx is None:
-        incl = running_product(df, modified, axis=0)
-    else:
-        incl = sharded_inclusive_product(df, ctx.mesh, modified)
+    incl = (rows.inclusive_product(df, modified) if rows.local
+            else running_product(df, modified, axis=0))
     scaled = fmul(df, incl, lastz_m)
-    if ctx is not None:
-        scaled = ctx.gather_rows(scaled)
-    return torch.cat([lastz_m[None], scaled[:-1]], dim=0)
+    return rows.put_rows(rows.roll_rows(scaled, 1), 0, lastz_m[None])
 
 
 def permutation_commit(cs: ConstraintSystem, params, domain,
                        pkey: PermutationProvingKey,
                        advice, fixed, instance,
                        beta: int, gamma: int, rng, transcript,
-                       sanity: bool = False) -> list[CommittedSet]:
+                       sanity: bool = False, rows=WHOLE
+                       ) -> list[CommittedSet]:
     """prover.rs:47-194. advice/fixed/instance: lists of [n, 16] Lagrange
-    tensors. One z per chunk (serial through last_z); the commitments and
-    transforms of all chunks are then batched, and the points written in
-    order. With `sanity`, the grand product over all chunks must
-    telescope back to 1 (the reference's HALO2_TPU_SANITY check,
-    halo2_tpu/plonk/permutation.py:339-345)."""
+    tensors (the rank's rows with `rows` a ProverMesh, as are pkey's and
+    the results). One z per chunk (serial through last_z); the
+    commitments and transforms of all chunks are then batched, and the
+    points written in order. With `sanity`, the grand product over all
+    chunks must telescope back to 1 (the reference's HALO2_TPU_SANITY
+    check, halo2_tpu/plonk/permutation.py:339-345)."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -186,10 +185,12 @@ def permutation_commit(cs: ConstraintSystem, params, domain,
 
     beta_m = df.scalar(beta, dev)
     gamma_m = df.scalar(gamma, dev)
-    omega_pow = powers(df, domain.omega, n, dev)
-    ctx = context.active()
-    if ctx is not None and not ctx.divides(n):
-        ctx = None
+    work, narrow = work_rows(rows, n)
+    start, count = work.row_span(n)
+    omega_pow = powers(df, domain.omega, count, dev,
+                       start=pow(domain.omega, start, p))
+    take = (lambda t: work.shard_rows(t, dim=1)) if narrow else (
+        lambda t: t)
 
     global_col = 0          # delta exponent carried across chunks
     last_z = 1
@@ -206,23 +207,25 @@ def permutation_commit(cs: ConstraintSystem, params, domain,
                   for j in range(cl)]
         global_col += cl
         deltas_m = torch.from_numpy(df.to_mont_np(deltas)).to(dev)
-        z = _z_chunk(df, vals, sigs, beta_m, gamma_m,
-                     df.scalar(last_z, dev), deltas_m, omega_pow, ctx)
+        z = _z_chunk(df, work, take(vals), take(sigs), beta_m, gamma_m,
+                     df.scalar(last_z, dev), deltas_m, omega_pow)
         # blinding rows
         blinds = [fs.rand(rng) for _ in range(blinding_factors)]
-        z = torch.cat([z[:n - blinding_factors],
-                       torch.from_numpy(df.to_mont_np(blinds)).to(dev)],
-                      dim=0)
-        last_z = int(df.from_mont_np(z[n - (blinding_factors + 1)]))
-        z_arrays.append(z)
+        z = work.put_rows(z, n - blinding_factors, torch.from_numpy(
+            df.to_mont_np(blinds)).to(dev))
+        last_z = int(df.from_mont_np(
+            work.fetch_row(z, n - (blinding_factors + 1))))
+        z_arrays.append(work.gather_rows(z) if narrow else z)
         blinds_out.append(fs.rand(rng))
 
     if sanity and columns:
         # sigma is a bijection on the usable rows, so the product chained
         # over every chunk, last_z after the last one, is 1
         check_permutation_product(last_z)
-    commitments = params.commit_many(z_arrays, blinds_out, lagrange=True)
-    z_polys, z_cosets = domain.lagrange_to_coeff_extended_many(z_arrays)
+    commitments = params.commit_many(z_arrays, blinds_out, lagrange=True,
+                                     rows=rows)
+    z_polys, z_cosets = domain.lagrange_to_coeff_extended_many(z_arrays,
+                                                              rows)
     sets: list[CommittedSet] = []
     for z, zp, zc, blind, commitment in zip(z_arrays, z_polys, z_cosets,
                                             blinds_out, commitments):
@@ -244,8 +247,9 @@ def permutation_h_terms(cs: ConstraintSystem, domain, pkey,
                         sets: list[CommittedSet],
                         advice_cosets, fixed_cosets, instance_cosets,
                         l0, l_blind, l_last, coset_pts,
-                        beta: int, gamma: int) -> list:
-    """The 4 constraint families (prover.rs:199-312) as extended tensors."""
+                        beta: int, gamma: int, rows=WHOLE) -> list:
+    """The 4 constraint families (prover.rs:199-312) as extended tensors
+    (the rank's rows with `rows` a ProverMesh)."""
     df = domain.df
     dev = domain.device
     p = df.spec.modulus
@@ -266,7 +270,7 @@ def permutation_h_terms(cs: ConstraintSystem, domain, pkey,
         out.append(fmul(df, fsub(df, fmul(df, zl, zl), zl), l_last))
         # l_0(X) * (z_i(X) - z_{i-1}(omega^last X))
         for prev, cur in zip(sets, sets[1:]):
-            rolled = torch.roll(prev.z_coset, -last_rot * rot_scale, dims=0)
+            rolled = rows.roll_rows(prev.z_coset, -last_rot * rot_scale)
             out.append(fmul(df, fsub(df, cur.z_coset, rolled), l0))
         # product rule per chunk
         active = fsub(df, one, fadd(df, l_last, l_blind))
@@ -275,7 +279,7 @@ def permutation_h_terms(cs: ConstraintSystem, domain, pkey,
             chunk = columns[chunk_start:chunk_start + chunk_len]
             cosets = pkey.cosets[chunk_start:chunk_start + chunk_len]
             s = sets[chunk_index]
-            left = torch.roll(s.z_coset, -rot_scale, dims=0)
+            left = rows.roll_rows(s.z_coset, -rot_scale)
             for column, sigma_coset in zip(chunk, cosets):
                 values = _values_for(column, advice_cosets, fixed_cosets,
                                      instance_cosets)

@@ -15,14 +15,26 @@ All O(n) work (commitments, NTTs, gate evaluation, scans) runs on the
 Params device; the host sequences phases and hashes the transcript.
 
 Under a ProverMesh (parallel/context.py) every rank runs this same
-prover on the same inputs; the commits, the domain transforms and the
-grand products take their sharded branches, and the proof is the
-single-device proof byte for byte. The reference lays the proving key's
-arrays out across its devices once (halo2_tpu/plonk/prover.py:279-297);
-the port has no counterpart: every rank keeps whole tensors and each
-branch slices its rows out of them. A mesh proof ends with an all_gather
-of each rank's SHA-256 of the transcript, and raises on every rank if
-any differs (ranks given different RNGs or inputs).
+prover on the same inputs, and the proof is the single-device proof byte
+for byte. Where the mesh takes the circuit's rows (ProverMesh.takes_rows:
+D^2 | n, and no argument rolls a column by more than n/D rows), each rank
+holds only its rows: the proving key is re-laid once for the mesh
+(lay_out_pk; the reference's halo2_tpu/plonk/prover.py:279-297), the
+instance and advice values are uploaded as the rank's rows (its :309,
+:344), and every column made from them stays the rank's rows. The
+elementwise phases run on those rows, rotations take a neighbour's edge
+rows, and the commits, transforms and grand products take their sharded
+branches without a gather. Whole columns are gathered only where a phase
+needs them: the lookup's permute (plonk/lookup.py), the multiopen's q
+polys and the IPA (poly/multiopen.py), and the gate chunks of kernel K2,
+which address rotated rows modulo the whole column (_gates_h_fold). The
+evaluations at x sum the ranks' partial sums (poly/utils.py::MemoEval).
+Otherwise the prover keeps whole tensors and each branch narrows the
+rank's rows out and gathers its result. A pk laid out for one mesh is
+gathered back whole, once, by a prove without it or under another. A
+mesh proof ends with an all_gather of each rank's SHA-256 of the
+transcript, and raises on every rank if any differs (ranks given
+different RNGs or inputs).
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import torch
 from ..ops.field_kernels import fadd, fmul
 from ..ops.gate_kernels import run_chunk
 from ..parallel import context
+from ..parallel.context import WHOLE
 from ..poly.commitment import Params, DEFAULT_BLIND, NATIVE_IPA_THRESHOLD
 from ..poly.multiopen import ProverQuery, multiopen_create_proof
 from ..poly.utils import MemoEval
@@ -193,7 +206,7 @@ def gate_chunks(cs, max_nodes: int) -> list:
 
 def _gates_h_fold(pk, cs, df, rot_scale: int, ext_n: int, y: int, y_m,
                   h_acc, advice_c, fixed_c, instance_c,
-                  h_chunk_nodes: int = H_CHUNK_NODES):
+                  h_chunk_nodes: int = H_CHUNK_NODES, rows=WHOLE):
     """Fold every gate polynomial into the quotient accumulator,
     h = h*y + t in the gates' order. With h_chunk_nodes <= 0, one field
     op per distinct expression node: the use-counted memo hash-conses
@@ -201,7 +214,13 @@ def _gates_h_fold(pk, cs, df, rot_scale: int, ext_n: int, y: int, y_m,
     after its last use. Above 0, the gates in chunks of at most that
     many nodes, each compiled once into a tape (cached on the pk by chunk
     size) and run as h = h*y^k + sum t_i y^(k-i), one K2 launch a chunk
-    on the card (the reference's jitted chunks, :241-255)."""
+    on the card (the reference's jitted chunks, :241-255). With `rows` a
+    ProverMesh the columns and h are the rank's rows; the eager fold runs
+    on them, while K2, which reads a rotated row by its index modulo the
+    whole column, gets the columns and h gathered whole and the rank
+    keeps its rows of the result (a local window with halos would need a
+    row offset in the kernel's addressing; the chunked fold is off by
+    default)."""
     if h_chunk_nodes <= 0:
         tmpl = getattr(pk, "_h_share_counts", None)
         if tmpl is None:
@@ -212,7 +231,8 @@ def _gates_h_fold(pk, cs, df, rot_scale: int, ext_n: int, y: int, y_m,
             for expr in gate.polys:
                 t = evaluate_expression(
                     df, expr, advice=advice_c, fixed=fixed_c,
-                    instance=instance_c, rot_scale=rot_scale, memo=memo)
+                    instance=instance_c, rot_scale=rot_scale, memo=memo,
+                    rows=rows)
                 h_acc = (t if h_acc is None
                          else fadd(df, fmul(df, h_acc, y_m), t))
         return h_acc
@@ -224,11 +244,72 @@ def _gates_h_fold(pk, cs, df, rot_scale: int, ext_n: int, y: int, y_m,
         tapes = cache[h_chunk_nodes] = [
             compile_chunk(c) for c in gate_chunks(cs, h_chunk_nodes)]
     p = df.spec.modulus
+    whole = lambda cols: [rows.gather_rows(c) for c in cols]
+    advice_c, fixed_c, instance_c = (whole(advice_c), whole(fixed_c),
+                                     whole(instance_c))
+    if h_acc is not None:
+        h_acc = rows.gather_rows(h_acc)
     for tape in tapes:
         yk_m = df.scalar(pow(y, tape.n_polys, p), y_m.device)
         h_acc = run_chunk(df, tape, h_acc, advice_c, fixed_c, instance_c,
                           rot_scale, y_m, yk_m, ext_n)
-    return h_acc
+    return rows.local_rows(h_acc)
+
+
+# The proving key's tensors of n or ext_n rows, on the pk and on
+# pk.permutation: each a list of tensors or one tensor
+_PK_ROWS = ("fixed_values", "fixed_polys", "fixed_cosets", "l0", "l_blind",
+            "l_last")
+_PERMUTATION_ROWS = ("permutations", "polys", "cosets")
+
+
+def pk_row_tensors(pk) -> list:
+    """(owner, attribute name, value) of every proving-key tensor that
+    lay_out_pk re-lays."""
+    return ([(pk, a, getattr(pk, a)) for a in _PK_ROWS]
+            + [(pk.permutation, a, getattr(pk.permutation, a))
+               for a in _PERMUTATION_ROWS])
+
+
+def _map_pk_rows(pk, f) -> None:
+    for owner, name, value in pk_row_tensors(pk):
+        setattr(owner, name, [f(t) for t in value]
+                if isinstance(value, list) else f(value))
+
+
+def lay_out_pk(pk, rows) -> None:
+    """Lay the proving key's row tensors out for `rows`, once: a ProverMesh
+    takes the rank's blocks (each in storage of its own, so the whole
+    tensors are freed), WHOLE whole tensors. A pk laid out for a mesh is
+    first gathered back whole through that mesh, so that a prove without
+    it or under another never runs on a partial pk (every rank of the old
+    mesh must then prove too)."""
+    held = getattr(pk, "_rows", WHOLE)
+    if held.key() == rows.key():
+        pk._rows = rows
+        return
+    if held.local:
+        _map_pk_rows(pk, held.gather_rows)
+    if rows.local:
+        _map_pk_rows(pk, rows.local_rows)
+    pk._rows = rows
+
+
+def max_row_shift(cs) -> int:
+    """The most rows (of n) any argument rolls a column by: the gates'
+    and lookups' query rotations, and the permutation's last-row link,
+    blinding_factors + 1 rows (the lookups' +-1 row is below it)."""
+    return max([abs(at.value) for _, at in cs.advice_queries
+                + cs.fixed_queries + cs.instance_queries]
+               + [cs.blinding_factors() + 1])
+
+
+def prover_rows(ctx, pk, n: int):
+    """The layout of a prove: the active ProverMesh where it takes the
+    circuit's rows (ctx.takes_rows), else WHOLE."""
+    if ctx is not None and ctx.takes_rows(n, max_row_shift(pk.vk.cs)):
+        return ctx
+    return WHOLE
 
 
 def check_ranks_agree(ctx, proof: bytes) -> None:
@@ -268,6 +349,10 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     dev = params.device
     domain = pk.vk.domain
     n = params.n
+    ctx = context.active()
+    rows = prover_rows(ctx, pk, n)
+    lay_out_pk(pk, rows)
+    start, count = rows.row_span(n)
 
     prof = PhaseTimer(dev)
     pk.vk.hash_into(transcript)
@@ -282,10 +367,13 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             if len(values) > n - (cs.blinding_factors() + 1):
                 raise ValueError("InstanceTooLarge")
             padded = list(values) + [0] * (n - len(values))
-            values_l.append(df.upload_values(padded, dev))
+            values_l.append(df.upload_values(padded[start:start + count],
+                                             dev))
         commitments = params.commit_many(
-            values_l, [DEFAULT_BLIND] * len(values_l), lagrange=True)
-        polys_l, cosets_l = domain.lagrange_to_coeff_extended_many(values_l)
+            values_l, [DEFAULT_BLIND] * len(values_l), lagrange=True,
+            rows=rows)
+        polys_l, cosets_l = domain.lagrange_to_coeff_extended_many(values_l,
+                                                                  rows)
         for c in commitments:
             transcript.common_point(c)
         instance_singles.append(
@@ -313,13 +401,15 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             ints = batch_evaluate_assigned(fs, col)
             for row in range(unusable_rows_start, n):   # blinding rows
                 ints[row] = fs.rand(rng)
-            advice_cols.append(df.upload_values(ints, dev))
+            advice_cols.append(df.upload_values(ints[start:start + count],
+                                                dev))
         advice_blinds = [fs.rand(rng) for _ in advice_cols]
         for pt in params.commit_many(advice_cols, advice_blinds,
-                                     lagrange=True):
+                                     lagrange=True, rows=rows):
             transcript.write_point(pt)
         prof.lap("advice: commit")
-        polys, cosets = domain.lagrange_to_coeff_extended_many(advice_cols)
+        polys, cosets = domain.lagrange_to_coeff_extended_many(advice_cols,
+                                                               rows)
         advice_singles.append({"values": advice_cols, "polys": polys,
                                "cosets": cosets, "blinds": advice_blinds})
     prof.lap("advice: ntt+extend")
@@ -330,7 +420,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
         [lookup_commit_permuted(argument, cs, params, domain, theta,
                                 adv_s["values"], pk.fixed_values,
                                 inst_s["values"], rng, transcript,
-                                sanity=sanity)
+                                sanity=sanity, rows=rows)
          for argument in cs.lookups]
         for inst_s, adv_s in zip(instance_singles, advice_singles)]
     prof.lap("lookup permuted")
@@ -343,25 +433,25 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
         permutations_committed.append(permutation_commit(
             cs, params, domain, pk.permutation,
             adv_s["values"], pk.fixed_values, inst_s["values"],
-            beta, gamma, rng, transcript, sanity=sanity))
+            beta, gamma, rng, transcript, sanity=sanity, rows=rows))
     prof.lap("permutation z")
 
     # ---- lookups: product commitments ----
     lookups_committed = [
         [lookup_commit_product(permuted, cs, params, domain, beta, gamma,
-                               rng, transcript, sanity=sanity)
+                               rng, transcript, sanity=sanity, rows=rows)
          for permuted in per_instance]
         for per_instance in lookups_permuted]
     prof.lap("lookup products")
 
     # ---- vanishing: random poly ----
-    vanishing = vanishing_commit(params, domain, rng, transcript)
+    vanishing = vanishing_commit(params, domain, rng, transcript, rows)
     prof.lap("vanishing random")
     y = transcript.squeeze_challenge()
 
     # ---- h(X): streamed y-fold of the constraint terms (the reference's
     # evaluator folds incrementally too, poly/evaluator.rs:210-227) ----
-    coset_pts = coset_points(domain)
+    coset_pts = coset_points(domain, rows)
     rot_scale = 1 << (domain.extended_k - domain.k)
     ext_n = domain.extended_n
     y_m = df.scalar(y, dev)
@@ -371,31 +461,32 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             lookups_committed):
         h_acc = _gates_h_fold(pk, cs, df, rot_scale, ext_n, y, y_m, h_acc,
                               adv_s["cosets"], pk.fixed_cosets,
-                              inst_s["cosets"], h_chunk_nodes)
+                              inst_s["cosets"], h_chunk_nodes, rows)
         terms = permutation_h_terms(
             cs, domain, pk.permutation, perm_sets,
             adv_s["cosets"], pk.fixed_cosets, inst_s["cosets"],
-            pk.l0, pk.l_blind, pk.l_last, coset_pts, beta, gamma)
+            pk.l0, pk.l_blind, pk.l_last, coset_pts, beta, gamma, rows)
         for committed in lk_committed:
             terms += lookup_h_terms(
                 committed, domain, theta, beta, gamma, adv_s["cosets"],
                 pk.fixed_cosets, inst_s["cosets"], pk.l0, pk.l_blind,
-                pk.l_last)
+                pk.l_last, rows)
         for term in terms:
             h_acc = term if h_acc is None else fadd(
                 df, fmul(df, h_acc, y_m), term)
     h_terms = ([] if h_acc is None
-               else [h_acc.expand(ext_n, h_acc.shape[-1]).contiguous()])
+               else [h_acc.expand(rows.row_span(ext_n)[1],
+                                  h_acc.shape[-1]).contiguous()])
     prof.lap("h terms build")
     constructed = vanishing_construct(vanishing, params, domain, h_terms, y,
-                                      rng, transcript)
+                                      rng, transcript, rows)
     prof.lap("vanishing construct (h commit)")
     x = transcript.squeeze_challenge()
     xn = pow(x, n, fs.modulus)
 
     # ---- every scalar open between the x and x1 squeezes in one batched
     # evaluation (poly/utils.py::MemoEval) ----
-    memo = MemoEval(df)
+    memo = MemoEval(df, rows)
     for inst_s in instance_singles:
         for column, at in cs.instance_queries:
             memo.collect(inst_s["polys"][column.index],
@@ -502,9 +593,8 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
                                blind=vanishing.random_blind))
 
     multiopen_create_proof(params, rng, transcript, queries,
-                           native_ipa_threshold)
+                           native_ipa_threshold, rows)
     prof.lap("multiopen+ipa")
-    ctx = context.active()
     if ctx is not None:
         check_ranks_agree(ctx, transcript.finalize())
     LAST_PHASES[:] = prof.laps

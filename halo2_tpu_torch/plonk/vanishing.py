@@ -3,7 +3,11 @@
 Port of halo2_tpu/plonk/vanishing.py (halo2_proofs/src/plonk/vanishing/
 prover.rs:38-152). The h(X) pipeline -- y-fold of all constraint tensors,
 division by t(X) on the coset, iNTT, split into n-sized pieces -- is the
-largest device computation of the prover.
+largest device computation of the prover. In the prover's sharded state
+(`rows` a ProverMesh) the random poly and the pieces are the rank's rows:
+the local inverse extension (EvaluationDomain.extended_to_coeff_pieces)
+leaves each rank its rows of every piece, so the pieces need neither a
+gather nor a re-layout before their commits.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.field_kernels import fadd, fmul
+from ..parallel.context import WHOLE
 from ..poly.utils import distribute_powers, eval_poly
 
 
@@ -28,38 +33,42 @@ class VanishingConstructed:
     committed: VanishingCommitted
 
 
-def vanishing_commit(params, domain, rng, transcript) -> VanishingCommitted:
+def vanishing_commit(params, domain, rng, transcript, rows=WHOLE
+                     ) -> VanishingCommitted:
     """Random degree n-1 poly + blind (vanishing/prover.rs:38-60)."""
     df = params.scalar_df
     fs = params.curve.scalar
     vals = [fs.rand(rng) for _ in range(params.n)]
-    random_poly = df.upload_values(vals, params.device)
+    start, count = rows.row_span(params.n)
+    random_poly = df.upload_values(vals[start:start + count], params.device)
     random_blind = fs.rand(rng)
-    transcript.write_point(params.commit(random_poly, random_blind))
+    (commitment,) = params.commit_many([random_poly], [random_blind],
+                                       lagrange=False, rows=rows)
+    transcript.write_point(commitment)
     return VanishingCommitted(random_poly=random_poly,
                               random_blind=random_blind)
 
 
 def vanishing_construct(committed: VanishingCommitted, params, domain,
                         h_terms: list, y: int, rng,
-                        transcript) -> VanishingConstructed:
+                        transcript, rows=WHOLE) -> VanishingConstructed:
     """vanishing/prover.rs:65-121: y-fold, divide by t(X), iNTT, split,
     commit."""
     df = params.scalar_df
     fs = params.curve.scalar
-    n = params.n
     if not h_terms:
         # gate-less circuit: h(X) == 0
-        h_terms = [df.zeros((domain.extended_n,), params.device)]
+        h_terms = [df.zeros((rows.row_span(domain.extended_n)[1],),
+                            params.device)]
     h = distribute_powers(df, h_terms, y)
     h = domain.divide_by_vanishing_poly(h)
-    h_coeffs = domain.extended_to_coeff(h)
-    # truncate to n * quotient_poly_degree, split into n-sized pieces
-    h_coeffs = h_coeffs[:n * domain.quotient_poly_degree]
-    h_pieces = [h_coeffs[i * n:(i + 1) * n]
-                for i in range(domain.quotient_poly_degree)]
+    # the n-sized pieces of the coefficients, truncated to
+    # n * quotient_poly_degree
+    h_pieces = list(domain.extended_to_coeff_pieces(h, rows)[
+        :domain.quotient_poly_degree].unbind(0))
     h_blinds = [fs.rand(rng) for _ in h_pieces]
-    for pt in params.commit_many(h_pieces, h_blinds, lagrange=False):
+    for pt in params.commit_many(h_pieces, h_blinds, lagrange=False,
+                                 rows=rows):
         transcript.write_point(pt)
     return VanishingConstructed(h_pieces=h_pieces, h_blinds=h_blinds,
                                 committed=committed)

@@ -48,6 +48,7 @@ from ..ops.msm import msm
 from ..ops.ntt import group_ntt, make_plan
 from ..ops.ipa_device import ipa_device_lr, ipa_device_fold_lr
 from ..parallel import context
+from ..parallel.context import WHOLE
 from ..parallel.mesh import sharded_msm_mont
 from .utils import eval_poly, powers
 
@@ -265,33 +266,35 @@ class Params:
         return None
 
     def _mesh_bases(self, ctx, lagrange: bool) -> tuple:
-        """This rank's rows of g_lagrange_dev or g_dev and of their packed
-        copy (the reference's _mesh_bases), made once per basis and mesh."""
+        """This rank's rows of g_lagrange_dev or g_dev and their packed
+        copy (the reference's _mesh_bases), in storage of their own, made
+        once per basis and mesh."""
         key = (lagrange, ctx.ndev, ctx.rank)
         ent = self._mesh_cache.get(key)
         if ent is None:
             bases = self.g_lagrange_dev if lagrange else self.g_dev
+            local = ctx.local_rows(bases, dim=1)
             ent = self._mesh_cache[key] = (
-                ctx.shard_rows(bases, dim=1).contiguous(),
-                ctx.shard_rows(self.packed_bases(lagrange)))
+                local, pack_affine(local[:2 * NLIMBS]))
         return ent
 
     def commit_many(self, polys_mont: list, blinds: list[int],
-                    lagrange: bool) -> list[Point]:
+                    lagrange: bool, rows=WHOLE) -> list[Point]:
         """m same-basis commitments in one batched device Pippenger: the
         m scalar vectors share the bases, so they only widen the lanes of
         every round. Under a ProverMesh (D | n) each rank runs it on its
         n/D rows and the ranks sum their window sums
-        (parallel/mesh.py::sharded_msm_mont). [blind]w is added on the
-        host."""
+        (parallel/mesh.py::sharded_msm_mont): rows of whole vectors, or
+        the vectors themselves where `rows` is the ProverMesh whose rank's
+        rows they are. [blind]w is added on the host."""
         m = len(polys_mont)
         if m == 0:
             return []
-        ctx = self._mesh_ctx()
-        rows = self.n if ctx is None else self.n // ctx.ndev
-        c = mp.pick_c(rows)
+        ctx = rows if rows.local else self._mesh_ctx()
+        nrows = self.n if ctx is None else self.n // ctx.ndev
+        c = mp.pick_c(nrows)
         w_cnt = -(-256 // c)
-        m_chunk = max(1, (COMMIT_GN_BUDGET // rows) // w_cnt)
+        m_chunk = max(1, (COMMIT_GN_BUDGET // nrows) // w_cnt)
         bases = self.g_lagrange_dev if lagrange else self.g_dev
         fs = self.curve.scalar
         out = []
@@ -299,9 +302,10 @@ class Params:
             vals = torch.stack(polys_mont[i:i + m_chunk], dim=0)
             if ctx is not None:
                 local, packed = self._mesh_bases(ctx, lagrange)
-                pts = sharded_msm_mont(self.curve, ctx.mesh,
-                                       ctx.shard_rows(vals, dim=1), local,
-                                       packed)
+                pts = sharded_msm_mont(
+                    self.curve, ctx.mesh,
+                    vals if rows.local else ctx.shard_rows(vals, dim=1),
+                    local, packed)
             else:
                 digits = from_mont(self.scalar_df, vals)
                 pts = mp.msm_many(self.curve, self.base_df, digits, bases,

@@ -9,8 +9,22 @@ tensor cores (ops/mxu_field.py, kernel K1), a smaller one through B7
 (halo2_tpu/poly/domain.py:52-74); on the CPU every transform takes B7's
 plain version. Under a ProverMesh whose D^2 divides both domain sizes, the
 transforms run as four-step NTTs over the mesh
-(parallel/mesh.py::sharded_ntt) on the rank's rows, and return whole
-tensors, as the reference routes them.
+(parallel/mesh.py::sharded_ntt) on the rank's rows, as the reference
+routes them. Given whole tensors, they return whole tensors; given a
+rank's rows (`rows` a ProverMesh, the prover's sharded state), they
+return its rows and gather nothing:
+
+  - values to coefficients: the sharded inverse NTT leaves each rank its
+    block of coefficients;
+  - coefficients to the extended coset: with R = ext_n / n and
+    k = j + R k', ext[k] = NTT_n(c_i zeta_i w_E^(i j))[k'], so R n-point
+    sharded NTTs of the rank's coefficients, each scaled by its rows of
+    the twiddles w_E^(i j), give the rank's ext_n/D rows interleaved;
+  - the extended coset to the quotient's n-row pieces (h): the inverse
+    of that, R n-point inverse NTTs of the rank's rows taken every R-th,
+    twiddles w_E^(-i j) and an R-point DFT across them, leave each rank
+    its rows i of every piece q (coefficient i + q n), where
+    vanishing_construct commits them.
 """
 from __future__ import annotations
 
@@ -22,7 +36,9 @@ from ..ops.field_kernels import fmul
 from ..ops.mxu_field import ntt_mxu_b
 from ..ops.ntt import make_plan, ntt_many
 from ..parallel import context
+from ..parallel.context import WHOLE
 from ..parallel.mesh import ShardedNttPlan, sharded_ntt
+from .utils import powers
 
 # Columns per batched transform: the m-column pipeline holds a few
 # [m, extended_n, 16] int32 intermediates (64 B per element each); 2^24
@@ -137,6 +153,65 @@ class EvaluationDomain:
                                           self.extended_omega_inv, D)}
         return plans
 
+    def _local_tables(self, ctx) -> dict:
+        """The rank's twiddle tables of the local extension and its
+        inverse: "ext" [R, C, 16] = zeta_i w_E^(i j) for the rank's rows
+        i and j < R; "inv" [R, C, 16] = w_E^(-i j); "out" [R, C, 16] =
+        the 1/ext_n scale times the un-coset pattern at row i + q n;
+        "dft" the R-point inverse DFT's plan (root w_E^(-n))."""
+        key = ("local", ctx.ndev, ctx.rank)
+        tabs = self._mesh_plan_cache.get(key)
+        if tabs is None:
+            df, dev, p = self.df, self.device, self.df.spec.modulus
+            R = self.extended_n // self.n
+            start, C = ctx.row_span(self.n)
+            w, wi = self.extended_omega, self.extended_omega_inv
+            coset_in = ctx.local_rows(self._coset_in)
+            ext = torch.stack([fmul(df, coset_in, powers(
+                df, pow(w, j, p), C, dev, start=pow(w, start * j, p)))
+                for j in range(R)])
+            inv = torch.stack([powers(df, pow(wi, j, p), C, dev,
+                                      start=pow(wi, start * j, p))
+                               for j in range(R)])
+            out = torch.stack([fmul(df, self._coset_out_ext[
+                q * self.n + start:q * self.n + start + C],
+                self._ext_ifft_divisor) for q in range(R)])
+            tabs = self._mesh_plan_cache[key] = {
+                "ext": ext, "inv": inv, "out": out,
+                "dft": make_plan(df, R, pow(wi, self.n, p))}
+        return tabs
+
+    def _local_extend(self, ctx, coeffs: torch.Tensor) -> torch.Tensor:
+        """The rank's ext_n/D rows of the extended coset from its n/D
+        coefficient rows of m columns [m, C, 16]: R sharded n-point NTTs
+        of the scaled rows, interleaved (the module note)."""
+        m, C = coeffs.shape[0], coeffs.shape[1]
+        R = self.extended_n // self.n
+        x = fmul(self.df, coeffs[:, None], self._local_tables(ctx)["ext"])
+        y = sharded_ntt(self.df, ctx.mesh, self._mesh_plans(ctx)["fwd"],
+                        x.reshape(m * R, C, NLIMBS))
+        return y.view(m, R, C, NLIMBS).transpose(1, 2).reshape(
+            m, C * R, NLIMBS)
+
+    def extended_to_coeff_pieces(self, values: torch.Tensor, rows
+                                 ) -> torch.Tensor:
+        """The quotient's coefficients from the rank's ext_n/D rows of the
+        extended coset: [R, n/D, 16], row c of piece q the coefficient
+        start + c + q n (R n-point sharded inverse NTTs, twiddles and an
+        R-point DFT: the module note). On WHOLE, extended_to_coeff's
+        coefficients cut into R pieces of n."""
+        R = self.extended_n // self.n
+        if not rows.local:
+            return self.extended_to_coeff(values).view(R, self.n, NLIMBS)
+        tabs = self._local_tables(rows)
+        C = values.shape[0] // R
+        v = values.view(C, R, NLIMBS).transpose(0, 1).contiguous()
+        z = sharded_ntt(self.df, rows.mesh, self._mesh_plans(rows)["inv"],
+                        v)                                  # [R(j), C, 16]
+        u = fmul(self.df, z, tabs["inv"])
+        d = ntt_many(self.df, u.transpose(0, 1).contiguous(), tabs["dft"])
+        return fmul(self.df, d.transpose(0, 1), tabs["out"])
+
     def _mesh_ntt(self, ctx, kind: str, x: torch.Tensor, *scales
                   ) -> torch.Tensor:
         """Columns x [m, N, 16] through the four-step NTT `kind` on this
@@ -168,18 +243,29 @@ class EvaluationDomain:
                           dtype=a.dtype, device=a.device)
         return torch.cat([a, pad], dim=1)
 
-    def lagrange_to_coeff_extended_many(self, values_list: list):
+    def lagrange_to_coeff_extended_many(self, values_list: list,
+                                        rows=WHOLE):
         """m Lagrange vectors -> (m coeff polys, m extended-coset vectors):
         iNTT, 1/n scale, coset zeta powers, zero pad, extended NTT, all m
         columns per launch (in chunks of NTT_BATCH_ELEMS), each transform
         routed by its size (_ntt_dispatch); on a mesh, the two sharded
-        four-step NTTs."""
+        four-step NTTs. With `rows` a ProverMesh the vectors are the
+        rank's rows, and so are the results (the module note)."""
         m = len(values_list)
         if m == 0:
             return [], []
-        ctx = self._mesh_ctx()
         m_chunk = max(1, NTT_BATCH_ELEMS // self.extended_n)
         polys, cosets = [], []
+        if rows.local:
+            for i in range(0, m, m_chunk):
+                vals = torch.stack(values_list[i:i + m_chunk], dim=0)
+                pc = fmul(self.df, sharded_ntt(
+                    self.df, rows.mesh, self._mesh_plans(rows)["inv"], vals),
+                    self._ifft_divisor)
+                polys.extend(pc.unbind(0))
+                cosets.extend(self._local_extend(rows, pc).unbind(0))
+            return polys, cosets
+        ctx = self._mesh_ctx()
         for i in range(0, m, m_chunk):
             vals = torch.stack(values_list[i:i + m_chunk], dim=0)
             if ctx is not None:
@@ -229,7 +315,9 @@ class EvaluationDomain:
         return fmul(self.df, x, self._coset_out_ext)
 
     def divide_by_vanishing_poly(self, values: torch.Tensor) -> torch.Tensor:
-        reps = self.extended_n // self._t_inv.shape[0]
+        """values / t on the extended coset, whole or a rank's rows (a
+        block starts at a multiple of the table's 2^(ek - k) rows)."""
+        reps = values.shape[0] // self._t_inv.shape[0]
         v = values.reshape(reps, self._t_inv.shape[0], NLIMBS)
         return fmul(self.df, v, self._t_inv).reshape(values.shape)
 

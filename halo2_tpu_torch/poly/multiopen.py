@@ -11,7 +11,8 @@ x3 (opening point), x4 (final fold) — multiopen.rs:20-39.
 
 Port of halo2_tpu/poly/multiopen.py: the q-poly accumulation, chained
 Kate divisions and evaluations run on the device; the set bookkeeping is
-host-side O(#queries).
+host-side O(#queries). Under a mesh the q polys are the first whole
+tensors of a proof: the IPA opens one whole poly.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..ops.field_kernels import fadd, fmul
 from .commitment import (Params, MSMAccumulator, NATIVE_IPA_THRESHOLD,
                          ipa_create_proof, ipa_verify_proof, Guard)
 from .utils import kate_division, batch_eval_polys
+from ..parallel.context import WHOLE
 
 
 @dataclass
@@ -144,10 +146,13 @@ def lagrange_interpolate(fs: FieldSpec, points: list[int],
 
 def multiopen_create_proof(params: Params, rng, transcript,
                            queries: list[ProverQuery],
-                           native_ipa_threshold: int = NATIVE_IPA_THRESHOLD
-                           ) -> None:
+                           native_ipa_threshold: int = NATIVE_IPA_THRESHOLD,
+                           rows=WHOLE) -> None:
     """multiopen/prover.rs:21-122; native_ipa_threshold as
-    ipa_create_proof's."""
+    ipa_create_proof's. With `rows` a ProverMesh the queried polys are
+    the rank's rows: each point set's q poly, a linear combination, is
+    formed on them and gathered whole (one all_gather a point set), and
+    the Kate divisions and the IPA run on whole polys."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -174,6 +179,7 @@ def multiopen_create_proof(params: Params, rng, transcript,
         else:
             q_polys[si] = fadd(df, fmul(df, q_polys[si], x1_m), q.poly)
         q_blinds[si] = (q_blinds[si] * x1 + q.blind) % fs.modulus
+    q_polys = [rows.gather_rows(qp) for qp in q_polys]
 
     # q'(X): chained Kate divisions per point set, folded with x2
     x2_m = df.scalar(x2, dev)

@@ -15,6 +15,7 @@ import torch
 from ..fields.device import (DeviceField, NLIMBS, R, running_sum,
                              digits_to_ints, ints_to_digits)
 from ..ops.field_kernels import fmul, fadd
+from ..parallel.context import WHOLE
 
 _POWERS_CACHE: dict = {}  # (modulus, x, n, device) -> tensor
 
@@ -65,9 +66,12 @@ def inner_product(df: DeviceField, a: torch.Tensor, b: torch.Tensor) -> int:
         df, fmul(df, a, b).to(torch.int64).sum(dim=0))[0]
 
 
-def batch_eval_polys(df: DeviceField, pairs) -> list[int]:
+def batch_eval_polys(df: DeviceField, pairs, rows=WHOLE) -> list[int]:
     """Evaluate many (poly [n_i, 16], point) pairs with one multiply, one
-    column sum and one readback."""
+    column sum and one readback. With `rows` a ProverMesh, each poly is
+    the rank's block of coefficients (rows start, start + 1, ...): the
+    rank's partial sums x^start sum_c a_c x^c, summed over the ranks
+    (exact integer digit sums, so the total is the whole poly's)."""
     if not pairs:
         return []
     n = max(p.shape[0] for p, _ in pairs)
@@ -78,20 +82,27 @@ def batch_eval_polys(df: DeviceField, pairs) -> list[int]:
                             device=device)])
         for p, _ in pairs])
     uniq = list(dict.fromkeys(pt for _, pt in pairs))
-    pw_stack = torch.stack([powers(df, pt, n, device) for pt in uniq])
+    start = rows.rank * n
+    p = df.spec.modulus
+    pw_stack = torch.stack([powers(df, pt, n, device, start=pow(pt, start, p))
+                            for pt in uniq])
     lookup = {pt: i for i, pt in enumerate(uniq)}
     gidx = torch.as_tensor([lookup[pt] for _, pt in pairs], device=device)
     prod = fmul(df, polys, pw_stack.index_select(0, gidx))
-    return digit_sums_to_ints(df, prod.to(torch.int64).sum(dim=1))
+    return digit_sums_to_ints(
+        df, rows.sum_over_ranks(prod.to(torch.int64).sum(dim=1)))
 
 
 class MemoEval:
     """Memoized evaluations backed by one batch_eval_polys pass: collect
     every (poly, point) pair up front, compute once, then serve
-    `ev(poly, point)` during the transcript-write phase."""
+    `ev(poly, point)` during the transcript-write phase. With `rows` a
+    ProverMesh the polys are the rank's rows, and the pass ends in one
+    all_gather of every rank's partial sums."""
 
-    def __init__(self, df):
+    def __init__(self, df, rows=WHOLE):
         self.df = df
+        self.rows = rows
         self._pairs = []
         self._keys = {}
         self._vals = None
@@ -103,12 +114,12 @@ class MemoEval:
             self._pairs.append((poly, point))
 
     def compute(self) -> None:
-        self._vals = batch_eval_polys(self.df, self._pairs)
+        self._vals = batch_eval_polys(self.df, self._pairs, self.rows)
 
     def ev(self, poly, point: int) -> int:
         key = (id(poly), point)
         if self._vals is None or key not in self._keys:
-            return eval_poly(self.df, poly, point)
+            return batch_eval_polys(self.df, [(poly, point)], self.rows)[0]
         return self._vals[self._keys[key]]
 
 

@@ -82,6 +82,17 @@ halo2_tpu_torch/_build/variants/:
   picks. With --json PATH, every number of the glv, bucket and double
   groups also goes to a JSON file, keyed by group.
 
+  B2 (pmixed_masked_*kernel) at B2_WIDTHS (1, 1,024, 8,192, 26,624, a
+  k = 17 column, 2^17, k = 18 columns) and the sweep B2_SWEEP that places
+  kPmixedLaneFrom, a random 80% of the lanes live, PALLAS base field:
+    lane, group
+               the source's forms (h2t_pmixed_masked_form): one thread a
+               lane, one lane a group of four threads (coop_add with
+               Z2 = mont 1)
+    fixed      one thread a lane in fixed blocks of 128 threads
+               (PMIXED_FIXED)
+    parent     an older checkout's h2t_pmixed_masked, given as the argument
+
   K1's four-step NTT (csrc/mxu_kernels.cu), forward on the PALLAS scalar
   field, a transform at 2^16, 2^17 and 2^20 with 1 and 4 columns:
     S<s>_L<l>  the source's pass kernel in passes of at most s = 3..6
@@ -111,16 +122,16 @@ halo2_tpu_torch/_build/variants/:
     Sethi-Ullman order (su), with the register flags or without; LDL and
     STL counted in each build's SASS.
 
-Every variant's output must equal the source's bit for bit (B7's, B5's,
-B6's, the GLV ladder's and the bucket-run kernel's also the plain
+Every variant's output must equal the source's bit for bit (B7's, B2's,
+B5's, B6's, the GLV ladder's and the bucket-run kernel's also the plain
 version's). Each is timed from a CUDA graph (and, but for the GLV ladder
 and the bucket-run kernel, by torch.profiler: chip_smoke.py's graph_ms and
 device_ms); per variant the timed kernel's registers (nvcc -Xptxas -v)
 and SASS instructions (cuobjdump -sass).
 
-Run from the repository root (--only runs one of the seven groups):
+Run from the repository root (--only runs one of the eight groups):
     python3 redesign_variants.py [--only glv|bucket|ntt|points|double|
-                                         mxu|gate] [--json PATH]
+                                         b2|mxu|gate] [--json PATH]
                                  [OLD_CHECKOUT]
 """
 from __future__ import annotations
@@ -1774,6 +1785,128 @@ DOUBLE_SWEEP = (1 << 10, 1 << 11, 1 << 12, 3 << 11, 3 << 12, 1 << 14,
                 1 << 19)
 
 
+# B2 in fixed blocks of 128 threads, one thread a lane: the launch it had
+# before its forms (appended to the source's build as h2t_pmixed_masked_fixed)
+PMIXED_FIXED = r'''
+extern "C" int h2t_pmixed_masked_fixed(int threads, int field, void* out,
+                                       const void* a, const void* b,
+                                       const void* mask, const void* sign,
+                                       long long L, void* stream) {
+  if (L <= 0) return 0;
+  dim3 grid((unsigned)((L + kMaxThreads - 1) / kMaxThreads));
+  auto k = field ? pmixed_masked_kernel<1> : pmixed_masked_kernel<0>;
+  k<<<grid, kMaxThreads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)a, (const int32_t*)b,
+      (const int32_t*)mask, (const int32_t*)sign, (uint32_t)L);
+  return (int)cudaGetLastError();
+}
+'''
+
+# B2's widths: 1, 1,024, 8,192, [points]'s 26,624 (two k = 14 columns), a
+# k = 17 column (45,056), 2^17, one and two k = 18 columns (81,920 and
+# 163,840), and the sweep that places kPmixedLaneFrom
+B2_WIDTHS = (1, 1 << 10, 1 << 13, 26624, 45056, 1 << 17, 81920, 163840)
+B2_SWEEP = (1 << 12, 3 << 12, 1 << 14, 5 << 12, 3 << 13, 15 << 11, 1 << 15,
+            9 << 12, 5 << 13, 13 << 12, 1 << 16, 3 << 15)
+
+
+def b2_variants(dev, old) -> dict:
+    """B2 in both forms of the source (h2t_pmixed_masked_form: one thread a
+    lane, one lane a group of four threads), one thread a lane in fixed
+    128-thread blocks (PMIXED_FIXED) and, given an older checkout, that
+    checkout's h2t_pmixed_masked (the parent's kernel), against
+    pmixed_masked_plain bit for bit at every width of B2_WIDTHS and
+    B2_SWEEP, PALLAS base field, on chip_smoke.py [points]'s inputs (Z != 1
+    accumulators, some identity accumulators and identity-coded bases, a
+    random 80% of the lanes live, half the signs set), each timed a launch
+    from a CUDA graph of 20 beside the bound chip_smoke.py counts (520
+    bytes a lane against 11 products a live lane)."""
+    import torch
+    import chip_smoke as cs
+    from halo2_tpu_torch.curves.host import PALLAS
+    from halo2_tpu_torch.curves.native import native_srs_g
+    from halo2_tpu_torch.fields.device import FP_DEV
+    from halo2_tpu_torch.ops import cuda_build as cb
+    from halo2_tpu_torch.ops import point_kernels as pk
+    src = "point_kernels.cu"
+    variants = {"source": make_variant("source", CSRC, src,
+                                       append=PMIXED_FIXED)}
+    if old:
+        variants["parent"] = make_variant(
+            "parent", os.path.join(old, "halo2_tpu_torch", "csrc"), src)
+    libs = build(variants, "pmixed_masked")
+    sig = cb._ARGTYPES["point_kernels"]
+    for lib in libs.values():
+        for fn in ("h2t_pmixed_masked_form", "h2t_pmixed_masked_fixed",
+                   "h2t_pmixed_masked"):
+            if hasattr(lib, fn):
+                f = getattr(lib, fn)
+                f.argtypes = sig.get(fn, sig["h2t_pmixed_masked_form"])
+                f.restype = ctypes.c_int
+    source = libs["source"]
+    # (name, launch(threads-first arguments))
+    forms = [(name, lambda *a, t=t: source.h2t_pmixed_masked_form(t, *a))
+             for name, t in pk.FORMS.items()]
+    forms.append(("fixed", lambda *a: source.h2t_pmixed_masked_fixed(1, *a)))
+    if "parent" in libs:
+        forms.append(("parent", libs["parent"].h2t_pmixed_masked))
+    df = FP_DEV
+    g = pk.points_to_proj(df, native_srs_g(PALLAS, "b2-variants", 1024), dev)
+    ident = pk.ident_col(df, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    record = []
+    for L in sorted(B2_WIDTHS + B2_SWEEP):
+        pick = lambda: torch.randint(g.shape[1], (L,), generator=gen,
+                                     device=dev)
+        A = pk.padd_plain(df, g[:, pick()], g[:, pick()])
+        B = g[:, pick()].clone()
+        A[:, :L // 64] = ident[:, None]          # identity accumulators
+        B[:, L // 2:L // 2 + L // 64] = ident[:, None]
+        aff = B[:32].contiguous()
+        mask = (torch.rand(L, generator=gen, device=dev) < 0.8).to(
+            torch.int32)
+        signs = (torch.rand(L, generator=gen, device=dev) < 0.5).to(
+            torch.int32)
+        want = pk.pmixed_masked_plain(df, A, aff, mask, signs)
+        ident_b = ((aff[:16] == 0).all(0)
+                   & (aff[16:] == ident[16:32, None]).all(0))
+        live = int((mask.bool() & ~ident_b).sum())
+        out = torch.empty_like(A)
+
+        def call(launch, out=out, A=A, aff=aff, mask=mask, signs=signs, L=L):
+            check(launch(df.field_id, out.data_ptr(), A.data_ptr(),
+                         aff.data_ptr(), mask.data_ptr(), signs.data_ptr(),
+                         L, stream()))
+            return out
+        bd, by = cs.bound_ms(L * (192 + 128 + 8 + 192),
+                             live * 11 * cs.MONT_MULADDS)
+        row = {"L": L, "live": live, "bound_ms": bd, "bound_by": by,
+               "graph_ms": {}}
+        for name, launch in forms:
+            out.zero_()
+            call(launch)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"[b2] {name} differs from the plain "
+                                     f"version at L={L}")
+            row["graph_ms"][name] = cs.graph_ms(
+                lambda launch=launch: call(launch), 10, calls=20)
+        best = min(row["graph_ms"], key=row["graph_ms"].get)
+        record.append(row)
+        print(f"[b2] L={L} ({live} live): " + ", ".join(
+            f"{k} {v:.5f}" for k, v in row["graph_ms"].items())
+            + f" ms a launch from a graph (bound {bd:.5f} ms by {by}); "
+            f"fastest {best}", flush=True)
+    # the threshold rule: the first measured width from which one thread
+    # wins at every wider one
+    widths = [r["L"] for r in record]
+    lane_wins = [r["graph_ms"]["lane"] <= r["graph_ms"]["group"]
+                 for r in record]
+    at = next((w for i, w in enumerate(widths) if all(lane_wins[i:])), None)
+    print(f"[b2] one thread a lane wins at every width from {at}", flush=True)
+    return {"widths": record, "lane_from": at}
+
+
 def double_variants(dev) -> dict:
     """B5 and B6 in every form (csrc/point_kernels.cu's lane and group
     through h2t_pdouble_form, the fixed form, the pair, B6's branch and
@@ -1921,10 +2054,10 @@ def main() -> int:
     cs.phase_card()
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("glv", "bucket", "ntt", "points",
-                                       "double", "mxu", "gate"))
+                                       "double", "b2", "mxu", "gate"))
     ap.add_argument("--json", default=None,
                     help="write every number of the glv, bucket, double, "
-                         "mxu and gate groups here")
+                         "b2, mxu and gate groups here")
     ap.add_argument("old", nargs="?", default=None)
     args = ap.parse_args()
     shutil.rmtree(OUT, ignore_errors=True)
@@ -1940,6 +2073,8 @@ def main() -> int:
         point_variants(dev)
     if args.only in (None, "double"):
         record["double"] = double_variants(dev)
+    if args.only in (None, "b2"):
+        record["b2"] = b2_variants(dev, args.old)
     if args.only in (None, "mxu"):
         record["mxu"] = mxu_variants(dev, args.old)
     if args.only in (None, "gate"):

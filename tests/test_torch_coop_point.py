@@ -9,9 +9,10 @@ rcb_add_plain and rcb_double_plain (and so the one-thread kernels and the
 reference) bit for bit on random projective points, identity lanes and
 a == b lanes, the masked group form of B6 pdouble_masked_plain, the
 ladder scalar_mul_ladder_plain, the GLV ladder's group form (its table
-read per rank from the staged shared-memory layout) glv_ladder_plain and
+read per rank from the staged shared-memory layout) glv_ladder_plain,
 the bucket-run kernel's group form (its four-word base load and the
-shuffles) pmixed_bucket_runs_plain, in both fields. The same holds for the
+shuffles) pmixed_bucket_runs_plain and B2's group form
+pmixed_masked_plain, in both fields. The same holds for the
 schedule of two threads a lane that redesign_variants.py builds and times
 beside the kernels (pair_double, its maps read from that script). Inputs
 are numpy-seeded."""
@@ -317,6 +318,32 @@ def bucket_group(df, bases, members, starts, counts, BL, lanes):
     return out
 
 
+def b2_group(df, a, b_aff, mask, signs):
+    """pmixed_masked_group_kernel: every rank reads the lane's mask word
+    and, where it is set, the whole base; a lane whose mask is 0 or whose
+    base is identity-coded (0, mont 1) copies A, a branch of the whole
+    group. On the other lanes y is negated where the sign is set (p - y,
+    as the kernel's sub_raw: y is never 0 on a curve point), select3
+    spreads b0 = {x, y, 1}[c(r)] and b1 = {y, 1, x}[c(r)] (Z2 = mont 1),
+    rank r loads coordinate c(r) of A and takes the next from its
+    neighbour, and coop_add runs; ranks 0-2 store."""
+    coord = [0, 1, 2, 0]
+    nxt = _src("kNext")
+    one = pk.mont_one(df, "cpu")
+    x2, y2 = b_aff[:NLIMBS].T, b_aff[NLIMBS:].T
+    live = (mask != 0) & ~((x2 == 0).all(-1) & (y2 == one).all(-1))
+    y2 = torch.where((signs != 0)[:, None],
+                     fsub_plain(df, torch.zeros_like(y2), y2), y2)
+    ones = one.expand(x2.shape)
+    cands0, cands1 = (x2, y2, ones), (y2, ones, x2)
+    b0 = torch.stack([cands0[c] for c in coord])
+    b1 = torch.stack([cands1[c] for c in coord])
+    a0 = _spread(a)
+    added = coop_add(df, a0, _shfl(a0, nxt), b0, b1)
+    assert torch.equal(added[3], added[0])   # rank 3 holds X
+    return _gather(torch.where(live[None, :, None], added, a0))
+
+
 @pytest.fixture
 def one_thread():
     n = torch.get_num_threads()
@@ -454,6 +481,29 @@ def test_glv_group_ladder_equals_plain(curve, one_thread):
                        pk.glv_ladder_plain(df, A, B, t12, bits1, bits2))
 
 
+@pytest.mark.parametrize("curve", CURVES.values(), ids=CURVES.keys())
+def test_b2_group_equals_plain(curve, one_thread):
+    """B2's group form equals pmixed_masked_plain (and so the one-thread
+    kernel and the reference's) on accumulators with Z != 1 and identity
+    lanes, affine bases with identity-coded ones, masks of all ones, all
+    zeros and a random half, signs all unset, all set and a random half;
+    at L = 40 lanes and 37 (neither a multiple of a block's 8, 16 or 32
+    groups)."""
+    df, A, _ = _points(curve, 11)
+    pts = native_srs_g(curve, "coop-b2", L)
+    pts[5] = pts[17] = pts[30] = None
+    aff = pk.points_to_proj(df, pts, "cpu")[:32]
+    half = torch.from_numpy(
+        (np.random.default_rng(12).random(L) < 0.5).astype(np.int32))
+    for n in (L, 37):
+        for mask in _masks(13):
+            for signs in (torch.zeros(L, dtype=torch.int32),
+                          torch.ones(L, dtype=torch.int32), half):
+                args = (A[:, :n], aff[:, :n], mask[:n], signs[:n])
+                assert torch.equal(b2_group(df, *args),
+                                   pk.pmixed_masked_plain(df, *args))
+
+
 def _bucket_case(curve, seed):
     """Two window rows of 16 packed bases (two identity-coded) with runs of
     0, 1 and several members, a third of them negated: (df, bases,
@@ -492,15 +542,16 @@ def test_bucket_group_runs_equal_plain(curve, one_thread):
 
 
 def test_group_form_thresholds_and_table_banks():
-    """The GLV ladder's and the bucket-run kernel's lane counts from which
-    one thread serves a lane are positive and at most kMaxGroupLanes; the
+    """The GLV ladder's, the bucket-run kernel's and B2's lane counts from
+    which one thread serves a lane are positive and at most
+    kMaxGroupLanes; the
     group ladder's table fits its stride, and one coordinate read by the
     ranks of a warp's eight groups falls in 24 distinct banks."""
     src = open(CU).read()
     max_threads = int(re.search(r"static const int kMaxThreads = (\d+);",
                                 src).group(1))
     max_group_lanes = (1 << 32) // C["kGroup"] - max_threads
-    for name in ("kGlvLaneFrom", "kBucketLaneFrom"):
+    for name in ("kGlvLaneFrom", "kBucketLaneFrom", "kPmixedLaneFrom"):
         assert 0 < C[name] <= max_group_lanes, name
     S = C["kGlvTabStride"]
     assert S >= 3 * 24

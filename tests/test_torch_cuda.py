@@ -385,6 +385,40 @@ def test_pdouble_kernels_at_group_and_block_edges(cuda, curve):
             assert torch.equal(got, exp), (L, name)
 
 
+@pytest.mark.parametrize("curve", [PALLAS, VESTA], ids=["pallas", "vesta"])
+def test_pmixed_masked_kernels_at_group_and_block_edges(cuda, curve):
+    """B2 in each form (one thread a lane, one lane a group of four
+    threads) and through its wrapper equals pmixed_masked_plain at lane
+    counts that end part way through a warp or a block (1, 31, 33, 8,191,
+    8,192) and at kPmixedLaneFrom and one lane either side, with an
+    identity accumulator, identity-coded bases, masks of all ones, all
+    zeros and a random 80%, signs of a random half; one launch a wrapper
+    call."""
+    df = FP_DEV if curve is PALLAS else FQ_DEV
+    rng = np.random.default_rng(29)
+    at = _lane_from("Pmixed")
+    for L in list(GROUP_EDGES) + [at - 1, at, at + 1]:
+        a = _edge_points(curve, df, L, rng, cuda)
+        b = _edge_points(curve, df, L, rng, cuda)
+        b[:, :3] = pk.ident_col(df, cuda)[:, None]
+        aff = pk.points_to_proj(df, pk.points_from_proj(df, b),
+                                cuda)[:32].contiguous()
+        signs = torch.from_numpy((rng.random(L) < 0.5).astype(np.int32))
+        live = torch.from_numpy((rng.random(L) < 0.8).astype(np.int32))
+        signs = signs.to(cuda)
+        for mask in (torch.ones_like(signs), torch.zeros_like(signs),
+                     live.to(cuda)):
+            exp = pk.pmixed_masked_plain(df, a, aff, mask, signs)
+            for t in pk.FORMS.values():
+                assert torch.equal(
+                    pk.pmixed_masked_form(df, a, aff, mask, signs, t),
+                    exp), (L, t)
+            before = pk.LAUNCHES["pmixed_masked"]
+            got = pk.pmixed_masked_flat(df, a, aff, mask, signs)
+            assert pk.LAUNCHES["pmixed_masked"] == before + 1
+            assert torch.equal(got, exp), L
+
+
 def _lane_from(name):
     """csrc/point_kernels.cu's k<name>LaneFrom: from that many lanes the
     kernel runs one thread a lane, below it one lane a group of four."""

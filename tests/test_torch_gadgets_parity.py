@@ -52,6 +52,7 @@ from halo2_tpu import plonk as rplonk
 from halo2_tpu_torch import gadget_circuits as gc
 from halo2_tpu_torch.circuit import Circuit, Value, synthesize_circuit
 from halo2_tpu_torch.convert import params_from_reference
+from halo2_tpu_torch.parallel.context import WHOLE
 from halo2_tpu_torch.curves.host import PALLAS, VESTA
 from halo2_tpu_torch.plonk.circuit import ConstraintSystem
 from halo2_tpu_torch.plonk.keygen import (Assembly, _fixed_ints, keygen_vk,
@@ -82,8 +83,10 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
-def _host_commit_many(self, polys_mont, blinds, lagrange):
-    """Params.commit_many's group elements by the native host MSM."""
+def _host_commit_many(self, polys_mont, blinds, lagrange, rows=WHOLE):
+    """Params.commit_many's group elements by the native host MSM (whole
+    columns: the prover passes rows=WHOLE without a mesh)."""
+    assert not rows.local
     bases = self.g_lagrange if lagrange else self.g
     fs = self.curve.scalar
     out = []

@@ -16,7 +16,13 @@ with no tolerance:
     Params.commit_lagrange of the same values, and sharded_msm over
     projective bases against the JAX package's host MSM;
   - MulChainCircuit at K = 4 proved under the mesh, against the JAX
-    package's proof for the same Params, circuit and random.Random seed;
+    package's proof for the same Params, circuit and random.Random seed
+    (at D = 2 the ranks hold their rows; at D = 4 the permutation's link
+    of 6 rows exceeds a rank's 4, so they keep whole tensors), and at
+    K = 5 under D = 4, where they hold their rows; each rank's re-laid
+    proving key holds its block of rows in storage of its own, and a
+    proof with it after the mesh exits is the single-device one;
+  - ProverMesh.roll_rows against torch.roll of the whole column;
   - the scaled-down dev_lookup circuit at K = 5 (the smallest lookup
     circuit tests/test_torch_lookup.py proves) under D = 2, against the
     JAX package's proof, which that file holds equal to the port's
@@ -58,6 +64,7 @@ from halo2_tpu_torch.parallel.programs import field_values, run
 LOG_N = 6                 # the kernels' columns: n = 64
 COMMIT_K = 6
 K = 4                     # MulChainCircuit(7, rows=4)
+K_ROWS4 = 5               # its K where 4 ranks hold their rows
 LOOKUP_K, TABLE_BITS, LOOKUP_ROWS = 5, 3, 16
 SEED = 77
 WORLDS = (2, 4)
@@ -71,18 +78,32 @@ def _tasks(D: int) -> list:
         ("scans", "scans", dict(n=1 << LOG_N, seed=2)),
         ("msm", "msm", dict(n=16, seed=4)),
         ("commit", "commit", dict(k=COMMIT_K, seed=3, blind=5)),
+        ("roll", "roll", dict(log_n=LOG_N, shifts=_shifts(D))),
         ("mulchain", "prove", dict(circuit="mulchain", k=K, seed=SEED,
-                                   verify=True)),
+                                   verify=True, after=D == 2)),
     ]
     if D == 2:
-        tasks.append(("lookup", "prove", dict(
+        tasks += [("lookup", "prove", dict(
             circuit="dev_lookup", k=LOOKUP_K, seed=SEED, verify=True,
-            table_bits=TABLE_BITS, rows=LOOKUP_ROWS)))
+            table_bits=TABLE_BITS, rows=LOOKUP_ROWS)),
+            ("chunked", "prove", dict(circuit="mulchain", k=K, seed=SEED,
+                                      h_chunk_nodes=8))]
     if D == 4:
-        tasks += [("routing", "routing", dict(k=3)),
+        tasks += [("mulchain5", "prove", dict(circuit="mulchain", k=K_ROWS4,
+                                              seed=SEED, verify=True,
+                                              after=True)),
+                  ("routing", "routing", dict(k=3)),
                   ("mixed", "prove", dict(circuit="mulchain", k=K,
                                           seed=SEED, rank_seed=True))]
     return tasks
+
+
+def _shifts(D: int) -> list:
+    """roll_rows' shifts on a column of 2^LOG_N rows: +-1, +-rot_scale
+    (2, the extended domain's scale at degree 3) and the rank's whole
+    block, both ways."""
+    c = (1 << LOG_N) // D
+    return [1, -1, 2, -2, c, -c]
 
 
 def _reference() -> dict:
@@ -117,6 +138,8 @@ def _reference() -> dict:
     c = RMulChainCircuit(7, 4)
     ref["mulchain"] = prove(RParams.new(R_PALLAS, K), c,
                             [[[c.expected_out()]]])
+    ref["mulchain5"] = prove(RParams.new(R_PALLAS, K_ROWS4), c,
+                             [[[c.expected_out()]]])
     cls = dev_lookup_circuit_class(RCircuit, RValue, RRotation,
                                    R_PALLAS.scalar)
     ref["lookup"] = prove(RParams.new(R_PALLAS, LOOKUP_K),
@@ -195,6 +218,81 @@ def test_mesh_proof_equals_reference_proof(worlds, D):
         for name in ("sharded_msm", "sharded_ntt",
                      "sharded_inclusive_product", "sharded_batch_inv"):
             assert counts[name] > 0, name
+
+
+def test_mesh_proof_with_ranks_holding_rows_equals_reference(worlds):
+    """Where a rank's block takes the circuit's rolls (n/D >= 6 rows:
+    K = 4 at D = 2, K = 5 at D = 4) the ranks hold their rows, and the
+    proof is the JAX package's; at D = 4 and K = 4 they keep whole
+    tensors, an explicit choice, and the proof is the same."""
+    ref = worlds[1]
+    for D, name, local in ((2, "mulchain", True), (4, "mulchain", False),
+                           (4, "mulchain5", True)):
+        for r in worlds[0][D]:
+            got = r[name]
+            assert got["local"] is local, (D, name)
+            assert got["proofs"] == [ref[name]]
+            if name == "mulchain5":
+                assert got["verified"]
+                assert got["counts"]["sharded_ntt"] > 0
+
+
+def test_gate_chunks_under_the_mesh_equal_reference_proof(worlds):
+    """create_proof(h_chunk_nodes=8) at D = 2, the ranks holding their
+    rows: the gate chunks (kernel K2 on the card) run on the columns
+    gathered whole, and the proof is the JAX package's."""
+    for r in worlds[0][2]:
+        got = r["chunked"]
+        assert got["local"]
+        assert got["proofs"] == [worlds[1]["mulchain"]]
+
+
+def _whole_pk_rows(ranks, name):
+    """The pk's tensors after the proof made with the mesh exited:
+    {name: (rows, storage bytes)}."""
+    return ranks[0][name]["after"]["pk_rows"]
+
+
+@pytest.mark.parametrize("D,name", [(2, "mulchain"), (2, "lookup"),
+                                    (4, "mulchain5")])
+def test_relaid_pk_holds_the_ranks_rows(worlds, D, name):
+    """Each rank's re-laid pk tensors (fixed values, polys and cosets,
+    l0, l_blind, l_last, the permutation's sigma columns in each basis)
+    hold 1/D of the rows, in storage of exactly that size, never a view
+    of the whole tensor."""
+    ranks = worlds[0][D]
+    for r in ranks:
+        rows = r[name]["pk_rows"]
+        assert rows, name
+        for key, (count, nbytes) in rows.items():
+            assert nbytes == count * 16 * 4, key
+            if name == "lookup":
+                # n or ext_n rows, 2^5 and 2^7
+                assert count * D in (1 << LOOKUP_K, 1 << (LOOKUP_K + 2))
+            else:
+                assert count * D == _whole_pk_rows(ranks, name)[key][0], key
+
+
+@pytest.mark.parametrize("D,name", [(2, "mulchain"), (4, "mulchain5")])
+def test_relaid_pk_after_the_mesh_exits(worlds, D, name):
+    """A prove with the re-laid pk after the mesh has exited gathers the
+    pk back whole and makes the single-device proof (the JAX
+    package's); every tensor then holds all its rows."""
+    ref = worlds[1]
+    for r in worlds[0][D]:
+        after = r[name]["after"]
+        assert after["proof"] == ref[name]
+        local = r[name]["pk_rows"]
+        for key, (count, _) in after["pk_rows"].items():
+            assert count == D * local[key][0], key
+
+
+@pytest.mark.parametrize("D", WORLDS)
+def test_roll_rows_matches_torch_roll(worlds, D):
+    """Each rank's roll_rows by +-1, +-2 and its whole block equals its
+    rows of torch.roll of the whole column."""
+    for r in worlds[0][D]:
+        assert r["roll"] == {s: True for s in _shifts(D)}
 
 
 def test_lookup_mesh_proof_equals_reference_proof(worlds):
