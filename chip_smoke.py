@@ -693,12 +693,12 @@ class OffsetWidths:
         self.real = real = mp.padd_masked_flat
 
         def recorded(df, a, b, mask, idx=None, sign=None, width=None,
-                     shift=0):
+                     shift=0, live=None):
             if width is not None:
                 ent = self.seen.setdefault((a.shape[1], width), [0, 0])
                 ent[0] += 1
                 ent[1] = ent[1] + mask.sum()      # no sync in the prove
-            return real(df, a, b, mask, idx, sign, width, shift)
+            return real(df, a, b, mask, idx, sign, width, shift, live=live)
         mp.padd_masked_flat = recorded
         return self
 
@@ -2822,7 +2822,8 @@ class field_launches:
 class path_calls:
     """Within each `with` block, the first call of every kernel wrapper
     for each signature (its tensors' shapes and dtypes, its other
-    arguments but B3's roll distance, a value like its operands'), with
+    arguments but B3's roll distance and live lanes, a value like its
+    operands'), with
     the operands and the result cloned, so that
     `check()` can hold the kernels against their plain versions at the
     shapes a path gave them, on the path's own data. The wrappers are
@@ -3013,7 +3014,7 @@ class path_calls:
         def recording(*args, **kw):
             key = (kernel, tuple(map(sig, args)),
                    tuple((k, sig(v)) for k, v in sorted(kw.items())
-                         if k != "shift"))
+                         if k not in ("shift", "live")))
             if kernel == "gate_chunk":
                 # K2 updates h_prev in place: its value before the launch;
                 # the columns are the prove's own and stay as they are
@@ -3028,6 +3029,9 @@ class path_calls:
                     k = {}
                 else:
                     bound = params.bind(*args, **kw)
+                    # B3's count of live lanes is the recorder's, not an
+                    # operand of its plain version
+                    bound.arguments.pop("live", None)
                     if kernel == "gate_chunk":
                         bound.arguments["h_prev"] = before
                     if kernel in self.FORMS:
@@ -3463,31 +3467,36 @@ def phase_peak():
 class phase_launches:
     """Within the block, the launches of each kernel in each prover phase
     and the phase's peak of allocated card memory: a measurement hook
-    around PhaseTimer.lap (which drains the card at every lap). The
-    block's value is the list of (phase, {kernel: launches}, peak GiB)."""
+    around the end of each of PhaseTimer's laps (which drains the card
+    first). The block's value is the list of (phase, {kernel: launches},
+    peak GiB)."""
 
     def __enter__(self):
         import torch
-        from halo2_tpu_torch.plonk import prover as pv
-        self.orig = orig = pv.PhaseTimer.lap
+        from halo2_tpu_torch import tracing
+        self.orig = orig = tracing.PhaseTimer._end
         phases, last = [], [launch_counts()]
         torch.cuda.reset_peak_memory_stats()
 
-        def lap(timer, name):
-            orig(timer, name)
-            now = launch_counts()
-            phases.append((name, {k: v - last[0][k] for k, v in now.items()
-                                  if v != last[0][k]},
-                           torch.cuda.max_memory_allocated() / 2**30))
-            torch.cuda.reset_peak_memory_stats()
-            last[0] = now
+        def end(timer):
+            name = timer._name
+            now_t = orig(timer)
+            if name is not None:
+                now = launch_counts()
+                phases.append((name, {k: v - last[0][k]
+                                      for k, v in now.items()
+                                      if v != last[0][k]},
+                               torch.cuda.max_memory_allocated() / 2**30))
+                torch.cuda.reset_peak_memory_stats()
+                last[0] = now
+            return now_t
 
-        pv.PhaseTimer.lap = lap
+        tracing.PhaseTimer._end = end
         return phases
 
     def __exit__(self, *exc):
-        from halo2_tpu_torch.plonk import prover as pv
-        pv.PhaseTimer.lap = self.orig
+        from halo2_tpu_torch import tracing
+        tracing.PhaseTimer._end = self.orig
         return False
 
 

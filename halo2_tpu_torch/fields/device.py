@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .host import FieldSpec, FP, FQ
+from .. import tracing
 from ..ops.field_kernels import NLIMBS, LIMB_BITS, MASK, fmul, fadd, fsub
 
 R = 1 << (NLIMBS * LIMB_BITS)  # Montgomery radix 2^256
@@ -92,12 +93,15 @@ class DeviceField:
         return _const(tuple(int_to_limbs(v % p * R % p)),
                       torch.device(device))
 
-    def upload_values(self, values, device) -> torch.Tensor:
+    def upload_values(self, values, device, site: str = "values"
+                      ) -> torch.Tensor:
         """Canonical Python ints -> [n, 16] Montgomery tensor: the 16-bit
-        digits are copied over and converted by one multiply with R^2."""
+        digits are copied over and converted by one multiply with R^2.
+        The copy counts as host-to-device bytes at `site`
+        (tracing.h2d)."""
         p = self.spec.modulus
         x = torch.from_numpy(ints_to_digits([int(v) % p for v in values]))
-        x = x.to(device)
+        x = tracing.upload(site, x, device)
         return fmul(self, x, _const(tuple(int_to_limbs(self.r2_mod_p)),
                                     x.device))
 
@@ -120,8 +124,8 @@ def _const(digits: tuple, device: torch.device) -> torch.Tensor:
     if t is None:
         if len(_CONSTS) > 4096:
             _CONSTS.clear()
-        t = _CONSTS[key] = torch.tensor(digits, dtype=torch.int32,
-                                        device=device)
+        t = _CONSTS[key] = tracing.upload(
+            "const", torch.tensor(digits, dtype=torch.int32), device)
     return t
 
 

@@ -10,7 +10,11 @@ values equal the reference's uint32 arrays.
 
 Each wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel (csrc/field_kernels.cu) or raises.
-`LAUNCHES` counts kernel launches, nowhere else.
+`LAUNCHES` counts kernel launches, nowhere else (tracing.launch, which
+also records each launch's elements, bytes and multiply-adds: each
+operand read once at its own size, as the kernel's index period reads
+it, and the output written once, 64 bytes an element; MONT_MULADDS a
+product, none for the add/subtract).
 
 The plain versions compute in int64 (and exact float64 column sums): on
 this PyTorch, uint32 has no add, shift, compare or gather. They compute
@@ -25,11 +29,17 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
+
 NLIMBS = 16
 LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
+# multiply-adds of one Montgomery product of 8 x 32-bit limbs
+# (csrc/field.cuh::mont_mul): 64 products for a*b and 48 for the
+# reduction against the modulus's nonzero limbs, two words each
+MONT_MULADDS = 2 * 112
 
-LAUNCHES = {"fmul": 0, "faddsub": 0, "fmul_limbs_first": 0}
+LAUNCHES = tracing.launch_counters("fmul", "faddsub", "fmul_limbs_first")
 
 # column i + j of each entry of a flattened 16x16 digit product
 _DIAG = (np.arange(NLIMBS)[:, None] + np.arange(NLIMBS)[None, :]).reshape(-1)
@@ -186,7 +196,8 @@ def _launch(fn_name: str, counter: str, df, a, b, *extra):
                                a_.data_ptr(), b_.data_ptr(), n, ap, bp,
                                cuda_build.stream_ptr(a.device))
     cuda_build.check(rc, fn_name)
-    LAUNCHES[counter] += 1
+    tracing.launch(counter, n, (n + ap + bp) * NLIMBS * 4,
+                   n * MONT_MULADDS if counter == "fmul" else 0)
     return out
 
 
@@ -201,7 +212,9 @@ def _dispatch(a: torch.Tensor) -> bool:
 
 
 def fmul(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product with broadcasting (kernel B1 on CUDA)."""
+    """Montgomery product with broadcasting (kernel B1 on CUDA). Work an
+    element: out and each operand's elements (64 bytes each; a scalar
+    operand once), one product."""
     _check(a, b)
     if not _dispatch(a):
         return fmul_plain(df, a, b)
@@ -209,6 +222,8 @@ def fmul(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fadd(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b with broadcasting (the add/subtract kernel on CUDA). Work:
+    as fmul's bytes, no product."""
     _check(a, b)
     if not _dispatch(a):
         return fadd_plain(df, a, b)
@@ -237,7 +252,8 @@ def fmul_limbs_first(df, a_t: torch.Tensor, b_t: torch.Tensor
                      ) -> torch.Tensor:
     """Montgomery product of limbs-first [16, N] int32 digit arrays (row i
     holds digit i of every element; the reference's fmul_pallas layout),
-    kernel B8 on CUDA."""
+    kernel B8 on CUDA. Work an element: a, b and out (64 bytes each), one
+    product."""
     for x in (a_t, b_t):
         if (x.dtype != torch.int32 or x.dim() != 2
                 or x.shape[0] != NLIMBS):
@@ -257,5 +273,7 @@ def fmul_limbs_first(df, a_t: torch.Tensor, b_t: torch.Tensor
                                   a_t.shape[1],
                                   cuda_build.stream_ptr(a_t.device))
     cuda_build.check(rc, "h2t_fmul_limbs_first")
-    LAUNCHES["fmul_limbs_first"] += 1
+    n = a_t.shape[1]
+    tracing.launch("fmul_limbs_first", n, 3 * n * NLIMBS * 4,
+                   n * MONT_MULADDS)
     return out

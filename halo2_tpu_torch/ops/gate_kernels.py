@@ -28,7 +28,10 @@ a chunk's queries move more bytes than that.
 The plain version interprets the same tape over whole tensors with the
 plain field ops (a query is a torch.roll; the flags are not needed,
 since it writes every result to its slot), so the CPU tests run the tape
-the card runs. `LAUNCHES` counts K2's launches, nowhere else.
+the card runs. `LAUNCHES` counts K2's launches, nowhere else
+(tracing.launch, with a launch's work: each queried column read once and
+h written once, 64 bytes a row each, and GateTape.muls() products a
+row).
 """
 from __future__ import annotations
 
@@ -37,10 +40,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fields.device import DeviceField, NLIMBS, R as MONT_R, ints_to_digits
-from .field_kernels import (fmul_plain, fadd_plain, fsub_plain, _dispatch)
+from .field_kernels import (MONT_MULADDS, fmul_plain, fadd_plain,
+                            fsub_plain, _dispatch)
 
-LAUNCHES = {"gate_chunk": 0}
+LAUNCHES = tracing.launch_counters("gate_chunk")
 
 OP_QUERY, OP_CONST, OP_NEG, OP_ADD, OP_MUL, OP_SCALE, OP_FOLD = range(7)
 # the op word: the opcode in its low byte, then flags that let the kernel
@@ -72,10 +77,11 @@ class GateTape:
         ent = self._dev.get(key)
         if ent is None:
             p = df.spec.modulus
-            code = torch.from_numpy(np.asarray(self.code, np.int32)
-                                    .reshape(-1, 4)).to(device)
-            consts = torch.from_numpy(ints_to_digits(
-                [v % p * MONT_R % p for v in self.consts] or [0])).to(device)
+            code = tracing.upload("gate_tape", torch.from_numpy(
+                np.asarray(self.code, np.int32).reshape(-1, 4)), device)
+            consts = tracing.upload("gate_tape", torch.from_numpy(
+                ints_to_digits([v % p * MONT_R % p for v in self.consts]
+                               or [0])), device)
             ent = self._dev[key] = (code, consts)
         return ent
 
@@ -144,8 +150,9 @@ def _pointer_table(columns: list, device) -> torch.Tensor:
     if table is None:
         if len(_PTRS) >= 64:
             _PTRS.clear()
-        table = _PTRS[key] = torch.tensor(list(key[1]) or [0],
-                                          dtype=torch.int64).to(device)
+        table = _PTRS[key] = tracing.upload(
+            "gate_ptrs", torch.tensor(list(key[1]) or [0],
+                                      dtype=torch.int64), device)
     return table
 
 
@@ -191,5 +198,8 @@ def run_chunk(df: DeviceField, tape: GateTape, h_prev, advice: list,
                             len(fixed), yy.data_ptr(), n, rot_scale,
                             cuda_build.stream_ptr(y_m.device))
     cuda_build.check(rc, "h2t_gate_chunk")
-    LAUNCHES["gate_chunk"] += 1
+    queried = len({x for op, _, x, _ in tape.code
+                   if (op & OP_MASK) == OP_QUERY})
+    tracing.launch("gate_chunk", n, (queried + 1) * n * NLIMBS * 4,
+                   tape.muls() * n * MONT_MULADDS)
     return out

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .field_kernels import NLIMBS
 from .point_kernels import (bucket_members, ident_col, pack_affine,
                             padd_flat, padd_masked_flat, pdouble_flat,
@@ -180,7 +181,7 @@ def bucket_runs(cv_spec, digits16: torch.Tensor, c: int,
         g_starts = starts[:, sb]
         g_counts = eff_counts[:, sb]
         Ls = (g_counts + (S - 1)) // S
-        itop = torch.as_tensor(is_top, device=dev)[:, None]
+        itop = tracing.upload("msm", torch.from_numpy(is_top), dev)[:, None]
         starts_e = torch.where(itop, g_starts + ss[None, :] * Ls, starts)
         counts_e = torch.where(
             itop, torch.minimum(torch.clamp(g_counts - ss[None, :] * Ls,
@@ -246,7 +247,8 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
     for i in range(logb):
         s = 1 << i
         mask = (bidx + s < BL).expand(G, BL).reshape(-1)
-        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-s)
+        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-s,
+                               live=G * (BL - s))
     if not signed:
         acc3 = acc.view(3 * NLIMBS, G, BL).clone()
         acc3[:, :, 0] = ident[:, None]        # drop bucket 0
@@ -254,9 +256,26 @@ def msm_window_sums_many(cv_spec, df, digits16: torch.Tensor,
     for i in range(logb):
         half = BL >> (i + 1)
         mask = (bidx < half).expand(G, BL).reshape(-1)
-        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-half)
+        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-half,
+                               live=G * half)
     wsums = acc.view(3 * NLIMBS, G, BL)[:, :, 0]                 # [48, G]
     return wsums.reshape(3 * NLIMBS, m, W).permute(1, 0, 2), c
+
+
+def _round_live(counts_e: torch.Tensor, maxc: int) -> list:
+    """The projective bucket loop's live lanes in each round r < maxc,
+    those whose run is longer than r (B3's work), read back at once."""
+    hist = torch.bincount(counts_e.reshape(-1), minlength=maxc + 1)
+    return (counts_e.numel() - hist.cumsum(0)).tolist()
+
+
+def _scan_live(ds: torch.Tensor, steps: list) -> list:
+    """The segmented scan's live lanes in each step d, those d or more
+    into a run of equal digits (B3's work), read back at once."""
+    if not steps:
+        return []
+    return torch.stack([(ds[:, d:] == ds[:, :-d]).sum()
+                        for d in steps]).tolist()
 
 
 def _projective_rounds(df, pts, order, sg, starts_e, counts_e, maxc,
@@ -268,6 +287,7 @@ def _projective_rounds(df, pts, order, sg, starts_e, counts_e, maxc,
     G, n = order.shape
     lanes = starts_e.numel()
     BL = lanes // G
+    live = _round_live(counts_e, maxc)
     acc = ident[:, None].expand(3 * NLIMBS, lanes).contiguous()
     src = pts.contiguous()
     g_off = (torch.arange(G, device=dev) * n)[:, None]
@@ -288,7 +308,8 @@ def _projective_rounds(df, pts, order, sg, starts_e, counts_e, maxc,
         gidx = gidx.to(torch.int32)
         for j in range(rr.shape[0]):
             acc = padd_masked_flat(df, acc, src, valid[j], idx=gidx[j],
-                                   sign=sig[j] if sig is not None else None)
+                                   sign=sig[j] if sig is not None else None,
+                                   live=live[r0 + j])
     return acc
 
 
@@ -306,21 +327,23 @@ def _unslot(df, acc, is_top, G, BL, S, L_pow, ident):
     the identity (msm_pallas.py:400-434)."""
     dev = acc.device
     lane_mod = torch.arange(BL, device=dev) % S
-    trow = torch.as_tensor(is_top, device=dev)[:, None]
+    trow = tracing.upload("msm", torch.from_numpy(is_top), dev)[:, None]
     for i in range(int(math.log2(S))):
         h = S >> (i + 1)
         mask = (trow & (lane_mod < h)[None, :]).reshape(-1)
-        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-h)
+        acc = padd_masked_flat(df, acc, acc, mask, width=BL, shift=-h,
+                               live=int(is_top.sum()) * (BL // S) * h)
     perm = np.arange(BL)
     perm[:L_pow] = np.arange(L_pow) * S
     gidx2 = np.tile(np.arange(BL), (G, 1))
     gidx2[is_top] = perm
     gflat = (np.arange(G)[:, None] * BL + gidx2).reshape(-1)
-    acc = acc[:, torch.as_tensor(gflat, device=dev)]
+    acc = acc[:, tracing.upload("msm", torch.from_numpy(gflat), dev)]
     kill = np.zeros((G, BL), dtype=bool)
     kill[is_top] = np.arange(BL)[None, :] >= L_pow
-    return torch.where(torch.as_tensor(kill.reshape(-1), device=dev)[None],
-                       ident[:, None], acc)
+    return torch.where(
+        tracing.upload("msm", torch.from_numpy(kill.reshape(-1)), dev)[None],
+        ident[:, None], acc)
 
 
 def _segmented_scan(df, pts, ds, order, sg, ends, eff_counts, maxc_full,
@@ -330,16 +353,17 @@ def _segmented_scan(df, pts, ds, order, sg, ends, eff_counts, maxc_full,
     in ceil(log2 maxrun) rounds of one [48, G*n] masked add
     (msm_pallas.py:437-484)."""
     dev = pts.device
+    steps = [1 << i for i in range(max(0, maxc_full - 1).bit_length())]
+    live = _scan_live(ds, steps)
     cur = pts[:, order.reshape(-1)]                             # [48, G*n]
     if sg is not None:
         cur = _negate_y(df, cur, torch.gather(sg, 1, order).reshape(-1))
     pos = torch.arange(n, device=dev)[None, :]
-    d = 1
-    while d < maxc_full:
+    for d, n_live in zip(steps, live):
         same = torch.roll(ds, d, dims=1) == ds
         mask = (same & (pos >= d)).reshape(-1)
-        cur = padd_masked_flat(df, cur, cur, mask, width=n, shift=d)
-        d *= 2
+        cur = padd_masked_flat(df, cur, cur, mask, width=n, shift=d,
+                               live=n_live)
     endpos = torch.clamp(ends - 1, min=0)
     flat = (torch.arange(G, device=dev)[:, None] * n + endpos).reshape(-1)
     sums = cur[:, flat]

@@ -30,7 +30,13 @@ store and the transposes in the passes' strides: four launches a
 transform of 2^12 to 2^20 (three at 2^11), and nothing else. On the CPU
 (and as the card's oracle, `ntt_mxu_b_plain`) the steps run one stage
 at a time with the plain versions, in int64 with float64 column sums.
-`LAUNCHES` counts K1's launches, nowhere else.
+`LAUNCHES` counts K1's launches, nowhere else (tracing.launch, with a
+launch's work: a pass its elements read and written, 128 bytes each,
+its stages' packed twiddles (32 bytes each) and the packed diagonal (32
+bytes an element) where it takes it, REDC_MULADDS a butterfly of its
+stages and a product an element for the diagonal, the tensor-core digit
+products not counted; the constant product its elements read and
+written and the constants, a product an element).
 
 The bound of K1 is bytes: a pass reads and writes every element once
 (128 bytes an element) against 96 multiply-adds of reduction a product;
@@ -43,12 +49,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fields.device import DeviceField, NLIMBS, R as MONT_R, ints_to_digits
-from .field_kernels import (fmul, fmul_plain, fadd_plain, fsub_plain,
-                            redc_cols_plain, _dispatch)
+from .field_kernels import (MONT_MULADDS, fmul, fmul_plain, fadd_plain,
+                            fsub_plain, redc_cols_plain, _dispatch)
 from .ntt import NttPlan, make_plan
 
-LAUNCHES = {"mxu": 0}
+LAUNCHES = tracing.launch_counters("mxu")
 
 D8 = 2 * NLIMBS          # 32 8-bit digits per element
 COLS8 = 2 * D8 - 1       # 63 8-bit product columns
@@ -224,7 +231,8 @@ def mul_const_grouped(df: DeviceField, x: torch.Tensor,
                                consts.data_ptr(), G, nb,
                                cuda_build.stream_ptr(x.device))
     cuda_build.check(rc, "h2t_mxu_const_mul")
-    LAUNCHES["mxu"] += 1
+    tracing.launch("mxu", G * nb, (2 * G * nb + G) * NLIMBS * 4,
+                   G * nb * MONT_MULADDS)
     return out
 
 
@@ -286,15 +294,16 @@ class _Mxu4Plan:
         w^(2^i c), one field product a doubling."""
         df, p = self.df, self.df.spec.modulus
         R, C = self.R, self.C
-        rows = torch.from_numpy(ints_to_digits([MONT_R % p] * C)).to(
-            device).view(1, C, NLIMBS)
+        rows = tracing.upload("mxu_plan", torch.from_numpy(
+            ints_to_digits([MONT_R % p] * C)), device).view(1, C, NLIMBS)
         step = self.omega
         while rows.shape[0] < R:
             acc, vals = MONT_R % p, []
             for _ in range(C):
                 vals.append(acc)
                 acc = acc * step % p
-            v = torch.from_numpy(ints_to_digits(vals)).to(device)
+            v = tracing.upload("mxu_plan", torch.from_numpy(
+                ints_to_digits(vals)), device)
             rows = torch.cat([rows, fmul(df, rows, v)], dim=0)
             step = step * step % p
         return rows.reshape(self.n, NLIMBS)
@@ -383,7 +392,12 @@ def run_passes(df: DeviceField, x: torch.Tensor, plan: NttPlan,
             ps.lpc_log, n, ps.log_n, ps.a, ps.cnt, MXU_LANES_LOG, ps.s_ax,
             ps.s_ln, ps.d_ax, ps.d_ln, int(ps.gather), stream)
         cuda_build.check(rc, "h2t_mxu_pass")
-        LAUNCHES["mxu"] += 1
+        tracing.launch(
+            "mxu", m * n,
+            2 * m * n * NLIMBS * 4 + (((1 << ps.cnt) - 1) << ps.a) * 32
+            + (n * 32 if ps.diag else 0),
+            m * (n // 2) * ps.cnt * REDC_MULADDS
+            + (m * n * MONT_MULADDS if ps.diag else 0))
         src = dst
     return src
 

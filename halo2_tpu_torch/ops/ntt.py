@@ -7,7 +7,10 @@ of the TPU routine halo2_tpu/ops/pallas_field.py::ntt_pallas. On CUDA
 first with the bit-reversal gather fused into its load, each running up
 to PASS_LOG stages in shared memory. On the CPU it runs `ntt_many_plain`,
 log2(n) vectorized butterfly stages after one gather, with the plain field
-ops. `LAUNCHES` counts B7's kernel launches, nowhere else.
+ops. `LAUNCHES` counts B7's kernel launches, nowhere else
+(tracing.launch, with a pass's work: its columns read and written, 128
+bytes an element, its stages' packed twiddles read once, 32 bytes each,
+and n/2 products a stage a column).
 
 `group_ntt` (halo2_tpu/ops/ntt.py:179) runs the same stages over a [48, n]
 point batch, whose twiddle products are per-lane scalar multiplications:
@@ -21,12 +24,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fields.device import DeviceField, NLIMBS, from_mont, int_to_limbs
-from .field_kernels import (fmul, fmul_plain, fadd_plain, fsub_plain,
-                            _dispatch)
+from .field_kernels import (MONT_MULADDS, fmul, fmul_plain, fadd_plain,
+                            fsub_plain, _dispatch)
 from .point_kernels import scalar_mul_ladder_flat
 
-LAUNCHES = {"ntt": 0}
+LAUNCHES = tracing.launch_counters("ntt")
 # stages a pass runs in shared memory at most: a 2^10-element tile of 8 x
 # 32-bit limbs is 33 KB with its padding, so several blocks share an SM
 PASS_LOG = 10
@@ -101,16 +105,17 @@ class NttPlan:
         if ent is None:
             digits = np.concatenate(
                 self.twiddles or (np.zeros((0, NLIMBS), np.int32),))
-            table = torch.from_numpy(digits).to(device)
+            table = tracing.upload("ntt_plan", torch.from_numpy(digits),
+                                   device)
             stages = tuple(table[(1 << s) - 1:(1 << (s + 1)) - 1]
                            for s in range(len(self.twiddles)))
             words = (digits[:, 0::2].astype(np.uint32)
                      | (digits[:, 1::2].astype(np.uint32) << 16))
-            packed = torch.from_numpy(np.ascontiguousarray(
-                words.view(np.int32))).to(device)
+            packed = tracing.upload("ntt_plan", torch.from_numpy(
+                np.ascontiguousarray(words.view(np.int32))), device)
             ent = self._dev[device] = (
-                torch.as_tensor(self.perm, device=device), table, stages,
-                packed)
+                tracing.upload("ntt_plan", torch.as_tensor(self.perm),
+                               device), table, stages, packed)
         return ent
 
 
@@ -183,7 +188,9 @@ def ntt_many(df: DeviceField, x: torch.Tensor, plan: NttPlan
                               packed.data_ptr(), m, log_n, a, cnt, r_log,
                               int(a == 0), stream)
         cuda_build.check(rc, "h2t_ntt_pass")
-        LAUNCHES["ntt"] += 1
+        tracing.launch("ntt", m * n,
+                       m * n * 2 * NLIMBS * 4 + (((1 << cnt) - 1) << a) * 32,
+                       m * (n // 2) * cnt * MONT_MULADDS)
         src = out
     return out
 
@@ -206,7 +213,8 @@ def make_inv_plan(df: DeviceField, plan: NttPlan):
 def intt(df: DeviceField, a: torch.Tensor, inv_plan: NttPlan,
          n_inv_mont) -> torch.Tensor:
     x = ntt(df, a, inv_plan)
-    return fmul(df, x, torch.as_tensor(n_inv_mont, device=x.device))
+    return fmul(df, x, tracing.upload("intt", torch.as_tensor(n_inv_mont),
+                                      x.device))
 
 
 def group_ntt(df: DeviceField, pts: torch.Tensor, plan: NttPlan

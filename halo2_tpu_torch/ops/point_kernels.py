@@ -16,10 +16,17 @@ complete formulas for a = 0, b3 = 15 (eprint 2015/1060, Alg 7, 8 and 9).
 
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches csrc/point_kernels.cu or raises. `LAUNCHES` counts
-kernel launches. B4 and the scalar ladder run one lane on a group of four
-threads; B2, B5, B6, the GLV ladder and the bucket-run kernel too below
-lane counts set in the .cu. Their results are the same as one thread's, bit
-for bit.
+kernel launches (tracing.launch, which also records each launch's
+lanes, bytes and multiply-adds: each input read once and each output
+written once, a point 192 bytes, an affine base 128 (64 packed), a flag
+4; the formula's Montgomery products times MONT_MULADDS, 12 a complete
+add (RCB Alg 7), 11 a mixed add (Alg 8), 8 a doubling (Alg 9). Where a
+step depends on data on the card (a mask, a scalar's bits, a bucket's
+run) every lane and step counts as taken: reading the data would sync,
+and B2's and B3's bytes bound them all the same). B4 and the scalar
+ladder run one lane on a group of four threads; B2, B5, B6, the GLV
+ladder and the bucket-run kernel too below lane counts set in the .cu.
+Their results are the same as one thread's, bit for bit.
 """
 from __future__ import annotations
 
@@ -29,12 +36,15 @@ import functools
 import numpy as np
 import torch
 
-from .field_kernels import (NLIMBS, fmul_plain, fadd_plain, fsub,
-                            fsub_plain, _dispatch)
+from .. import tracing
+from .field_kernels import (MONT_MULADDS, NLIMBS, fmul_plain, fadd_plain,
+                            fsub, fsub_plain, _dispatch)
 
-LAUNCHES = {"padd_masked": 0, "pmixed_masked": 0, "pmixed_bucket_runs": 0,
-            "padd": 0, "pdouble": 0, "pdouble_masked": 0, "glv_ladder": 0,
-            "scalar_mul_ladder": 0}
+LAUNCHES = tracing.launch_counters(
+    "padd_masked", "pmixed_masked", "pmixed_bucket_runs", "padd", "pdouble",
+    "pdouble_masked", "glv_ladder", "scalar_mul_ladder")
+# bytes of a projective point, an affine base and a lane's flag
+_PT, _AFF, _FLAG = 3 * NLIMBS * 4, 2 * NLIMBS * 4, 4
 
 # where B3 reads its second operand (SrcMode in csrc/point_kernels.cu)
 _SRC_LANE, _SRC_ROLL, _SRC_INDEX = 0, 1, 2
@@ -280,11 +290,15 @@ def _arg(x):
     return x.data_ptr() if isinstance(x, torch.Tensor) else x
 
 
-def _launch(name: str, df, a: torch.Tensor, *operands) -> torch.Tensor:
+def _launch(name: str, df, a: torch.Tensor, *operands, lane_bytes: int,
+            lane_products: int, live: int | None = None,
+            dead_bytes: int = 0) -> torch.Tensor:
     """Launch the point kernel h2t_<name> over the L lanes of the [48, L]
     batch `a` into a fresh [48, L] output (never aliasing an input);
     operands are contiguous tensors on a's device, None (a null pointer)
-    or plain C arguments."""
+    or plain C arguments. The launch is recorded with lane_bytes and
+    lane_products Montgomery products for each of its `live` lanes (None:
+    all L) and dead_bytes for each other lane."""
     from . import cuda_build
     out = torch.empty_like(a)
     L = a.shape[1]
@@ -295,13 +309,16 @@ def _launch(name: str, df, a: torch.Tensor, *operands) -> torch.Tensor:
         df.field_id, out.data_ptr(), a.data_ptr(),
         *(_arg(x) for x in operands), L, cuda_build.stream_ptr(a.device))
     cuda_build.check(rc, name)
-    LAUNCHES[name] += 1
+    live = L if live is None else live
+    tracing.launch(name, L, live * lane_bytes + (L - live) * dead_bytes,
+                   live * lane_products * MONT_MULADDS)
     return out
 
 
 def padd_masked_flat(df, a: torch.Tensor, b: torch.Tensor,
                      mask: torch.Tensor, idx=None, sign=None, width=None,
-                     shift: int = 0) -> torch.Tensor:
+                     shift: int = 0, live: int | None = None
+                     ) -> torch.Tensor:
     """out[l] = mask[l] ? a[l] + b[j(l)] : a[l] on [48, L] batches (kernel
     B3 on CUDA, which reads b[j(l)] itself), where b[j(l)] is:
       - b[l] by default (b is [48, L]);
@@ -309,7 +326,13 @@ def padd_masked_flat(df, a: torch.Tensor, b: torch.Tensor,
         row of `width` lanes, as torch.roll of b.view(48, -1, width) along
         the last axis (b is [48, L]);
       - with `idx` [L] (values in [0, Lb)): lane idx[l] of b [48, Lb], its
-        Y negated where `sign` [L] is set."""
+        Y negated where `sign` [L] is set.
+    Work a live lane (its mask set): a, b[j(l)] and out (192 bytes each)
+    and the mask (4), 580 bytes, with idx and sign 8 more; 12 products. A
+    masked-off lane reads its mask and a and writes out: 388 bytes, no
+    product. `live` is the number of set mask lanes, given by a caller that
+    knows it without reading the mask back from the card; None counts
+    every lane live."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     if idx is None:
@@ -325,13 +348,19 @@ def padd_masked_flat(df, a: torch.Tensor, b: torch.Tensor,
             sign = _flags(sign, L, "sign")
     if width is not None and (width <= 0 or L % width):
         raise TypeError(f"width {width} does not divide {L} lanes")
+    if live is not None and not 0 <= live <= L:
+        raise TypeError(f"live {live} is not within 0..{L} lanes")
     if not _dispatch(a):
         return padd_masked_plain(df, a, b, mask, idx, sign, width, shift)
     mode = (_SRC_ROLL if width is not None
             else _SRC_INDEX if idx is not None else _SRC_LANE)
     return _launch("padd_masked", df, a.contiguous(), b.contiguous(),
                    _flags(mask, L, "mask"), idx, sign, mode, width or 0,
-                   shift % width if width else 0, b.shape[1])
+                   shift % width if width else 0, b.shape[1],
+                   lane_bytes=3 * _PT + _FLAG
+                   + (0 if idx is None else _FLAG)
+                   + (0 if sign is None else _FLAG),
+                   lane_products=12, live=live, dead_bytes=2 * _PT + _FLAG)
 
 
 def _pack_bits(bits):
@@ -359,13 +388,16 @@ def glv_ladder_flat(df, t1: torch.Tensor, t2: torch.Tensor, t12: torch.Tensor,
     lane count): acc = O, then for each bit pair, most significant first,
     acc = 2 acc (RCB Alg 9) and, where sel = b1 + 2 b2 != 0,
     acc = acc + {t1, t2, t12}[sel] (RCB Alg 7). bits1, bits2: equal-length
-    sequences of 0/1, at most 160."""
+    sequences of 0/1, at most 160. Work a lane: the three tables and out,
+    768 bytes; 8 products a step and 12 more a step with sel != 0."""
     _check_glv(t1, t2, t12, bits1, bits2)
     if not _dispatch(t1):
         return glv_ladder_plain(df, t1, t2, t12, bits1, bits2)
+    adds = sum(1 for b1, b2 in zip(bits1, bits2) if b1 or b2)
     return _launch("glv_ladder", df, t1.contiguous(), t2.contiguous(),
                    t12.contiguous(), _pack_bits(bits1), _pack_bits(bits2),
-                   len(bits1))
+                   len(bits1), lane_bytes=4 * _PT,
+                   lane_products=8 * len(bits1) + 12 * adds)
 
 
 def scalar_mul_ladder_flat(df, pts: torch.Tensor, digits: torch.Tensor,
@@ -375,7 +407,11 @@ def scalar_mul_ladder_flat(df, pts: torch.Tensor, digits: torch.Tensor,
     16-bit digits, and only its low nbits (1-256) bits count: acc = O, then
     per bit, most significant first, acc = 2 acc (RCB Alg 9) and, where the
     bit is set, acc = acc + pts[l] (RCB Alg 7). With lo [48, L], returns
-    the butterfly (lo + acc, lo - acc) from the same launch."""
+    the butterfly (lo + acc, lo - acc) from the same launch.
+    Work: a lane's point and result (with lo, lo read and a second result
+    written), 384 or 768 bytes, and the digits once (64 bytes a row); a
+    lane 8 products a bit and 12 an add, every bit counted as set (the
+    digits are on the card), and 24 for the butterfly."""
     L = pts.shape[1]
     _check_batch(pts, 3 * NLIMBS, L, "pts")
     if digits.dtype != torch.int32 or digits.dim() != 2 or \
@@ -399,7 +435,10 @@ def scalar_mul_ladder_flat(df, pts: torch.Tensor, digits: torch.Tensor,
             digits.data_ptr(), _arg(lo), digits.shape[0], nbits, L,
             cuda_build.stream_ptr(pts.device))
         cuda_build.check(rc, "scalar_mul_ladder")
-        LAUNCHES["scalar_mul_ladder"] += 1
+        tracing.launch(
+            "scalar_mul_ladder", L,
+            L * (2 if lo is None else 4) * _PT + digits.shape[0] * 64,
+            L * (20 * nbits + (0 if lo is None else 24)) * MONT_MULADDS)
     return out if lo is None else (out, out2)
 
 
@@ -435,7 +474,8 @@ def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,
     [32, L] affine (kernel B2 on CUDA, in the form that
     csrc/point_kernels.cu picks by lane count). Identity-coded (0, mont 1)
     bases pass the accumulator through; signs [L] selects the negated
-    base."""
+    base. Work a lane: a and out (192 bytes each), the base (128), mask
+    and sign (4 each), 520 bytes; 11 products."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     _check_batch(b_aff, 2 * NLIMBS, L, "b_aff")
@@ -444,7 +484,8 @@ def pmixed_masked_flat(df, a: torch.Tensor, b_aff: torch.Tensor,
     if not _dispatch(a):
         return pmixed_masked_plain(df, a, b_aff, mask, signs)
     return _launch("pmixed_masked", df, a.contiguous(), b_aff.contiguous(),
-                   _flags(mask, L, "mask"), _flags(signs, L, "signs"))
+                   _flags(mask, L, "mask"), _flags(signs, L, "signs"),
+                   lane_bytes=2 * _PT + _AFF + 2 * _FLAG, lane_products=11)
 
 
 def _check_bucket_runs(bases, members, starts, BL) -> None:
@@ -498,47 +539,60 @@ def pmixed_bucket_runs(df, bases: torch.Tensor, members: torch.Tensor,
     members[l // BL, starts[l]:starts[l] + counts[l]], negated where bit
     31 of m is set, from the identity and in order, with RCB Alg 8;
     identity-coded bases are skipped. bases: [n, 16] from pack_affine;
-    members: int32 [G, n] from bucket_members; starts, counts: [G * BL]."""
+    members: int32 [G, n] from bucket_members; starts, counts: [G * BL].
+    Work: every member (G n) as a packed base read (64 bytes), its entry
+    (4) and a mixed add (11 products); a lane its start and count (8) and
+    its sum (192)."""
     _check_bucket_runs(bases, members, starts, BL)
     if not _dispatch(bases):
         return pmixed_bucket_runs_plain(df, bases, members, starts, counts,
                                         BL)
     out = _launch_bucket_runs(df, bases, members, starts, counts, BL)
-    if out.shape[1]:
-        LAUNCHES["pmixed_bucket_runs"] += 1
+    L = out.shape[1]
+    if L:
+        m = members.numel()
+        tracing.launch("pmixed_bucket_runs", L,
+                       m * (64 + 4) + L * (8 + _PT),
+                       m * 11 * MONT_MULADDS)
     return out
 
 
 def padd_flat(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Complete add a + b on [48, L] batches (kernel B4 on CUDA, one lane
-    a group of four threads)."""
+    a group of four threads). Work a lane: a, b and out, 576 bytes; 12
+    products."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     _check_batch(b, 3 * NLIMBS, L, "b")
     if not _dispatch(a):
         return padd_plain(df, a, b)
-    return _launch("padd", df, a.contiguous(), b.contiguous())
+    return _launch("padd", df, a.contiguous(), b.contiguous(),
+                   lane_bytes=3 * _PT, lane_products=12)
 
 
 def pdouble_flat(df, a: torch.Tensor) -> torch.Tensor:
     """2a on a [48, L] batch, RCB Alg 9 (kernel B5 on CUDA, in the form
-    that csrc/point_kernels.cu picks by lane count)."""
+    that csrc/point_kernels.cu picks by lane count). Work a lane: a and
+    out, 384 bytes; 8 products."""
     _check_batch(a, 3 * NLIMBS, a.shape[1], "a")
     if not _dispatch(a):
         return pdouble_plain(df, a)
-    return _launch("pdouble", df, a.contiguous())
+    return _launch("pdouble", df, a.contiguous(), lane_bytes=2 * _PT,
+                   lane_products=8)
 
 
 def pdouble_masked_flat(df, a: torch.Tensor, mask: torch.Tensor
                         ) -> torch.Tensor:
     """out = mask ? 2a : a on a [48, L] batch (kernel B6 on CUDA, in the
-    form that csrc/point_kernels.cu picks by lane count)."""
+    form that csrc/point_kernels.cu picks by lane count). Work a lane: a,
+    out and the mask, 388 bytes; 8 products."""
     L = a.shape[1]
     _check_batch(a, 3 * NLIMBS, L, "a")
     if not _dispatch(a):
         return pdouble_masked_plain(df, a, mask)
     return _launch("pdouble_masked", df, a.contiguous(),
-                   _flags(mask, L, "mask"))
+                   _flags(mask, L, "mask"), lane_bytes=2 * _PT + _FLAG,
+                   lane_products=8)
 
 
 # the forms of B2, B5, B6, the GLV ladder and the bucket-run kernel by
@@ -647,7 +701,8 @@ def _ident_col_np(modulus: int) -> np.ndarray:
 
 
 def ident_col(df, device) -> torch.Tensor:
-    return torch.from_numpy(_ident_col_np(df.spec.modulus)).to(device)
+    return tracing.upload("ident", torch.from_numpy(
+        _ident_col_np(df.spec.modulus)), device)
 
 
 def mont_one(df, device) -> torch.Tensor:
@@ -670,8 +725,8 @@ def points_to_proj(df, pts, device) -> torch.Tensor:
             zs.append(one)
     from ..fields.device import ints_to_digits
     cols = [ints_to_digits(v).T for v in (xs, ys, zs)]
-    return torch.from_numpy(np.ascontiguousarray(
-        np.concatenate(cols, axis=0))).to(device)
+    return tracing.upload("points", torch.from_numpy(np.ascontiguousarray(
+        np.concatenate(cols, axis=0))), device)
 
 
 def points_from_proj(df, arr) -> list:

@@ -1,4 +1,4 @@
-"""Profiling helpers: torch.profiler traces and the kernels' roofline model.
+"""The kernels' roofline model.
 
 Port of halo2_tpu/parallel/profiling.py. The reference's model counts a
 TPU v5e's VPU lanes and reads its HBM rate from HALO2_TPU_HBM_GBPS; the
@@ -8,14 +8,12 @@ least time the card could take for a kernel's work: the larger of its
 bytes over the HBM rate and its multiply-adds over the integer rate, the
 bound every kernel's time is held against (chip_smoke.py, PERF.md).
 The reference's `compiled_bytes_accessed` (XLA's cost model) has no
-counterpart: `bandwidth_fraction` takes the caller's byte count.
+counterpart: `bandwidth_fraction` takes the caller's byte count. Each
+launch's work is recorded by halo2_tpu_torch/tracing.py.
 """
 from __future__ import annotations
 
-import contextlib
-import os
-import tempfile
-import time
+from ..ops.field_kernels import MONT_MULADDS  # noqa: F401 (re-export)
 
 # HBM rate of an NVIDIA H100 SXM at 700 W (its data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -25,31 +23,9 @@ HBM_BYTES_PER_S = 3.35e12
 # (1.6728e13 IMAD results/s; IMAD.WIDE 1.2874e13 32-bit words/s, IMAD.HI
 # 7.7605e12); a 32x32->64 product counts as two (low and high word)
 MULADD_PER_S = 16.7e12
-# multiply-adds of one Montgomery product of 8 x 32-bit limbs
-# (csrc/field.cuh::mont_mul): 64 products for a*b and 48 for the
-# reduction against the modulus's nonzero limbs, two words each
-MONT_MULADDS = 2 * 112
 # IMAD-pipe SASS instructions of one product in kernel B1 as built for
 # sm_90a (91 IMAD.WIDE, 102 IMAD.X, moves and shifts; PERF.md)
 B1_IMAD_PIPE_INSTRUCTIONS = 249
-
-
-@contextlib.contextmanager
-def trace(log_dir: str | None = None):
-    """torch.profiler over the block, CPU and (where present) CUDA
-    activity; on exit the Chrome trace is written to log_dir/trace.json
-    (a new temporary directory when log_dir is None). Yields log_dir."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    if log_dir is None:
-        log_dir = tempfile.mkdtemp(prefix="halo2_tpu_torch_trace.")
-    os.makedirs(log_dir, exist_ok=True)
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield log_dir
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def modmul_speed_of_light(muladd_per_s: float = MULADD_PER_S,
@@ -100,26 +76,3 @@ def bound_ms(nbytes: float, muladds: float,
     to = muladds / muladd_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
-
-class StageTimer:
-    """Wall-clock accounting of prover phases (the criterion-bench
-    analogue); use `with timer.stage("ntt"):` around device work."""
-
-    def __init__(self):
-        self.stages: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stages[name] = (self.stages.get(name, 0.0)
-                                 + time.perf_counter() - t0)
-
-    def report(self) -> str:
-        total = sum(self.stages.values()) or 1.0
-        lines = [f"{name:24s} {dt:8.3f}s {100*dt/total:5.1f}%"
-                 for name, dt in sorted(self.stages.items(),
-                                        key=lambda kv: -kv[1])]
-        return "\n".join(lines)

@@ -8,6 +8,7 @@ the same either way.
 """
 from __future__ import annotations
 
+from .. import tracing
 from ..poly.domain import EvaluationDomain
 from ..poly.commitment import Params, DEFAULT_BLIND
 from ..circuit.value import Value, SynthesisError
@@ -161,20 +162,37 @@ def _fixed_ints(fs, cs, assembly):
 
 
 def keygen_vk(params: Params, circuit: Circuit) -> VerifyingKey:
-    """keygen.rs:189-244."""
+    """keygen.rs:189-244. Leaves tracing.LAST_KEYGEN, which keygen_pk of
+    this vk continues: spans "keygen.layout" (synthesis, the selectors'
+    compression, the fixed columns' values), "keygen.fixed_upload",
+    "keygen.permutation" (build_vk, build_pk), "keygen.commit",
+    "keygen.extend" (the fixed and indicator columns' transforms) and
+    "keygen.indicators"."""
+    with tracing.record("keygen") as rec:
+        vk = _keygen_vk(params, circuit)
+    vk._keygen_record = rec
+    return vk
+
+
+def _keygen_vk(params: Params, circuit: Circuit) -> VerifyingKey:
     fs = params.curve.scalar
     df = params.scalar_df
     cs, domain, config = create_domain(params, type(circuit))
     if params.n < cs.minimum_rows():
         raise NotEnoughRowsAvailable(params.k)
-    assembly = Assembly(cs, params, fs)
-    _synthesize(_witness_free(circuit), config, assembly, cs.constants)
-    cs, fixed_ints = _fixed_ints(fs, cs, assembly)
-    permutation_vk = build_vk(params, domain, assembly.permutation)
-    fixed_values = [df.upload_values(col, params.device)
-                    for col in fixed_ints]
-    fixed_commitments = params.commit_many(
-        fixed_values, [DEFAULT_BLIND] * len(fixed_values), lagrange=True)
+    with tracing.span("keygen.layout"):
+        assembly = Assembly(cs, params, fs)
+        _synthesize(_witness_free(circuit), config, assembly, cs.constants)
+        cs, fixed_ints = _fixed_ints(fs, cs, assembly)
+    with tracing.span("keygen.permutation"):
+        permutation_vk = build_vk(params, domain, assembly.permutation)
+    with tracing.span("keygen.fixed_upload"):
+        fixed_values = [df.upload_values(col, params.device, site="fixed")
+                        for col in fixed_ints]
+    with tracing.span("keygen.commit"):
+        fixed_commitments = params.commit_many(
+            fixed_values, [DEFAULT_BLIND] * len(fixed_values),
+            lagrange=True)
     vk = VerifyingKey(
         curve=params.curve, domain=domain,
         fixed_commitments=fixed_commitments,
@@ -188,7 +206,15 @@ def keygen_vk(params: Params, circuit: Circuit) -> VerifyingKey:
 def keygen_pk(params: Params, vk: VerifyingKey,
               circuit: Circuit) -> ProvingKey:
     """keygen.rs:247-337 (with a fresh ConstraintSystem so queries and
-    columns match the vk's post-compression layout)."""
+    columns match the vk's post-compression layout). Its spans go to the
+    record of the keygen_vk that made vk, once; else to a new one."""
+    with tracing.record("keygen",
+                        reuse=vk.__dict__.pop("_keygen_record", None)):
+        return _keygen_pk(params, vk, circuit)
+
+
+def _keygen_pk(params: Params, vk: VerifyingKey,
+               circuit: Circuit) -> ProvingKey:
     fs = params.curve.scalar
     df = params.scalar_df
     dev = params.device
@@ -200,30 +226,39 @@ def keygen_pk(params: Params, vk: VerifyingKey,
     memo = getattr(vk, "_keygen_memo", None)
     if memo is not None and memo[0] is circuit:
         assembly, fixed_values = memo[1], memo[2]
-        cs, _ = compress_selectors(cs, assembly.selectors)
+        with tracing.span("keygen.layout"):
+            cs, _ = compress_selectors(cs, assembly.selectors)
     else:
-        assembly = Assembly(cs, params, fs)
-        _synthesize(_witness_free(circuit), config, assembly,
-                    cs.constants)
-        cs, fixed_ints = _fixed_ints(fs, cs, assembly)
-        fixed_values = [df.upload_values(col, dev) for col in fixed_ints]
+        with tracing.span("keygen.layout"):
+            assembly = Assembly(cs, params, fs)
+            _synthesize(_witness_free(circuit), config, assembly,
+                        cs.constants)
+            cs, fixed_ints = _fixed_ints(fs, cs, assembly)
+        with tracing.span("keygen.fixed_upload"):
+            fixed_values = [df.upload_values(col, dev, site="fixed")
+                            for col in fixed_ints]
 
     n = params.n
     blinding_factors = cs.blinding_factors()
-    fixed_polys, fixed_cosets = domain.lagrange_to_coeff_extended_many(
-        fixed_values)
-    permutation_pk = build_pk(params, domain, assembly.permutation)
+    with tracing.span("keygen.extend"):
+        fixed_polys, fixed_cosets = domain.lagrange_to_coeff_extended_many(
+            fixed_values)
+    with tracing.span("keygen.permutation"):
+        permutation_pk = build_pk(params, domain, assembly.permutation)
 
     def indicator(rows: list[int]):
         vals = [0] * n
         for r in rows:
             vals[r] = 1
-        return df.upload_values(vals, dev)
+        return df.upload_values(vals, dev, site="indicators")
 
-    _, (l0, l_blind, l_last) = domain.lagrange_to_coeff_extended_many([
-        indicator([0]),
-        indicator(list(range(n - blinding_factors, n))),
-        indicator([n - blinding_factors - 1])])
+    with tracing.span("keygen.indicators"):
+        columns = [indicator([0]),
+                   indicator(list(range(n - blinding_factors, n))),
+                   indicator([n - blinding_factors - 1])]
+    with tracing.span("keygen.extend"):
+        _, (l0, l_blind, l_last) = domain.lagrange_to_coeff_extended_many(
+            columns)
     return ProvingKey(
         vk=vk, l0=l0, l_blind=l_blind, l_last=l_last,
         l_active_row_info=(blinding_factors,),

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fields.device import (DeviceField, NLIMBS, LIMB_BITS, batch_inv,
                              running_product, from_mont, to_mont,
                              digits_to_ints, ints_to_digits)
@@ -153,7 +154,8 @@ def permute_pair_ranks(df: DeviceField, input_mont: torch.Tensor,
     rep_digits = torch.empty((rep.shape[0], NLIMBS), dtype=union.dtype,
                              device=dev)
     rep_digits[ranks] = union              # every row of a rank is equal
-    sent = torch.tensor(2 * u, dtype=torch.int64, device=dev)
+    sent = tracing.upload("lookup", torch.tensor(2 * u, dtype=torch.int64),
+                          dev)
 
     in_ranks = torch.sort(ranks[:u]).values            # sorted input
     tab_ranks = torch.sort(ranks[u:]).values
@@ -266,8 +268,10 @@ def permute_expression_pair(cs: ConstraintSystem, params, rng,
     dev = input_values.device
     pi_blinds = [fs.rand(rng) for _ in range(blinding_factors + 1)]
     pt_blinds = [fs.rand(rng) for _ in range(blinding_factors + 1)]
-    return (torch.cat([pi_body, df.upload_values(pi_blinds, dev)], dim=0),
-            torch.cat([pt_body, df.upload_values(pt_blinds, dev)], dim=0))
+    blinds = [df.upload_values(b, dev, site="lookup_blinds")
+              for b in (pi_blinds, pt_blinds)]
+    return (torch.cat([pi_body, blinds[0]], dim=0),
+            torch.cat([pt_body, blinds[1]], dim=0))
 
 
 def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
@@ -302,7 +306,7 @@ def lookup_commit_product(permuted: Permuted, cs: ConstraintSystem, params,
     blinds = [fs.rand(rng) for _ in range(blinding_factors)]
     z = work.put_rows(work.roll_rows(incl, 1), 0, df.scalar(1, dev)[None])
     z = work.put_rows(z, n - blinding_factors,
-                      df.upload_values(blinds, dev))
+                      df.upload_values(blinds, dev, site="lookup_blinds"))
     if sanity:
         check_lookup_product(df, z, n - (blinding_factors + 1), work)
     if narrow:

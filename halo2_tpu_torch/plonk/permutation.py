@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fields.device import (DeviceField, NLIMBS, batch_inv,
                              running_product)
 from ..ops.field_kernels import fadd, fsub, fmul
@@ -91,8 +92,9 @@ class PermutationAssembly:
         delta_pow = powers(df, df.spec.delta, m, dev)             # [m, 16]
         flat = fmul(df, delta_pow[:, None, :],
                     omega_pow[None, :, :]).reshape(-1, NLIMBS)
-        return [flat.index_select(0, torch.as_tensor(
-                    self.map_col[i] * n + self.map_row[i], device=dev))
+        return [flat.index_select(0, tracing.upload(
+                    "sigma_index", torch.as_tensor(
+                        self.map_col[i] * n + self.map_row[i]), dev))
                 for i in range(m)]
 
 
@@ -206,13 +208,14 @@ def permutation_commit(cs: ConstraintSystem, params, domain,
         deltas = [beta * pow(df.spec.delta, global_col + j, p) % p
                   for j in range(cl)]
         global_col += cl
-        deltas_m = torch.from_numpy(df.to_mont_np(deltas)).to(dev)
+        deltas_m = tracing.upload(
+            "permutation", torch.from_numpy(df.to_mont_np(deltas)), dev)
         z = _z_chunk(df, work, take(vals), take(sigs), beta_m, gamma_m,
                      df.scalar(last_z, dev), deltas_m, omega_pow)
         # blinding rows
         blinds = [fs.rand(rng) for _ in range(blinding_factors)]
-        z = work.put_rows(z, n - blinding_factors, torch.from_numpy(
-            df.to_mont_np(blinds)).to(dev))
+        z = work.put_rows(z, n - blinding_factors, tracing.upload(
+            "permutation", torch.from_numpy(df.to_mont_np(blinds)), dev))
         last_z = int(df.from_mont_np(
             work.fetch_row(z, n - (blinding_factors + 1))))
         z_arrays.append(work.gather_rows(z) if narrow else z)

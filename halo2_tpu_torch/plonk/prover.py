@@ -39,10 +39,10 @@ different RNGs or inputs).
 from __future__ import annotations
 
 import hashlib
-import time
 
 import torch
 
+from .. import tracing
 from ..ops.field_kernels import fadd, fmul
 from ..ops.gate_kernels import run_chunk
 from ..parallel import context
@@ -66,29 +66,8 @@ from .vanishing import (vanishing_commit, vanishing_construct,
                         vanishing_evaluate)
 
 
-class PhaseTimer:
-    """Wall-clock per prover phase. The device queue is drained at every
-    lap (torch.cuda.synchronize) so each phase owns the kernels it
-    launched. `laps` keeps (name, seconds)."""
-
-    def __init__(self, device):
-        self.device = device
-        self.laps: list = []
-        self._sync()
-        self.t = time.perf_counter()
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def lap(self, name: str) -> None:
-        self._sync()
-        now = time.perf_counter()
-        self.laps.append((name, now - self.t))
-        self.t = now
-
-
-# The last create_proof's phase split, for benchmarks and chip_smoke.py.
+# The last create_proof's phase split [(name, seconds)], its synced laps
+# (tracing.PhaseTimer), for benchmarks and chip_smoke.py.
 LAST_PHASES: list = []
 
 
@@ -340,7 +319,18 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     permutation product telescope; a failed check raises AssertionError.
     The proof is the same with them on. `h_chunk_nodes` > 0 folds the
     gates in chunks of at most that many expression nodes, one kernel
-    launch a chunk (_gates_h_fold); the proof is the same."""
+    launch a chunk (_gates_h_fold); the proof is the same.
+
+    Each proof leaves a record in tracing.PROOFS, raised or not: its
+    synced phase laps (LAST_PHASES on success), spans, counters and
+    kernel launches."""
+    with tracing.record("proof"):
+        _create_proof(params, pk, circuits, instances, rng, transcript,
+                      native_ipa_threshold, sanity, h_chunk_nodes)
+
+
+def _create_proof(params, pk, circuits, instances, rng, transcript,
+                  native_ipa_threshold, sanity, h_chunk_nodes) -> None:
     if len(circuits) != len(instances):
         raise ValueError("circuits/instances length mismatch")
     cs = pk.vk.cs
@@ -354,7 +344,8 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     lay_out_pk(pk, rows)
     start, count = rows.row_span(n)
 
-    prof = PhaseTimer(dev)
+    prof = tracing.PhaseTimer(dev)
+    prof.phase("instance commit+ntt")
     pk.vk.hash_into(transcript)
 
     # ---- instance commitments (common inputs) + polys + cosets ----
@@ -368,7 +359,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
                 raise ValueError("InstanceTooLarge")
             padded = list(values) + [0] * (n - len(values))
             values_l.append(df.upload_values(padded[start:start + count],
-                                             dev))
+                                             dev, site="instance"))
         commitments = params.commit_many(
             values_l, [DEFAULT_BLIND] * len(values_l), lagrange=True,
             rows=rows)
@@ -378,12 +369,14 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             transcript.common_point(c)
         instance_singles.append(
             {"values": values_l, "polys": polys_l, "cosets": cosets_l})
-    prof.lap("instance commit+ntt")
 
     # ---- witness synthesis + advice commitments ----
+    # (a circuit's transforms lap with the next one's synthesis, the last
+    # one's as "advice: ntt+extend")
     unusable_rows_start = n - (cs.blinding_factors() + 1)
     advice_singles = []
-    for circuit, inst in zip(circuits, instances):
+    prof.phase("advice: synthesis" if circuits else "advice: ntt+extend")
+    for i, (circuit, inst) in enumerate(zip(circuits, instances)):
         witness_cs = ConstraintSystem()
         config = type(circuit).configure(witness_cs)
         witness = WitnessCollection(witness_cs, fs, n, params.k, inst,
@@ -394,7 +387,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             plan_cache = pk._synth_plan = {}
         synthesize_circuit(witness, circuit, config, witness_cs.constants,
                            plan_cache=plan_cache)
-        prof.lap("advice: synthesis")
+        prof.phase("advice: commit")
 
         advice_cols = []
         for col in witness.advice:
@@ -402,17 +395,18 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             for row in range(unusable_rows_start, n):   # blinding rows
                 ints[row] = fs.rand(rng)
             advice_cols.append(df.upload_values(ints[start:start + count],
-                                                dev))
+                                                dev, site="advice"))
         advice_blinds = [fs.rand(rng) for _ in advice_cols]
         for pt in params.commit_many(advice_cols, advice_blinds,
                                      lagrange=True, rows=rows):
             transcript.write_point(pt)
-        prof.lap("advice: commit")
+        prof.phase("advice: synthesis" if i + 1 < len(circuits)
+                   else "advice: ntt+extend")
         polys, cosets = domain.lagrange_to_coeff_extended_many(advice_cols,
                                                                rows)
         advice_singles.append({"values": advice_cols, "polys": polys,
                                "cosets": cosets, "blinds": advice_blinds})
-    prof.lap("advice: ntt+extend")
+    prof.phase("lookup permuted")
     theta = transcript.squeeze_challenge()
 
     # ---- lookups: permuted commitments ----
@@ -423,7 +417,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
                                 sanity=sanity, rows=rows)
          for argument in cs.lookups]
         for inst_s, adv_s in zip(instance_singles, advice_singles)]
-    prof.lap("lookup permuted")
+    prof.phase("permutation z")
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
 
@@ -434,7 +428,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
             cs, params, domain, pk.permutation,
             adv_s["values"], pk.fixed_values, inst_s["values"],
             beta, gamma, rng, transcript, sanity=sanity, rows=rows))
-    prof.lap("permutation z")
+    prof.phase("lookup products")
 
     # ---- lookups: product commitments ----
     lookups_committed = [
@@ -442,16 +436,17 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
                                rng, transcript, sanity=sanity, rows=rows)
          for permuted in per_instance]
         for per_instance in lookups_permuted]
-    prof.lap("lookup products")
+    prof.phase("vanishing random")
 
     # ---- vanishing: random poly ----
     vanishing = vanishing_commit(params, domain, rng, transcript, rows)
-    prof.lap("vanishing random")
+    prof.phase("h terms build")
     y = transcript.squeeze_challenge()
 
     # ---- h(X): streamed y-fold of the constraint terms (the reference's
     # evaluator folds incrementally too, poly/evaluator.rs:210-227) ----
-    coset_pts = coset_points(domain, rows)
+    with tracing.span("h.coset_points"):
+        coset_pts = coset_points(domain, rows)
     rot_scale = 1 << (domain.extended_k - domain.k)
     ext_n = domain.extended_n
     y_m = df.scalar(y, dev)
@@ -459,28 +454,32 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     for inst_s, adv_s, perm_sets, lk_committed in zip(
             instance_singles, advice_singles, permutations_committed,
             lookups_committed):
-        h_acc = _gates_h_fold(pk, cs, df, rot_scale, ext_n, y, y_m, h_acc,
-                              adv_s["cosets"], pk.fixed_cosets,
-                              inst_s["cosets"], h_chunk_nodes, rows)
-        terms = permutation_h_terms(
-            cs, domain, pk.permutation, perm_sets,
-            adv_s["cosets"], pk.fixed_cosets, inst_s["cosets"],
-            pk.l0, pk.l_blind, pk.l_last, coset_pts, beta, gamma, rows)
-        for committed in lk_committed:
-            terms += lookup_h_terms(
-                committed, domain, theta, beta, gamma, adv_s["cosets"],
-                pk.fixed_cosets, inst_s["cosets"], pk.l0, pk.l_blind,
-                pk.l_last, rows)
-        for term in terms:
-            h_acc = term if h_acc is None else fadd(
-                df, fmul(df, h_acc, y_m), term)
+        with tracing.span("h.gates"):
+            h_acc = _gates_h_fold(pk, cs, df, rot_scale, ext_n, y, y_m,
+                                  h_acc, adv_s["cosets"], pk.fixed_cosets,
+                                  inst_s["cosets"], h_chunk_nodes, rows)
+        with tracing.span("h.permutation"):
+            terms = permutation_h_terms(
+                cs, domain, pk.permutation, perm_sets,
+                adv_s["cosets"], pk.fixed_cosets, inst_s["cosets"],
+                pk.l0, pk.l_blind, pk.l_last, coset_pts, beta, gamma, rows)
+        with tracing.span("h.lookups"):
+            for committed in lk_committed:
+                terms += lookup_h_terms(
+                    committed, domain, theta, beta, gamma, adv_s["cosets"],
+                    pk.fixed_cosets, inst_s["cosets"], pk.l0, pk.l_blind,
+                    pk.l_last, rows)
+        with tracing.span("h.fold"):
+            for term in terms:
+                h_acc = term if h_acc is None else fadd(
+                    df, fmul(df, h_acc, y_m), term)
     h_terms = ([] if h_acc is None
                else [h_acc.expand(rows.row_span(ext_n)[1],
                                   h_acc.shape[-1]).contiguous()])
-    prof.lap("h terms build")
+    prof.phase("vanishing construct (h commit)")
     constructed = vanishing_construct(vanishing, params, domain, h_terms, y,
                                       rng, transcript, rows)
-    prof.lap("vanishing construct (h commit)")
+    prof.phase("evals")
     x = transcript.squeeze_challenge()
     xn = pow(x, n, fs.modulus)
 
@@ -520,30 +519,31 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
     memo.compute()
     ev = memo.ev
 
-    for inst_s in instance_singles:
-        for column, at in cs.instance_queries:
+    with tracing.span("evals.write"):
+        for inst_s in instance_singles:
+            for column, at in cs.instance_queries:
+                transcript.write_scalar(
+                    ev(inst_s["polys"][column.index],
+                       domain.rotate_omega(x, at.value)))
+        for adv_s in advice_singles:
+            for column, at in cs.advice_queries:
+                transcript.write_scalar(
+                    ev(adv_s["polys"][column.index],
+                       domain.rotate_omega(x, at.value)))
+        for column, at in cs.fixed_queries:
             transcript.write_scalar(
-                ev(inst_s["polys"][column.index],
+                ev(pk.fixed_polys[column.index],
                    domain.rotate_omega(x, at.value)))
-    for adv_s in advice_singles:
-        for column, at in cs.advice_queries:
-            transcript.write_scalar(
-                ev(adv_s["polys"][column.index],
-                   domain.rotate_omega(x, at.value)))
-    for column, at in cs.fixed_queries:
-        transcript.write_scalar(
-            ev(pk.fixed_polys[column.index],
-               domain.rotate_omega(x, at.value)))
-    h_poly, h_blind = vanishing_evaluate(constructed, params, x, xn,
-                                         transcript, eval_fn=ev)
-    permutation_pk_evaluate(pk.permutation, df, x, transcript, eval_fn=ev)
-    for perm_sets in permutations_committed:
-        permutation_evaluate(perm_sets, domain, cs, x, df, transcript,
-                             eval_fn=ev)
-    for lk_committed in lookups_committed:
-        for committed in lk_committed:
-            lookup_evaluate(committed, domain, x, transcript, ev)
-    prof.lap("evals")
+        h_poly, h_blind = vanishing_evaluate(constructed, params, x, xn,
+                                             transcript, eval_fn=ev)
+        permutation_pk_evaluate(pk.permutation, df, x, transcript, eval_fn=ev)
+        for perm_sets in permutations_committed:
+            permutation_evaluate(perm_sets, domain, cs, x, df, transcript,
+                                 eval_fn=ev)
+        for lk_committed in lookups_committed:
+            for committed in lk_committed:
+                lookup_evaluate(committed, domain, x, transcript, ev)
+    prof.phase("multiopen+ipa")
 
     # ---- multiopen queries (prover.rs:676-724) ----
     queries: list[ProverQuery] = []
@@ -594,7 +594,7 @@ def create_proof(params: Params, pk: ProvingKey, circuits: list[Circuit],
 
     multiopen_create_proof(params, rng, transcript, queries,
                            native_ipa_threshold, rows)
-    prof.lap("multiopen+ipa")
+    prof.close()
     if ctx is not None:
         check_ranks_agree(ctx, transcript.finalize())
     LAST_PHASES[:] = prof.laps

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import tracing
 from ..ops.field_kernels import fadd, fmul
 from ..parallel.context import WHOLE
 from ..poly.utils import distribute_powers, eval_poly
@@ -35,15 +36,19 @@ class VanishingConstructed:
 
 def vanishing_commit(params, domain, rng, transcript, rows=WHOLE
                      ) -> VanishingCommitted:
-    """Random degree n-1 poly + blind (vanishing/prover.rs:38-60)."""
+    """Random degree n-1 poly + blind (vanishing/prover.rs:38-60). Spans:
+    "vanishing.draw" (the host draw and upload), "vanishing.commit"."""
     df = params.scalar_df
     fs = params.curve.scalar
-    vals = [fs.rand(rng) for _ in range(params.n)]
-    start, count = rows.row_span(params.n)
-    random_poly = df.upload_values(vals[start:start + count], params.device)
-    random_blind = fs.rand(rng)
-    (commitment,) = params.commit_many([random_poly], [random_blind],
-                                       lagrange=False, rows=rows)
+    with tracing.span("vanishing.draw"):
+        vals = [fs.rand(rng) for _ in range(params.n)]
+        start, count = rows.row_span(params.n)
+        random_poly = df.upload_values(vals[start:start + count],
+                                       params.device, site="vanishing")
+        random_blind = fs.rand(rng)
+    with tracing.span("vanishing.commit"):
+        (commitment,) = params.commit_many([random_poly], [random_blind],
+                                           lagrange=False, rows=rows)
     transcript.write_point(commitment)
     return VanishingCommitted(random_poly=random_poly,
                               random_blind=random_blind)

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..fields.host import FieldSpec, batch_invert
 from ..fields.device import (DeviceField, NLIMBS, digits_to_ints, from_mont,
@@ -109,7 +110,8 @@ def _device_group_intt(curve: CurveSpec, g_dev: torch.Tensor, omega_inv: int,
     device = g_dev.device
     plan = make_plan(DeviceField(curve.scalar), g_dev.shape[1], omega_inv)
     pts = group_ntt(base_df, g_dev, plan)
-    scale = torch.from_numpy(ints_to_digits([minv])).to(device)
+    scale = tracing.upload("srs_scale", torch.from_numpy(
+        ints_to_digits([minv])), device)
     x, y, inf = normalize(base_df, batch_scalar_mul(base_df, pts, scale,
                                                     nbits=255))
     z = torch.where(inf[:, None], torch.zeros_like(x),
@@ -160,16 +162,27 @@ class Params:
         build or launch raises), on the CPU in the native library, else a
         host group iNTT. With use_cache, read from and written to
         .srs_cache/{curve}_{k}.params at the repository root, the
-        reference's cache (halo2_tpu/poly/commitment.py:62-88)."""
-        device = resolve_device(device)
+        reference's cache (halo2_tpu/poly/commitment.py:62-88). Leaves
+        tracing.LAST_PARAMS: the span "params.new" and the counters
+        "srs_cache.hit" and "srs_cache.miss" (use_cache only)."""
+        with tracing.record("params"), tracing.span("params.new"):
+            return cls._new(curve, k, resolve_device(device), use_cache)
+
+    @classmethod
+    def _new(cls, curve: CurveSpec, k: int, device, use_cache: bool
+             ) -> "Params":
         cache = os.path.join(_SRS_CACHE, f"{curve.name}_{k}.params")
         if use_cache and os.path.exists(cache):
             with open(cache, "rb") as fh:
                 data = fh.read()
             try:
-                return cls.read(curve, data, device)
+                params = cls.read(curve, data, device)
+                tracing.count("srs_cache.hit")
+                return params
             except ValueError:
                 pass    # a file another process is still writing: rebuild
+        if use_cache:
+            tracing.count("srs_cache.miss")
         n = 1 << k
         g = native.native_srs_g(curve, "Halo2-Parameters", n)
         if g is False:
@@ -447,7 +460,11 @@ def ipa_create_proof(params: Params, rng, transcript,
     half > native_ipa_threshold run on the device too, each fold fused
     with the next round's L/R, and the rest in one native session that
     takes over the folded state (the reference's hybrid loop,
-    halo2_tpu/poly/commitment.py:657-739)."""
+    halo2_tpu/poly/commitment.py:657-739). Spans: "ipa.s_poly" (S drawn,
+    its value at x3, its upload and commit), "ipa.p_prime", "ipa.b_powers",
+    "ipa.device" (the device rounds), "ipa.native" (the session's start,
+    every round and fold, final_c) and "ipa.blind" (L and R blinded and
+    written, each round's challenge)."""
     df = params.scalar_df
     fs = params.curve.scalar
     n, k = params.n, params.k
@@ -456,25 +473,29 @@ def ipa_create_proof(params: Params, rng, transcript,
     assert p_poly_mont.shape[0] == n
 
     # random poly S with a root at x3 (prover.rs:45-58)
-    s_vals = [fs.rand(rng) for _ in range(n)]
-    s_at_x3 = 0
-    for v in reversed(s_vals):
-        s_at_x3 = (s_at_x3 * x3 + v) % q
-    s_vals[0] = (s_vals[0] - s_at_x3) % q
-    s_poly = df.upload_values(s_vals, dev)
-    s_blind = fs.rand(rng)
-    transcript.write_point(params.commit(s_poly, s_blind))
+    with tracing.span("ipa.s_poly"):
+        s_vals = [fs.rand(rng) for _ in range(n)]
+        s_at_x3 = 0
+        for v in reversed(s_vals):
+            s_at_x3 = (s_at_x3 * x3 + v) % q
+        s_vals[0] = (s_vals[0] - s_at_x3) % q
+        s_poly = df.upload_values(s_vals, dev, site="ipa_s_poly")
+        s_blind = fs.rand(rng)
+        transcript.write_point(params.commit(s_poly, s_blind))
 
     xi = transcript.squeeze_challenge()
     z = transcript.squeeze_challenge()
 
     # P' = xi S + P, minus v = P'(x3) in the constant term (prover.rs:69-78)
-    p_prime = fadd(df, fmul(df, s_poly, df.scalar(xi, dev)), p_poly_mont)
-    v = eval_poly(df, p_prime, x3)
-    p_prime = torch.cat([fsub(df, p_prime[0:1], df.scalar(v, dev)),
-                         p_prime[1:]], dim=0)
+    with tracing.span("ipa.p_prime"):
+        p_prime = fadd(df, fmul(df, s_poly, df.scalar(xi, dev)),
+                       p_poly_mont)
+        v = eval_poly(df, p_prime, x3)
+        p_prime = torch.cat([fsub(df, p_prime[0:1], df.scalar(v, dev)),
+                             p_prime[1:]], dim=0)
     f = (s_blind * xi + p_blind) % q
-    b = powers(df, x3, n, dev)
+    with tracing.span("ipa.b_powers"):
+        b = powers(df, x3, n, dev)
 
     sess = None     # the native session, once the rounds are handed over
     g_prime = None  # [48, 2 half] device G' while rounds run on the card
@@ -483,38 +504,49 @@ def ipa_create_proof(params: Params, rng, transcript,
     for j in range(k):
         half = 1 << (k - j - 1)
         if sess is None and half <= native_ipa_threshold:
-            sess = _start_native_ipa(params, p_prime, b, g_prime)
+            with tracing.span("ipa.native"):
+                sess = _start_native_ipa(params, p_prime, b, g_prime)
         if sess is not None:
-            l_pt, r_pt, value_l, value_r = sess.round()
+            with tracing.span("ipa.native"):
+                l_pt, r_pt, value_l, value_r = sess.round()
         elif j == 0:
             g_prime = params.g_dev
-            l_pt, r_pt, value_l, value_r = ipa_device_lr(
-                params, p_prime, b, g_prime)
+            with tracing.span("ipa.device"):
+                l_pt, r_pt, value_l, value_r = ipa_device_lr(
+                    params, p_prime, b, g_prime)
         else:
             l_pt, r_pt, value_l, value_r = dev_lr
-        l_rand = fs.rand(rng)
-        r_rand = fs.rand(rng)
-        # L_j += [v_l z] U + [l_rand] W
-        l_pt = cur.add(l_pt, cur.add(cur.mul(params.u, value_l * z % q),
-                                     cur.mul(params.w, l_rand)))
-        r_pt = cur.add(r_pt, cur.add(cur.mul(params.u, value_r * z % q),
-                                     cur.mul(params.w, r_rand)))
-        transcript.write_point(l_pt)
-        transcript.write_point(r_pt)
-        u_j = transcript.squeeze_challenge()
-        u_j_inv = fs.inv(u_j)
+        with tracing.span("ipa.blind"):
+            l_rand = fs.rand(rng)
+            r_rand = fs.rand(rng)
+            # L_j += [v_l z] U + [l_rand] W
+            l_pt = cur.add(l_pt, cur.add(
+                cur.mul(params.u, value_l * z % q),
+                cur.mul(params.w, l_rand)))
+            r_pt = cur.add(r_pt, cur.add(
+                cur.mul(params.u, value_r * z % q),
+                cur.mul(params.w, r_rand)))
+            transcript.write_point(l_pt)
+            transcript.write_point(r_pt)
+            u_j = transcript.squeeze_challenge()
+            u_j_inv = fs.inv(u_j)
         if sess is not None:
-            sess.fold(u_j, u_j_inv)
+            with tracing.span("ipa.native"):
+                sess.fold(u_j, u_j_inv)
         else:
             # no fused next-round L/R when that round runs natively
             next_native = half // 2 <= native_ipa_threshold
-            p_prime, b, g_prime, *dev_lr = ipa_device_fold_lr(
-                params, p_prime, b, g_prime, half, u_j, u_j_inv,
-                with_lr=not next_native)
+            with tracing.span("ipa.device"):
+                p_prime, b, g_prime, *dev_lr = ipa_device_fold_lr(
+                    params, p_prime, b, g_prime, half, u_j, u_j_inv,
+                    with_lr=not next_native)
         f = (f + l_rand * u_j_inv + r_rand * u_j) % q
 
-    c = (sess.final_c() if sess is not None
-         else int(df.from_mont_np(p_prime[0])))
+    if sess is not None:
+        with tracing.span("ipa.native"):
+            c = sess.final_c()
+    else:
+        c = int(df.from_mont_np(p_prime[0]))
     transcript.write_scalar(c)
     transcript.write_scalar(f)
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fields.device import DeviceField, NLIMBS, int_to_limbs
 from ..ops.field_kernels import fmul
 from ..ops.mxu_field import ntt_mxu_b
@@ -128,7 +129,8 @@ class EvaluationDomain:
         self._mesh_plan_cache: dict = {}
 
     def _upload_mont(self, digits: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(digits)).to(self.device)
+        return tracing.upload("domain", torch.from_numpy(
+            np.ascontiguousarray(digits)), self.device)
 
     # ---------------- mesh-sharded transforms ----------------
     def _mesh_ctx(self):

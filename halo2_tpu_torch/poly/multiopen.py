@@ -21,6 +21,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..fields.host import FieldSpec
 from ..fields.device import NLIMBS
 from ..ops.field_kernels import fadd, fmul
@@ -152,7 +153,12 @@ def multiopen_create_proof(params: Params, rng, transcript,
     ipa_create_proof's. With `rows` a ProverMesh the queried polys are
     the rank's rows: each point set's q poly, a linear combination, is
     formed on them and gathered whole (one all_gather a point set), and
-    the Kate divisions and the IPA run on whole polys."""
+    the Kate divisions and the IPA run on whole polys. Spans:
+    "multiopen.q_polys" (the linear combinations and gathers),
+    "multiopen.kate" (the chained Kate divisions, their powers tables
+    included, and the x2 fold), "multiopen.commit" (q'),
+    "multiopen.evals" (the q polys at x3), "multiopen.p_poly" (the x4
+    fold), then ipa_create_proof's."""
     df = params.scalar_df
     fs = params.curve.scalar
     n = params.n
@@ -168,48 +174,53 @@ def multiopen_create_proof(params: Params, rng, transcript,
     poly_map, point_sets = result
 
     dev = queries[0].poly.device
-    x1_m = df.scalar(x1, dev)
-    q_polys: list = [None] * len(point_sets)
-    q_blinds = [0] * len(point_sets)
-    for cdata in poly_map:
-        q: ProverQuery = cdata.commitment
-        si = cdata.set_index
-        if q_polys[si] is None:
-            q_polys[si] = q.poly
-        else:
-            q_polys[si] = fadd(df, fmul(df, q_polys[si], x1_m), q.poly)
-        q_blinds[si] = (q_blinds[si] * x1 + q.blind) % fs.modulus
-    q_polys = [rows.gather_rows(qp) for qp in q_polys]
+    with tracing.span("multiopen.q_polys"):
+        x1_m = df.scalar(x1, dev)
+        q_polys: list = [None] * len(point_sets)
+        q_blinds = [0] * len(point_sets)
+        for cdata in poly_map:
+            q: ProverQuery = cdata.commitment
+            si = cdata.set_index
+            if q_polys[si] is None:
+                q_polys[si] = q.poly
+            else:
+                q_polys[si] = fadd(df, fmul(df, q_polys[si], x1_m), q.poly)
+            q_blinds[si] = (q_blinds[si] * x1 + q.blind) % fs.modulus
+        q_polys = [rows.gather_rows(qp) for qp in q_polys]
 
     # q'(X): chained Kate divisions per point set, folded with x2
-    x2_m = df.scalar(x2, dev)
-    q_prime = None
-    for points, qp in zip(point_sets, q_polys):
-        poly = qp
-        for point in points:
-            poly = kate_division(df, poly, point)
-        pad = torch.zeros((n - poly.shape[0], NLIMBS), dtype=poly.dtype,
-                          device=dev)
-        poly = torch.cat([poly, pad], dim=0)
-        if q_prime is None:
-            q_prime = poly
-        else:
-            q_prime = fadd(df, fmul(df, q_prime, x2_m), poly)
+    with tracing.span("multiopen.kate"):
+        x2_m = df.scalar(x2, dev)
+        q_prime = None
+        for points, qp in zip(point_sets, q_polys):
+            poly = qp
+            for point in points:
+                poly = kate_division(df, poly, point)
+            pad = torch.zeros((n - poly.shape[0], NLIMBS), dtype=poly.dtype,
+                              device=dev)
+            poly = torch.cat([poly, pad], dim=0)
+            if q_prime is None:
+                q_prime = poly
+            else:
+                q_prime = fadd(df, fmul(df, q_prime, x2_m), poly)
 
-    q_prime_blind = fs.rand(rng)
-    transcript.write_point(params.commit(q_prime, q_prime_blind))
+    with tracing.span("multiopen.commit"):
+        q_prime_blind = fs.rand(rng)
+        transcript.write_point(params.commit(q_prime, q_prime_blind))
 
     x3 = transcript.squeeze_challenge()
-    for ev in batch_eval_polys(df, [(qp, x3) for qp in q_polys]):
-        transcript.write_scalar(ev)
+    with tracing.span("multiopen.evals"):
+        for ev in batch_eval_polys(df, [(qp, x3) for qp in q_polys]):
+            transcript.write_scalar(ev)
 
     x4 = transcript.squeeze_challenge()
-    x4_m = df.scalar(x4, dev)
-    p_poly = q_prime
-    p_blind = q_prime_blind
-    for qp, blind in zip(q_polys, q_blinds):
-        p_poly = fadd(df, fmul(df, p_poly, x4_m), qp)
-        p_blind = (p_blind * x4 + blind) % fs.modulus
+    with tracing.span("multiopen.p_poly"):
+        x4_m = df.scalar(x4, dev)
+        p_poly = q_prime
+        p_blind = q_prime_blind
+        for qp, blind in zip(q_polys, q_blinds):
+            p_poly = fadd(df, fmul(df, p_poly, x4_m), qp)
+            p_blind = (p_blind * x4 + blind) % fs.modulus
 
     ipa_create_proof(params, rng, transcript, p_poly, p_blind, x3,
                      native_ipa_threshold)

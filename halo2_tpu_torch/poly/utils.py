@@ -16,6 +16,7 @@ from ..fields.device import (DeviceField, NLIMBS, R, running_sum,
                              digits_to_ints, ints_to_digits)
 from ..ops.field_kernels import fmul, fadd
 from ..parallel.context import WHOLE
+from .. import tracing
 
 _POWERS_CACHE: dict = {}  # (modulus, x, n, device) -> tensor
 
@@ -24,19 +25,26 @@ def powers(df: DeviceField, x: int, n: int, device, start: int = 1
            ) -> torch.Tensor:
     """[start, start*x, ..., start*x^{n-1}] as [n, 16] Montgomery digits,
     by a host bigint recurrence (the domain's omega/zeta tables recur in
-    keygen and every proof, so they are cached)."""
+    keygen and every proof, so they are cached). Counted: "powers.hit",
+    "powers.miss" and the rows of each miss, "powers.rows"; a miss is the
+    span "powers.build", its upload included."""
     p = df.spec.modulus
     device = torch.device(device)
     key = (p, x % p, n, start % p, device)
     hit = _POWERS_CACHE.get(key)
     if hit is not None:
+        tracing.count("powers.hit")
         return hit
-    acc = start % p * R % p
-    vals = []
-    for _ in range(n):
-        vals.append(acc)
-        acc = acc * x % p
-    out = torch.from_numpy(ints_to_digits(vals)).to(device)
+    tracing.count("powers.miss")
+    tracing.count("powers.rows", n)
+    with tracing.span("powers.build"):
+        acc = start % p * R % p
+        vals = []
+        for _ in range(n):
+            vals.append(acc)
+            acc = acc * x % p
+        out = tracing.upload("powers", torch.from_numpy(ints_to_digits(vals)),
+                             device)
     if len(_POWERS_CACHE) >= 16:
         _POWERS_CACHE.pop(next(iter(_POWERS_CACHE)))
     _POWERS_CACHE[key] = out
@@ -84,13 +92,17 @@ def batch_eval_polys(df: DeviceField, pairs, rows=WHOLE) -> list[int]:
     uniq = list(dict.fromkeys(pt for _, pt in pairs))
     start = rows.rank * n
     p = df.spec.modulus
-    pw_stack = torch.stack([powers(df, pt, n, device, start=pow(pt, start, p))
-                            for pt in uniq])
-    lookup = {pt: i for i, pt in enumerate(uniq)}
-    gidx = torch.as_tensor([lookup[pt] for _, pt in pairs], device=device)
-    prod = fmul(df, polys, pw_stack.index_select(0, gidx))
-    return digit_sums_to_ints(
-        df, rows.sum_over_ranks(prod.to(torch.int64).sum(dim=1)))
+    with tracing.span("eval.powers"):
+        pw_stack = torch.stack([
+            powers(df, pt, n, device, start=pow(pt, start, p))
+            for pt in uniq])
+    with tracing.span("eval.batch"):
+        lookup = {pt: i for i, pt in enumerate(uniq)}
+        gidx = tracing.upload("eval_index", torch.as_tensor(
+            [lookup[pt] for _, pt in pairs]), device)
+        prod = fmul(df, polys, pw_stack.index_select(0, gidx))
+        return digit_sums_to_ints(
+            df, rows.sum_over_ranks(prod.to(torch.int64).sum(dim=1)))
 
 
 class MemoEval:

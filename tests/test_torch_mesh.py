@@ -34,13 +34,11 @@ Every rank's results must also equal its own single-device results and
 every other rank's.
 """
 import concurrent.futures
-import os
 import random
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from halo2_tpu import plonk as rplonk
 from halo2_tpu.circuit import Circuit as RCircuit, Value as RValue
@@ -68,7 +66,10 @@ K_ROWS4 = 5               # its K where 4 ranks hold their rows
 LOOKUP_K, TABLE_BITS, LOOKUP_ROWS = 5, 3, 16
 SEED = 77
 WORLDS = (2, 4)
-JOIN_TIMEOUT_S = 120
+# run_ranks's limit on a whole world (and its collectives' timeout): the
+# D = 4 world takes about 70 s alone on 8 cores and up to about 140 s
+# while the suite's other workers load them
+JOIN_TIMEOUT_S = 300
 
 
 def _tasks(D: int) -> list:
@@ -339,21 +340,3 @@ def test_roofline_model_uses_the_cards_constants():
     assert by == "bytes" and ms == (1 << 15) * 192 / 3.35e12 * 1e3
     ms, by = profiling.bound_ms(0, 16.7e9)
     assert (ms, by) == (1.0, "operations")
-
-
-def test_stage_timer_and_trace(tmp_path):
-    timer = profiling.StageTimer()
-    with timer.stage("ntt"):
-        pass
-    with timer.stage("msm"):
-        torch.ones(4).sum()
-    with timer.stage("ntt"):
-        pass
-    lines = timer.report().splitlines()
-    assert sorted(line.split()[0] for line in lines) == ["msm", "ntt"]
-    assert abs(sum(timer.stages.values())
-               - sum(float(line.split()[1][:-1]) for line in lines)) < 1e-2
-    with profiling.trace(str(tmp_path)) as log_dir:
-        torch.ones(8).cumsum(0)
-    assert log_dir == str(tmp_path)
-    assert os.path.getsize(os.path.join(log_dir, "trace.json")) > 0
